@@ -1,0 +1,28 @@
+"""Batching data pipeline (the "Data Cleaning" -> model feed path of Fig 1).
+
+numpy in, numpy out: the trainer moves each batch to its device.
+"""
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+
+
+def clean(images: np.ndarray, clip_percentile: float = 99.5) -> np.ndarray:
+    """Initial data cleaning (Fig 1): clamp extreme outliers, rescale to [0,1]."""
+    hi = np.percentile(images, clip_percentile)
+    x = np.clip(images, 0.0, hi) / max(hi, 1e-8)
+    return x.astype(np.float32)
+
+
+def batches(images: np.ndarray, labels: np.ndarray, batch_size: int,
+            *, seed: int = 0, drop_remainder: bool = True,
+            shuffle: bool = True) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Deterministic shuffled mini-batches."""
+    n = len(labels)
+    order = np.random.default_rng(seed).permutation(n) if shuffle else np.arange(n)
+    end = n - (n % batch_size) if drop_remainder else n
+    for i in range(0, end, batch_size):
+        idx = order[i:i + batch_size]
+        yield images[idx], labels[idx]

@@ -1,0 +1,970 @@
+"""Fused VQC statevector kernels for Hopper — the DQuLearn compute hot-spot.
+
+The data plane executes millions of small circuits (5–7 qubits, 10–30
+gates): the parameter-shift circuit banks.  Each circuit is simulated whole
+inside one kernel, from |0...0> to the ancilla readout; the statevector
+never touches device memory.  Three CUDA kernels (``csrc/``) replace the
+three Pallas kernels of ``repro/kernels/vqc_statevector.py`` that the
+training path reaches:
+
+  * ``vqc_fused.cu`` ``fused_kernel<false>`` replaces ``_fidelity_kernel``
+    (launched from ``_grid_call``): evolve the full n-qubit state, write the
+    ancilla P(0).  Materialized banks and per-worker row batches.
+  * ``vqc_fused.cu`` ``fused_kernel<true>`` replaces ``_state_kernel``: the
+    same evolution, writes the final (re, im) state.
+  * ``vqc_shiftbank.cu`` ``shiftbank_kernel`` replaces ``_shiftbank_kernel``
+    (the single-sweep branch of ``vqc_shift_fidelity``): prefix reuse on
+    the two m-qubit registers of the SWAP-test product structure.
+
+Design, shared by all three:
+
+  * The spec is data: ``spec.ops`` (or the shift plan) becomes an int32
+    table of ``(gate, q0, q1, q2, param_kind, param_idx)`` rows plus a
+    float32 column of constant angles, cached on the device per spec, so
+    one build serves every circuit.
+  * One thread owns one circuit.  Its state is one column of a block-shared
+    array laid out ``[amp][circuit]`` — the TPU's sublane/lane layout —
+    so neighbouring threads touch neighbouring words (no bank conflicts)
+    and no ``__syncthreads`` is needed between gates.
+  * What bounds them on an H100: per circuit the kernels read (P + D)
+    angle floats and write one float per requested row, so device memory
+    is never the limit; the float32 arithmetic of the gate applications
+    is (``chip_smoke.py`` computes both bounds per launch).  In practice
+    each gate is a read-modify-write sweep of the state through shared
+    memory, and shared-memory capacity caps a block at 128 circuits of a
+    7-qubit state, so latency and shared-memory traffic dominate.  The
+    design keeps the state out of device memory and leaves tensor-core
+    formulations to later work.
+
+Lane independence: each circuit's result depends only on its own angles,
+never on its position or the batch around it (the multibank per-lane bit
+identity depends on this).  On the CPU every wrapper takes the plain
+PyTorch version beside its kernel; on a CUDA tensor it launches the kernel
+or raises.
+
+The host half (``ShiftPlan`` .. ``multibank_stats``) is the reference's,
+with the TPU tile policy (``LANES = 128``, ``kernel_tb``, a 14 MB VMEM
+budget) replaced by one Hopper memory model: ``kernel_tb`` picks circuits
+per block from a 227 KB shared-memory budget, and the kernel wrappers,
+``plan_depth_tiles`` and ``shift_execution_info`` all read it.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core.shift_rule import shift_values
+from repro_torch.core.sim import CircuitSpec
+from repro_torch.kernels import _build
+
+# ------------------------------------------------------------ tile policy
+#: a warp: blocks hold a multiple of this many circuits, and multibank lane
+#: segments pad to it.
+LANES = 32
+#: the most threads (= circuits) one block may hold.
+MAX_BLOCK_LANES = 1024
+#: dynamic shared memory one block may use on an H100 (227 KB of the SM's
+#: 256 KB; above 48 KB only after cudaFuncSetAttribute, done per launch).
+SMEM_BUDGET_BYTES = 227 * 1024
+#: live non-checkpoint states the shift kernel holds (data state, running
+#: state, chi, one shifted variant) — reserved out of the budget.
+_RESERVED_STATES = 4
+
+#: kernel launches per wrapper; counted only where a CUDA kernel launches.
+LAUNCHES = {"fidelity": 0, "state": 0, "shiftbank": 0}
+
+
+def _state_bytes(m: int, tb: int) -> int:
+    """Bytes of one (re, im) m-qubit state for ``tb`` circuits."""
+    return 2 * 4 * (2**m) * tb
+
+
+def kernel_tb(n_lanes: int, lane_bytes: int, smem_budget: int = SMEM_BUDGET_BYTES) -> int:
+    """Circuits per block for a launch over ``n_lanes`` circuits that each
+    need ``lane_bytes`` of shared memory: the largest power of two in
+    [LANES, MAX_BLOCK_LANES] whose states fit ``smem_budget``, shrunk to
+    the batch's power-of-two envelope but never below one warp.  Returns 0
+    when not even one warp of circuits fits.
+
+    Every launch, and every model of a launch's footprint
+    (``plan_depth_tiles``, ``shift_execution_info``), MUST take its block
+    size from here: a divergent copy would silently mis-predict the
+    kernel's shared memory, and a launch asking for more than the card
+    has is refused."""
+    tb = MAX_BLOCK_LANES
+    while tb >= LANES and tb * lane_bytes > smem_budget:
+        tb //= 2
+    if tb < LANES:
+        return 0
+    return min(tb, max(LANES, 1 << (max(n_lanes, 1) - 1).bit_length()))
+
+
+# ----------------------------------------------------------- gate micro-ops
+# Plain PyTorch transcription of the reference's structured micro-ops: each
+# helper works on (re, im) tensors of shape (2**n, TB) and per-lane angle
+# vectors of shape (TB,).  Qubit q is the q-th MOST significant bit of the
+# basis (row) index, matching repro_torch.core.sim.
+
+
+def _split1(x, q: int, n: int):
+    """-> (x0, x1) halves along qubit q's bit; each (2**q, 2**(n-q-1), TB)."""
+    t = x.reshape(2**q, 2, 2 ** (n - q - 1), x.shape[-1])
+    return t[:, 0], t[:, 1]
+
+
+def _merge1(x0, x1, n: int):
+    return torch.stack([x0, x1], dim=1).reshape(2**n, x0.shape[-1])
+
+
+def _rot1(re, im, q, n, c, s, kind):
+    """Apply RX/RY/RZ with per-lane cos/sin (c, s) on qubit q."""
+    r0, r1 = _split1(re, q, n)
+    i0, i1 = _split1(im, q, n)
+    if kind == "ry":  # [[c,-s],[s,c]] real
+        nr0, ni0 = c * r0 - s * r1, c * i0 - s * i1
+        nr1, ni1 = s * r0 + c * r1, s * i0 + c * i1
+    elif kind == "rx":  # [[c,-is],[-is,c]]
+        nr0, ni0 = c * r0 + s * i1, c * i0 - s * r1
+        nr1, ni1 = c * r1 + s * i0, c * i1 - s * r0
+    elif kind == "rz":  # diag(e^{-it/2}, e^{it/2})
+        nr0, ni0 = c * r0 + s * i0, c * i0 - s * r0
+        nr1, ni1 = c * r1 - s * i1, c * i1 + s * r1
+    else:
+        raise ValueError(kind)
+    return _merge1(nr0, nr1, n), _merge1(ni0, ni1, n)
+
+
+def _split2(x, qa, qb, n):
+    """-> 2x2 blocks b[ba][bb] over qubits qa < qb."""
+    t = x.reshape(2**qa, 2, 2 ** (qb - qa - 1), 2, 2 ** (n - qb - 1), x.shape[-1])
+    return ((t[:, 0, :, 0], t[:, 0, :, 1]), (t[:, 1, :, 0], t[:, 1, :, 1]))
+
+
+def _merge2(b, n):
+    t = torch.stack(
+        [torch.stack([b[0][0], b[0][1]], dim=2), torch.stack([b[1][0], b[1][1]], dim=2)],
+        dim=1,
+    )
+    return t.reshape(2**n, b[0][0].shape[-1])
+
+
+def _rot2(re, im, qa, qb, n, c, s, kind):
+    """RYY / RZZ / CRY / CRZ with per-lane (c, s); qa < qb required."""
+    R = _split2(re, qa, qb, n)
+    I = _split2(im, qa, qb, n)  # noqa: E741
+    r00, r01, r10, r11 = R[0][0], R[0][1], R[1][0], R[1][1]
+    i00, i01, i10, i11 = I[0][0], I[0][1], I[1][0], I[1][1]
+    if kind == "rzz":  # e^{-it/2} on |00>,|11>; e^{+it/2} on |01>,|10>
+        nr00, ni00 = c * r00 + s * i00, c * i00 - s * r00
+        nr11, ni11 = c * r11 + s * i11, c * i11 - s * r11
+        nr01, ni01 = c * r01 - s * i01, c * i01 + s * r01
+        nr10, ni10 = c * r10 - s * i10, c * i10 + s * r10
+    elif kind == "ryy":  # couples (00,11) with +i s, (01,10) with -i s
+        nr00, ni00 = c * r00 - s * i11, c * i00 + s * r11
+        nr11, ni11 = c * r11 - s * i00, c * i11 + s * r00
+        nr01, ni01 = c * r01 + s * i10, c * i01 - s * r10
+        nr10, ni10 = c * r10 + s * i01, c * i10 - s * r01
+    elif kind == "cry":  # RY on qb within qa=1 block
+        nr00, ni00, nr01, ni01 = r00, i00, r01, i01
+        nr10, ni10 = c * r10 - s * r11, c * i10 - s * i11
+        nr11, ni11 = s * r10 + c * r11, s * i10 + c * i11
+    elif kind == "crz":  # RZ on qb within qa=1 block
+        nr00, ni00, nr01, ni01 = r00, i00, r01, i01
+        nr10, ni10 = c * r10 + s * i10, c * i10 - s * r10
+        nr11, ni11 = c * r11 - s * i11, c * i11 + s * r11
+    else:
+        raise ValueError(kind)
+    return (
+        _merge2(((nr00, nr01), (nr10, nr11)), n),
+        _merge2(((ni00, ni01), (ni10, ni11)), n),
+    )
+
+
+def _h(re, im, q, n):
+    inv = 0.7071067811865476
+    r0, r1 = _split1(re, q, n)
+    i0, i1 = _split1(im, q, n)
+    return (
+        _merge1((r0 + r1) * inv, (r0 - r1) * inv, n),
+        _merge1((i0 + i1) * inv, (i0 - i1) * inv, n),
+    )
+
+
+def _cswap(re, im, qa, qb, qc_, n):
+    """Fredkin: control qa, swap qb<->qc_ (qa < qb < qc_)."""
+    outs = []
+    for x in (re, im):
+        t = x.reshape(
+            2**qa, 2, 2 ** (qb - qa - 1), 2, 2 ** (qc_ - qb - 1), 2,
+            2 ** (n - qc_ - 1), x.shape[-1],
+        ).clone()
+        # within control=1 block, swap the (qb, qc_) bit pair (0,1)<->(1,0)
+        a01 = t[:, 1, :, 0, :, 1].clone()
+        t[:, 1, :, 0, :, 1] = t[:, 1, :, 1, :, 0]
+        t[:, 1, :, 1, :, 0] = a01
+        outs.append(t.reshape(2**n, x.shape[-1]))
+    return outs[0], outs[1]
+
+
+def _op_angle(op, theta_t, data_t, delta: float = 0.0):
+    """Per-lane angle vector for a parameterized op (+ static shift delta)."""
+    kind, j = op.param
+    if kind == "theta":
+        ang = theta_t[j]
+    elif kind == "data":
+        ang = data_t[j]
+    elif kind == "const":
+        ang = torch.tensor(j, dtype=torch.float32, device=theta_t.device)
+    else:
+        raise ValueError(op.param)
+    return ang + delta if delta else ang
+
+
+def _apply_one(op, re, im, n, theta_t, data_t, delta: float = 0.0, invert: bool = False):
+    """Apply one gate (optionally angle-shifted by ``delta`` or inverted).
+    ``theta_t`` / ``data_t`` are (P, TB) / (D, TB) angle blocks."""
+    if op.gate == "h":
+        return _h(re, im, op.qubits[0], n)  # self-inverse
+    if op.gate == "cswap":
+        return _cswap(re, im, *op.qubits, n)  # self-inverse
+    ang = _op_angle(op, theta_t, data_t, delta)
+    if invert:  # rotation: g(t)^dagger = g(-t)
+        ang = -ang
+    c, s = torch.cos(ang / 2), torch.sin(ang / 2)
+    if op.gate in ("rx", "ry", "rz"):
+        return _rot1(re, im, op.qubits[0], n, c, s, op.gate)
+    qa, qb = sorted(op.qubits)  # _op_row rejected descending cry/crz
+    return _rot2(re, im, qa, qb, n, c, s, op.gate)
+
+
+def _zero_tile(dim: int, tb: int, device):
+    re = torch.zeros((dim, tb), dtype=torch.float32, device=device)
+    re[0] = 1.0
+    return re, torch.zeros((dim, tb), dtype=torch.float32, device=device)
+
+
+def _rowsum(x):
+    """Sum over the amplitude rows in a fixed sequential order, so a lane's
+    result never depends on how a reduction is split across the batch."""
+    acc = x[0]
+    for a in range(1, x.shape[0]):
+        acc = acc + x[a]
+    return acc
+
+
+def _inner_fidelity(chi, phi):
+    """|<chi|phi>|^2 per lane; chi/phi are (re, im) pairs of (dim, TB)."""
+    cre, cim = chi
+    pre, pim = phi
+    ip_re = _rowsum(cre * pre + cim * pim)
+    ip_im = _rowsum(cre * pim - cim * pre)
+    return ip_re * ip_re + ip_im * ip_im
+
+
+# ------------------------------------------------------------- op tables
+_GATE_CODE = {"h": 0, "cswap": 1, "rx": 2, "ry": 3, "rz": 4,
+              "ryy": 5, "rzz": 6, "cry": 7, "crz": 8}
+_PARAM_CODE = {"theta": 1, "data": 2, "const": 3}
+
+
+def _op_row(op) -> tuple[list[int], float]:
+    """One op -> its kernel-table row ``[gate, q0, q1, q2, kind, idx]`` and
+    constant angle.  Rejects, before any launch, exactly what the
+    reference's ``_apply_one`` cannot run: x and swap, descending cry/crz
+    (descending ryy/rzz are symmetric and swapped to ascending), and a
+    CSWAP whose qubits are not ascending."""
+    if op.gate not in _GATE_CODE:
+        raise NotImplementedError(op.gate)
+    qs = list(op.qubits)
+    if op.gate in ("ryy", "rzz", "cry", "crz") and qs[0] > qs[1]:
+        if op.gate in ("cry", "crz"):
+            raise NotImplementedError(
+                f"{op.gate} requires ascending (control, target) qubits"
+            )
+        qs.reverse()
+    if op.gate == "cswap" and not qs[0] < qs[1] < qs[2]:
+        raise NotImplementedError("cswap requires ascending qubits")
+    kind, idx, const = 0, 0, 0.0
+    if op.param is not None:
+        if op.param[0] not in _PARAM_CODE:
+            raise ValueError(op.param)
+        kind = _PARAM_CODE[op.param[0]]
+        if op.param[0] == "const":
+            const = float(op.param[1])
+        else:
+            idx = int(op.param[1])
+    return [_GATE_CODE[op.gate], *qs, *[0] * (3 - len(qs)), kind, idx], const
+
+
+def _ops_table(ops) -> tuple[np.ndarray, np.ndarray]:
+    rows = [_op_row(op) for op in ops]
+    ints = np.array([r for r, _ in rows], np.int32).reshape(-1, 6)
+    return ints, np.array([c for _, c in rows], np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _spec_table(spec: CircuitSpec):
+    return _ops_table(spec.ops)
+
+
+_DEVICE_TABLES: dict = {}
+
+
+def _on_device(key, arrays, device) -> tuple[torch.Tensor, ...]:
+    """Host tables copied to ``device`` once per (key, device)."""
+    k = (key, device)
+    got = _DEVICE_TABLES.get(k)
+    if got is None:
+        got = _DEVICE_TABLES[k] = tuple(torch.from_numpy(a).to(device) for a in arrays)
+    return got
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(None)
+
+
+@functools.cache
+def _lib(name: str):
+    """The built kernel library with its C entry points declared."""
+    lib = _build.load(name)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    if name == "vqc_fused":
+        lib.vqc_fused_launch.argtypes = (
+            [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, vp, i32, i32, i32, vp]
+        )
+        lib.vqc_fused_launch.restype = i32
+    else:
+        lib.vqc_shiftbank_launch.argtypes = (
+            [vp, vp, i32, i32, i32, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp, i32, i32, vp]
+        )
+        lib.vqc_shiftbank_launch.restype = i32
+    lib.vqc_error_string.argtypes = [i32]
+    lib.vqc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_launch(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: {lib.vqc_error_string(rc).decode()}")
+
+
+def _prepare(spec: CircuitSpec, theta, data):
+    """Validate a (C, P) / (C, D) batch and return float32 contiguous copies
+    plus the device kind that decides the path ("cpu" -> plain version)."""
+    if theta.dim() != 2 or data.dim() != 2 or theta.shape[0] != data.shape[0]:
+        raise ValueError(
+            f"expected theta (C, P) and data (C, D), got {tuple(theta.shape)} "
+            f"and {tuple(data.shape)}"
+        )
+    if theta.shape[1] < spec.n_theta or data.shape[1] < spec.n_data:
+        raise ValueError(
+            f"spec needs {spec.n_theta} theta and {spec.n_data} data angles, "
+            f"got {theta.shape[1]} and {data.shape[1]}"
+        )
+    if theta.device != data.device:
+        raise ValueError(f"theta on {theta.device} but data on {data.device}")
+    kind = theta.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no statevector kernel for device {theta.device}")
+    return theta.to(torch.float32).contiguous(), data.to(torch.float32).contiguous(), kind
+
+
+# ------------------------------------------- kernels 1 and 2: full circuits
+def _fused_plain(spec: CircuitSpec, theta, data, want_state: bool):
+    """Plain version of ``fused_kernel``: the whole circuit on a (2**n, C)
+    tile.  Returns P0 (C,) or the final state (re, im), each (C, 2**n)."""
+    n = spec.n_qubits
+    re, im = _zero_tile(2**n, theta.shape[0], theta.device)
+    th, dt = theta.T, data.T
+    for op in spec.ops:
+        re, im = _apply_one(op, re, im, n, th, dt)
+    if want_state:
+        return re.T.contiguous(), im.T.contiguous()
+    half = 2 ** (n - 1)
+    return _rowsum(re[:half] * re[:half] + im[:half] * im[:half])
+
+
+def _fused_cuda(spec: CircuitSpec, theta, data, want_state: bool):
+    c, n = theta.shape[0], spec.n_qubits
+    tb = kernel_tb(c, _state_bytes(n, 1))
+    if tb == 0:
+        raise NotImplementedError(
+            f"{LANES} circuits of {n} qubits exceed the {SMEM_BUDGET_BYTES}-byte "
+            "shared-memory budget of one block"
+        )
+    dev = theta.device
+    ops_i, ops_f = _on_device(spec, _spec_table(spec), dev)
+    if want_state:
+        p0 = None
+        re = torch.empty((c, 2**n), dtype=torch.float32, device=dev)
+        im = torch.empty((c, 2**n), dtype=torch.float32, device=dev)
+    else:
+        p0 = torch.empty((c,), dtype=torch.float32, device=dev)
+        re = im = None
+    if c:
+        lib = _lib("vqc_fused")
+        with torch.cuda.device(dev):
+            rc = lib.vqc_fused_launch(
+                _ptr(theta), _ptr(data), c, theta.shape[1], data.shape[1],
+                _ptr(ops_i), _ptr(ops_f), len(spec.ops), n,
+                _ptr(p0), _ptr(re), _ptr(im), int(want_state),
+                tb, _state_bytes(n, tb),
+                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+            )
+        _check_launch(lib, rc, "fused statevector")
+        LAUNCHES["state" if want_state else "fidelity"] += 1
+    return (re, im) if want_state else p0
+
+
+def vqc_p0(spec: CircuitSpec, theta: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """Batched ancilla-P0 for a circuit bank. theta: (C,P), data: (C,D) -> (C,)."""
+    _spec_table(spec)  # rejects unsupported gates on every device
+    theta, data, kind = _prepare(spec, theta, data)
+    if kind == "cpu":
+        return _fused_plain(spec, theta, data, want_state=False)
+    return _fused_cuda(spec, theta, data, want_state=False)
+
+
+def vqc_state(spec: CircuitSpec, theta: torch.Tensor, data: torch.Tensor):
+    """Batched final statevector (re, im), each (C, 2**n)."""
+    _spec_table(spec)
+    theta, data, kind = _prepare(spec, theta, data)
+    if kind == "cpu":
+        return _fused_plain(spec, theta, data, want_state=True)
+    return _fused_cuda(spec, theta, data, want_state=True)
+
+
+# ----------------------------------------------- shift-structured execution
+#
+# The parameter-shift bank's (1 + 2P) * B rows differ from the B base rows
+# by exactly ONE angle each.  For the QuClassi circuit family — encoding on
+# the data register, the variational stack on the trainable register, then
+# the SWAP-test tail — fidelity = |<psi_d|psi_t>|^2, so the shift kernel
+# evolves the two 2**m-dim register states instead of the full state:
+#
+#   1. data register: ONE pass (theta-independent, shared by every variant);
+#   2. trainable register FORWARD pass with base angles, checkpointing the
+#      prefix state just before each anchored parameter's FIRST gate;
+#   3. BACKWARD pass holding chi_k = (U_suffix_k)^dagger psi_d: a variant of
+#      parameter j replays its [first, last] span from the checkpoint with
+#      the shift added to each of its gates, then takes |<chi|psi>|^2.
+#
+# Circuits without that structure return ``None`` from ``build_shift_plan``;
+# plans whose replay cost exceeds the materialized bank's route to the
+# materialized path (``shift_cost_info``).
+
+ROT_GATES = ("rx", "ry", "rz", "ryy", "rzz", "cry", "crz")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftPlan:
+    """Static execution plan for the prefix-reuse shift kernel.
+
+    ``data_ops`` / ``train_ops`` are the body ops remapped to register-local
+    qubit indices (register width ``m``); ``theta_positions[j]`` is the
+    ascending tuple of indices into ``train_ops`` of parameter j's dependent
+    gates — empty when the parameter drives no gate, length > 1 for
+    multi-use parameters (executed by suffix replay over [first, last]).
+    """
+
+    m: int
+    data_ops: tuple
+    train_ops: tuple
+    theta_positions: tuple[tuple[int, ...], ...]
+
+    def replay_depth(self, j: int) -> int:
+        """Gates a shift variant of parameter j replays from its checkpoint."""
+        ps = self.theta_positions[j]
+        return (ps[-1] - ps[0] + 1) if ps else 0
+
+
+def _remap_op(op, mapping):
+    return dataclasses.replace(op, qubits=tuple(mapping[q] for q in op.qubits))
+
+
+@functools.lru_cache(maxsize=None)
+def build_shift_plan(spec: CircuitSpec) -> ShiftPlan | None:
+    """Verify the SWAP-test product structure; None -> caller must fall back."""
+    ops = spec.ops
+    # --- tail: H(anc), m CSWAP(anc, d_i, t_i), H(anc)
+    if len(ops) < 3 or ops[-1].gate != "h":
+        return None
+    anc = ops[-1].qubits[0]
+    k = len(ops) - 2
+    pairs = []
+    while k >= 0 and ops[k].gate == "cswap":
+        a, d, t = ops[k].qubits
+        if a != anc:
+            return None
+        pairs.append((d, t))
+        k -= 1
+    if k < 0 or ops[k].gate != "h" or ops[k].qubits != (anc,) or not pairs:
+        return None
+    pairs.reverse()
+    data_q = [d for d, _ in pairs]
+    train_q = [t for _, t in pairs]
+    m = len(pairs)
+    regs = set(data_q) | set(train_q) | {anc}
+    if len(regs) != 2 * m + 1 or regs != set(range(spec.n_qubits)):
+        return None
+    data_map = {q: i for i, q in enumerate(data_q)}
+    train_map = {q: i for i, q in enumerate(train_q)}
+
+    # --- body: every op entirely inside one register; theta only on train
+    data_ops, train_ops = [], []
+    theta_pos: dict[int, list[int]] = {}
+    for op in ops[:k]:
+        qs = set(op.qubits)
+        is_theta = op.param is not None and op.param[0] == "theta"
+        if qs <= set(data_q):
+            if is_theta or op.gate == "cswap":
+                return None
+            data_ops.append(_remap_op(op, data_map))
+        elif qs <= set(train_q):
+            if op.gate == "cswap":
+                return None
+            if is_theta:
+                j = op.param[1]
+                if op.gate not in ROT_GATES:
+                    return None  # no shift rule for non-rotation theta gates
+                theta_pos.setdefault(j, []).append(len(train_ops))
+            train_ops.append(_remap_op(op, train_map))
+        else:
+            return None  # op straddles registers / touches ancilla
+    # descending cry/crz cannot run; reject here instead of at launch
+    for op in data_ops + train_ops:
+        if op.gate in ("cry", "crz") and op.qubits[0] > op.qubits[1]:
+            return None
+    pos = tuple(tuple(theta_pos.get(j, ())) for j in range(spec.n_theta))
+    return ShiftPlan(
+        m=m,
+        data_ops=tuple(data_ops),
+        train_ops=tuple(train_ops),
+        theta_positions=pos,
+    )
+
+
+def _collect_variants(plan: ShiftPlan, shifts, groups, n_params: int):
+    """Map ANCHOR train-op position -> [(group, param, shift)].
+
+    A variant anchors at its parameter's LAST dependent gate; position -1
+    collects groups whose parameter drives no gate (their shifted fidelity
+    is the base fidelity)."""
+    wanted = set(groups)
+    variants = {}
+    for s_idx, s in enumerate(shifts):
+        for j in range(n_params):
+            g = 1 + s_idx * n_params + j
+            if g not in wanted:
+                continue
+            ps = plan.theta_positions[j]
+            variants.setdefault(ps[-1] if ps else -1, []).append((g, j, s))
+    return variants
+
+
+def _replay_variant(plan: ShiftPlan, j: int, s: float, state, theta_t, data_t):
+    """Suffix replay for one shift variant: parameter j's [first, last] span
+    of train ops applied to its checkpoint, shift ``s`` on its own gates."""
+    first, last = plan.theta_positions[j][0], plan.theta_positions[j][-1]
+    re, im = state
+    for k in range(first, last + 1):
+        op = plan.train_ops[k]
+        delta = s if op.param == ("theta", j) else 0.0
+        re, im = _apply_one(op, re, im, plan.m, theta_t, data_t, delta=delta)
+    return re, im
+
+
+def checkpoint_smem_bytes(plan: ShiftPlan, n_positions: int, tb: int) -> int:
+    """Shared memory the shift kernel holds for its live checkpoint set."""
+    return (n_positions + _RESERVED_STATES) * _state_bytes(plan.m, tb)
+
+
+def _merge_spans(plan: ShiftPlan, positions):
+    """Merge variant anchor positions into atomic (first, n_checkpoints)
+    segments: each anchor drags its parameter's [first, last] replay span
+    along, and overlapping spans fuse (a tile boundary inside a span would
+    strand a replay's checkpoint in the previous tile)."""
+    first_of = {ps[-1]: ps[0] for ps in plan.theta_positions if ps}
+    segments: list[list] = []  # [lo, hi_anchor, {checkpoint positions}]
+    for f, k in sorted((first_of.get(k, k), k) for k in positions):
+        if segments and f <= segments[-1][1]:
+            segments[-1][1] = max(segments[-1][1], k)
+            segments[-1][2].add(f)
+        else:
+            segments.append([f, k, {f}])
+    return [(seg[0], len(seg[2])) for seg in segments]
+
+
+def plan_depth_tiles(
+    plan: ShiftPlan, positions, tb: int = LANES, smem_budget: int = SMEM_BUDGET_BYTES
+):
+    """Cut variant anchor positions into depth tiles that fit the budget.
+
+    Returns None when every checkpoint fits one sweep, else a tuple of
+    (lo, hi) train-op ranges.  ``tb`` defaults to the smallest block
+    ``kernel_tb`` can pick, so None here is exactly "a block of at least one
+    warp fits", the condition for the single-sweep kernel.  Multi-use replay
+    spans are atomic: a segment never straddles a tile boundary.
+    """
+    positions = sorted(positions)
+    if not positions:
+        return None
+    cap = max(1, smem_budget // _state_bytes(plan.m, tb) - _RESERVED_STATES)
+    segments = _merge_spans(plan, positions)
+    if sum(n for _, n in segments) <= cap:
+        return None
+    chunks: list[list] = []
+    cur, cur_n = [], 0
+    for lo, n in segments:
+        if cur and cur_n + n > cap:
+            chunks.append(cur)
+            cur, cur_n = [], 0
+        cur.append((lo, n))
+        cur_n += n
+    if cur:
+        chunks.append(cur)
+    bounds = [c[0][0] for c in chunks] + [len(plan.train_ops)]
+    return tuple(zip(bounds[:-1], bounds[1:]))
+
+
+def plan_gate_apps(plan: ShiftPlan, shifts, groups, n_params: int) -> int:
+    """Per-lane gate applications of the prefix-reuse execution for the
+    requested groups: data pass + forward pass + backward walk down to the
+    shallowest anchor + every variant's suffix replay."""
+    variants = _collect_variants(plan, shifts, groups, n_params)
+    anchors = [k for k in variants if k >= 0]
+    total = len(plan.data_ops) + len(plan.train_ops)
+    if not anchors:
+        return total
+    total += len(plan.train_ops) - min(anchors)
+    for k in anchors:
+        for _, j, _ in variants[k]:
+            total += plan.replay_depth(j)
+    return total
+
+
+@functools.lru_cache(maxsize=None)
+def shift_cost_info(
+    spec: CircuitSpec,
+    four_term: bool = False,
+    groups: tuple[int, ...] | None = None,
+) -> dict:
+    """Analytic per-lane cost of executing a shift bank implicitly (prefix
+    reuse + suffix replay) vs materialized ((1+2P)x full-circuit rows), and
+    the mode the ops layer selects."""
+    n_shifts = 4 if four_term else 2
+    n_groups = 1 + n_shifts * spec.n_theta
+    if groups is None:
+        groups = tuple(range(n_groups))
+    materialized = len(spec.ops) * len(groups)
+    plan = build_shift_plan(spec)
+    if plan is None:
+        return {
+            "gate_apps_implicit": None,
+            "gate_apps_materialized": materialized,
+            "replay_depth_max": 0,
+            "use_implicit": False,
+        }
+    shifts = tuple(float(s) for s in shift_values(four_term))
+    implicit = plan_gate_apps(plan, shifts, groups, spec.n_theta)
+    depth = max((plan.replay_depth(j) for j in range(spec.n_theta)), default=0)
+    return {
+        "gate_apps_implicit": implicit,
+        "gate_apps_materialized": materialized,
+        "replay_depth_max": depth,
+        "use_implicit": implicit < materialized,
+    }
+
+
+def use_shift_plan(
+    spec: CircuitSpec,
+    four_term: bool = False,
+    groups: tuple[int, ...] | None = None,
+) -> bool:
+    """True when the implicit prefix-reuse path analytically beats
+    materializing the requested groups (requires a plan to exist)."""
+    return shift_cost_info(spec, four_term, groups)["use_implicit"]
+
+
+def _n_checkpoints(plan: ShiftPlan, variants, positions) -> int:
+    return len({plan.theta_positions[j][0] for k in positions for (_, j, _) in variants[k]})
+
+
+def shift_execution_info(
+    spec: CircuitSpec,
+    n_samples: int,
+    *,
+    four_term: bool = False,
+    groups: tuple[int, ...] | None = None,
+    smem_budget: int = SMEM_BUDGET_BYTES,
+) -> dict:
+    """Static execution-mode report: which path a shift bank takes, the
+    block size ``kernel_tb`` gives it and its shared memory.  ``mode`` is
+    "materialize", "fused" (single-sweep shift kernel) or "spill" (depth
+    tiles; analytic only until the spill kernels are ported)."""
+    plan = build_shift_plan(spec)
+    n_shifts = 4 if four_term else 2
+    if groups is None:
+        groups = tuple(range(1 + n_shifts * spec.n_theta))
+    cost = shift_cost_info(spec, four_term, tuple(groups))
+    base = {
+        "gate_apps_implicit": cost["gate_apps_implicit"],
+        "gate_apps_materialized": cost["gate_apps_materialized"],
+        "replay_depth_max": cost["replay_depth_max"],
+        "smem_budget": smem_budget,
+    }
+    if plan is None or not cost["use_implicit"]:
+        tb = kernel_tb(n_samples, _state_bytes(spec.n_qubits, 1), smem_budget)
+        return {"mode": "materialize", "launches": 1, "n_tiles": 0, "tb": tb,
+                "smem_bytes": _state_bytes(spec.n_qubits, tb), **base}
+    variants = _collect_variants(plan, shift_values(four_term), groups, spec.n_theta)
+    positions = sorted(k for k in variants if k >= 0)
+    tiles = plan_depth_tiles(plan, positions, LANES, smem_budget)
+    if tiles is None:
+        n_ckpt = _n_checkpoints(plan, variants, positions)
+        tb = kernel_tb(n_samples, checkpoint_smem_bytes(plan, n_ckpt, 1), smem_budget)
+        return {"mode": "fused", "launches": 1, "n_tiles": 0, "tb": tb,
+                "smem_bytes": checkpoint_smem_bytes(plan, n_ckpt, tb), **base}
+    n_ckpt_max = max(
+        _n_checkpoints(plan, variants, [k for k in positions if lo <= k < hi])
+        for lo, hi in tiles
+    )
+    spill = _state_bytes(plan.m, LANES)
+    return {
+        "mode": "spill",
+        "launches": 1 + len(tiles),
+        "n_tiles": len(tiles),
+        "tb": LANES,
+        "smem_bytes": checkpoint_smem_bytes(plan, n_ckpt_max, LANES) + spill,
+        "spill_buffer_bytes": spill,
+        **base,
+    }
+
+
+# ------------------------------------------------- kernel 3: shift groups
+def _shiftbank_plain(plan: ShiftPlan, shifts, groups, n_params: int, theta, data):
+    """Plain version of ``shiftbank_kernel``: (G, B) rows in ``groups``
+    order; group 0 is the base fidelity, group 1 + s*P + j is shift s of
+    param j (bank order)."""
+    dim, b = 2**plan.m, theta.shape[0]
+    th, dt = theta.T, data.T
+
+    # 1. data register: one theta-independent pass, shared by every variant.
+    d_re, d_im = _zero_tile(dim, b, theta.device)
+    for op in plan.data_ops:
+        d_re, d_im = _apply_one(op, d_re, d_im, plan.m, th, dt)
+
+    wanted = set(groups)
+    variants = _collect_variants(plan, shifts, groups, n_params)
+    anchors = sorted(k for k in variants if k >= 0)
+    firsts = {plan.theta_positions[j][0] for a in anchors for (_, j, _) in variants[a]}
+
+    # 2. forward pass with base angles, checkpointing before each anchored
+    #    parameter's FIRST dependent gate.
+    checkpoints = {}
+    t_re, t_im = _zero_tile(dim, b, theta.device)
+    for k, op in enumerate(plan.train_ops):
+        if k in firsts:
+            checkpoints[k] = (t_re, t_im)
+        t_re, t_im = _apply_one(op, t_re, t_im, plan.m, th, dt)
+
+    rows = {}
+    f0 = _inner_fidelity((d_re, d_im), (t_re, t_im))
+    if 0 in wanted:
+        rows[0] = f0
+    for g, _, _ in variants.get(-1, ()):  # shifting an unused param is a no-op
+        rows[g] = f0
+
+    # 3. backward pass: chi = (suffix)^dagger psi_d, one suffix replay + one
+    #    inner product per variant; chi below the shallowest anchor is unused.
+    lowest = anchors[0] if anchors else len(plan.train_ops)
+    c_re, c_im = d_re, d_im
+    for k in range(len(plan.train_ops) - 1, lowest - 1, -1):
+        op = plan.train_ops[k]
+        for g, j, s in variants.get(k, ()):
+            first = plan.theta_positions[j][0]
+            v = _replay_variant(plan, j, s, checkpoints[first], th, dt)
+            rows[g] = _inner_fidelity((c_re, c_im), v)
+        if k > lowest:
+            c_re, c_im = _apply_one(op, c_re, c_im, plan.m, th, dt, invert=True)
+    return torch.stack([rows[g] for g in groups], dim=0)
+
+
+@dataclasses.dataclass(frozen=True)
+class _ShiftTable:
+    """The shift plan as kernel data.  ``ints`` holds, in order: data ops
+    and train ops (6 ints each), the checkpoint slot of each train op (-1
+    for none), the variants as (row, param, first, last, anchor) in the
+    order the backward walk meets them (anchor descending), and the output
+    rows that take the base fidelity.  ``floats`` holds the data-op and
+    train-op constant angles and one float32 shift per variant."""
+
+    ints: np.ndarray
+    floats: np.ndarray
+    n_data_ops: int
+    n_train_ops: int
+    n_ckpt: int
+    n_variants: int
+    n_f0_rows: int
+    lowest: int
+    positions: tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_table(spec: CircuitSpec, four_term: bool, groups: tuple[int, ...]) -> _ShiftTable:
+    plan = build_shift_plan(spec)
+    variants = _collect_variants(plan, shift_values(four_term), groups, spec.n_theta)
+    rows_of: dict[int, list[int]] = {}
+    for i, g in enumerate(groups):
+        rows_of.setdefault(g, []).append(i)
+    anchors = sorted(k for k in variants if k >= 0)
+    firsts = sorted({plan.theta_positions[j][0] for a in anchors for (_, j, _) in variants[a]})
+    slot = {k: i for i, k in enumerate(firsts)}
+    ckpt = [slot.get(k, -1) for k in range(len(plan.train_ops))]
+    var_ints, var_shifts = [], []
+    for k in reversed(anchors):
+        for g, j, s in variants[k]:
+            ps = plan.theta_positions[j]
+            for r in rows_of[g]:
+                var_ints += [r, j, ps[0], ps[-1], k]
+                var_shifts.append(s)
+    f0_groups = {g for g, _, _ in variants.get(-1, ())} | ({0} & set(groups))
+    f0_rows = [i for i, g in enumerate(groups) if g in f0_groups]
+    d_i, d_f = _ops_table(plan.data_ops)
+    t_i, t_f = _ops_table(plan.train_ops)
+    ints = np.concatenate(
+        [d_i.ravel(), t_i.ravel(), np.array(ckpt + var_ints + f0_rows, np.int32)]
+    ).astype(np.int32)
+    floats = np.concatenate([d_f, t_f, np.array(var_shifts, np.float32)]).astype(np.float32)
+    return _ShiftTable(
+        ints, floats, len(plan.data_ops), len(plan.train_ops), len(firsts),
+        len(var_shifts), len(f0_rows),
+        anchors[0] if anchors else len(plan.train_ops), tuple(anchors),
+    )
+
+
+def _shiftbank_cuda(spec: CircuitSpec, plan: ShiftPlan, four_term: bool, groups, theta, data):
+    tab = _shift_table(spec, four_term, groups)
+    b = theta.shape[0]
+    tb = kernel_tb(b, checkpoint_smem_bytes(plan, tab.n_ckpt, 1))
+    if plan_depth_tiles(plan, tab.positions, LANES) is not None or tb == 0:
+        raise NotImplementedError(
+            f"the checkpoints of this {plan.m}-qubit register plan exceed one "
+            "block's shared memory and need the spill kernels, which are not "
+            "ported yet (ROADMAP Queue 2, kernels 4+5)"
+        )
+    dev = theta.device
+    ints, floats = _on_device((spec, four_term, groups), (tab.ints, tab.floats), dev)
+    out = torch.empty((len(groups), b), dtype=torch.float32, device=dev)
+    if b:
+        lib = _lib("vqc_shiftbank")
+        with torch.cuda.device(dev):
+            rc = lib.vqc_shiftbank_launch(
+                _ptr(theta), _ptr(data), b, theta.shape[1], data.shape[1],
+                _ptr(ints), _ptr(floats), plan.m, tab.n_data_ops, tab.n_train_ops,
+                tab.n_ckpt, tab.n_variants, tab.n_f0_rows, tab.lowest,
+                _ptr(out), tb, checkpoint_smem_bytes(plan, tab.n_ckpt, tb),
+                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+            )
+        _check_launch(lib, rc, "shift-bank")
+        LAUNCHES["shiftbank"] += 1
+    return out
+
+
+def vqc_shift_fidelity(
+    spec: CircuitSpec,
+    theta: torch.Tensor,
+    data: torch.Tensor,
+    *,
+    four_term: bool = False,
+    groups: tuple[int, ...] | None = None,
+) -> torch.Tensor:
+    """Prefix-reuse shift-bank fidelities. theta: (B,P), data: (B,D).
+
+    Returns (G, B) where G = len(groups) (default: every group of the bank,
+    1 + 2P or 1 + 4P rows); flattening in group-major order reproduces the
+    materialized bank's fidelity vector.  Raises ValueError when the spec
+    doesn't match the SWAP-test product structure, and NotImplementedError
+    on CUDA when the checkpoint set needs depth tiles.
+    """
+    plan = build_shift_plan(spec)
+    if plan is None:
+        raise ValueError(
+            "circuit does not match the SWAP-test product "
+            "structure; use the materialized-bank path"
+        )
+    n_groups = 1 + (4 if four_term else 2) * spec.n_theta
+    if groups is None:
+        groups = tuple(range(n_groups))
+    groups = tuple(int(g) for g in groups)
+    if not groups or not all(0 <= g < n_groups for g in groups):
+        raise ValueError(f"groups out of range for {n_groups}-group bank: {groups}")
+    _shift_table(spec, four_term, groups)  # rejects unsupported gates
+    theta, data, kind = _prepare(spec, theta, data)
+    if kind == "cpu":
+        shifts = tuple(float(s) for s in shift_values(four_term))
+        return _shiftbank_plain(plan, shifts, groups, spec.n_theta, theta, data)
+    return _shiftbank_cuda(spec, plan, four_term, groups, theta, data)
+
+
+# ------------------------------------------------------- analytic counters
+def shift_bank_stats(spec: CircuitSpec, n_samples: int, four_term: bool = False) -> dict:
+    """Analytic gate-application and angle-traffic counts, implicit vs
+    materialized."""
+    p, d = spec.n_theta, spec.n_data
+    n_groups = 1 + (4 if four_term else 2) * p
+    mat_gates = n_groups * len(spec.ops) * n_samples
+    mat_angle_floats = n_groups * n_samples * (p + d)
+    cost = shift_cost_info(spec, four_term)
+    if not cost["use_implicit"]:  # fallback executes the same work
+        impl_gates = mat_gates
+        impl_angle_floats = mat_angle_floats
+    else:
+        impl_gates = cost["gate_apps_implicit"] * n_samples
+        impl_angle_floats = n_samples * (p + d)
+    return {
+        "n_groups": n_groups,
+        "gate_apps_materialized": mat_gates,
+        "gate_apps_implicit": impl_gates,
+        "gate_apps_ratio": round(mat_gates / impl_gates, 1),
+        "angle_bytes_materialized": 4 * mat_angle_floats,
+        "angle_bytes_implicit": 4 * impl_angle_floats,
+        "angle_bytes_ratio": round(mat_angle_floats / impl_angle_floats, 1),
+    }
+
+
+def multibank_stats(
+    spec: CircuitSpec,
+    bank_sizes,
+    four_term: bool = False,
+    smem_budget: int = SMEM_BUDGET_BYTES,
+) -> dict:
+    """Launch-count and lane accounting for a fused multi-bank shift
+    execution of K same-spec banks vs K per-bank launches.  Each bank takes
+    a LANES-padded lane segment of the fused launch."""
+    k = len(bank_sizes)
+    occupied = sum(bank_sizes)
+    padded = sum(-(-b // LANES) * LANES for b in bank_sizes)
+    info = shift_execution_info(
+        spec, max(bank_sizes), four_term=four_term, smem_budget=smem_budget
+    )
+    per_bank_launches = k * info["launches"]
+    fused_info = shift_execution_info(
+        spec, padded, four_term=four_term, smem_budget=smem_budget
+    )
+    fused_launches = fused_info["launches"]
+    return {
+        "n_banks": k,
+        "bank_sizes": list(bank_sizes),
+        "mode": fused_info["mode"],
+        "launches_per_bank_path": per_bank_launches,
+        "launches_fused": fused_launches,
+        "launch_ratio": round(per_bank_launches / fused_launches, 2),
+        "occupied_lanes": occupied,
+        "padded_lanes": padded,
+        "lane_fill": round(occupied / padded, 4),
+    }

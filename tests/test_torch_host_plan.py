@@ -1,0 +1,89 @@
+"""The host half of the shift kernel: the port's plans and analytic counters
+equal the reference's exactly when both get the same ``tb`` and budget.
+
+Only the on-chip memory model differs between the packages (the TPU's
+128-lane tiles and 14 MB VMEM against Hopper's warps and 227 KB of shared
+memory), so the comparisons pass the same explicit arguments, and bank sizes
+that are multiples of both lane quanta where lanes are padded.
+"""
+import pytest
+
+from repro.core import circuits as jcircuits
+from repro.core import shift_rule as jsr
+from repro.kernels import vqc_statevector as JK
+from repro_torch.core import circuits as tcircuits
+from repro_torch.core import shift_rule as tsr
+from repro_torch.kernels import vqc_statevector as TK
+
+CASES = [(3, 1, False), (5, 1, False), (5, 3, False), (7, 2, False), (7, 3, False),
+         (5, 2, True), (7, 3, True), (9, 3, True)]
+
+
+def _specs(qc, nl, tied):
+    name = "build_tied_quclassi_circuit" if tied else "build_quclassi_circuit"
+    return getattr(jcircuits, name)(qc, nl), getattr(tcircuits, name)(qc, nl)
+
+
+def _fields(plan):
+    return (plan.m, [(o.gate, o.qubits, o.param) for o in plan.data_ops],
+            [(o.gate, o.qubits, o.param) for o in plan.train_ops], plan.theta_positions)
+
+
+@pytest.mark.parametrize("qc,nl,tied", CASES)
+def test_plan_and_costs_equal_reference(qc, nl, tied):
+    js, ts = _specs(qc, nl, tied)
+    jp, tp = JK.build_shift_plan(js), TK.build_shift_plan(ts)
+    assert _fields(tp) == _fields(jp)
+    assert [tp.replay_depth(j) for j in range(ts.n_theta)] == [
+        jp.replay_depth(j) for j in range(js.n_theta)]
+    for four in (False, True):
+        n_groups = 1 + (4 if four else 2) * ts.n_theta
+        shifts = tsr.shift_values(four)
+        assert shifts == jsr.shift_values(four)
+        for groups in (None, tuple(range(0, n_groups, 3)), (0,), (n_groups - 1,)):
+            assert TK.shift_cost_info(ts, four, groups) == JK.shift_cost_info(js, four, groups)
+            gs = groups or tuple(range(n_groups))
+            assert TK.plan_gate_apps(tp, shifts, gs, ts.n_theta) == JK.plan_gate_apps(
+                jp, shifts, gs, js.n_theta)
+            assert TK._collect_variants(tp, shifts, gs, ts.n_theta) == JK._collect_variants(
+                jp, shifts, gs, js.n_theta)
+        for n in (1, 7, 576):
+            assert TK.shift_bank_stats(ts, n, four) == JK.shift_bank_stats(js, n, four)
+
+
+@pytest.mark.parametrize("qc,nl,tied", CASES)
+@pytest.mark.parametrize("tb,budget", [(128, 14 * 1024 * 1024), (128, 64 * 1024),
+                                       (512, 200 * 1024), (32, 227 * 1024)])
+def test_depth_tiles_equal_reference(qc, nl, tied, tb, budget):
+    js, ts = _specs(qc, nl, tied)
+    jp, tp = JK.build_shift_plan(js), TK.build_shift_plan(ts)
+    anchors = sorted({ps[-1] for ps in tp.theta_positions if ps})
+    for positions in (anchors, anchors[::2], anchors[-1:], []):
+        assert TK._merge_spans(tp, positions) == JK._merge_spans(jp, positions)
+        assert TK.plan_depth_tiles(tp, positions, tb, budget) == JK.plan_depth_tiles(
+            jp, positions, tb, budget)
+
+
+@pytest.mark.parametrize("sizes", [(128,), (128, 256, 384), (512, 128)])
+@pytest.mark.parametrize("four", [False, True])
+def test_multibank_stats_equal_reference(sizes, four):
+    js, ts = _specs(7, 3, False)
+    budget = 14 * 1024 * 1024
+    assert TK.multibank_stats(ts, sizes, four, smem_budget=budget) == JK.multibank_stats(
+        js, sizes, four, vmem_budget=budget)
+
+
+def test_hopper_spill_threshold():
+    """One warp of the single-sweep shift kernel fits 227 KB while
+    (n_ckpt + 4) * 2**m <= 908: every register the paper uses (m <= 3)
+    stays in one sweep; m = 8 never fits."""
+    _, ts = _specs(7, 3, False)
+    info = TK.shift_execution_info(ts, 576)
+    assert info["mode"] == "fused" and info["tb"] == 128
+    assert info["smem_bytes"] == (14 + 4) * 2 * 4 * 8 * 128
+    wide = tcircuits.build_quclassi_circuit(13, 3)  # m = 6, 32 parameters
+    assert TK.shift_execution_info(wide, 576)["mode"] == "spill"
+    plan = TK.build_shift_plan(wide)
+    anchors = sorted({ps[-1] for ps in plan.theta_positions if ps})
+    assert TK.plan_depth_tiles(plan, anchors[:10]) is None
+    assert TK.plan_depth_tiles(plan, anchors[:11]) is not None
