@@ -10,14 +10,18 @@ Phases, in order; any failure exits non-zero before the result line:
   3. kernels — each kernel against its plain PyTorch version on the card
                (max |diff| <= 1e-5) and against the dense simulator on a
                small input, then timed at the shape the training path gives
-               it, beside the plain version and the analytic bound;
-  4. train   — QuClassi Algorithm 1 on ``quclassi-7q-3l`` through the data
-               plane's ``worker_batched_executor`` (4 workers, 3 steps of 64
-               images), once with implicit banks (shift kernel) and once
-               materialized (fused kernel), after one warm-up step each.
-               Launch counts are zeroed just before each run and read just
-               after; then one profiled gradient step per mode shows where
-               the time goes.
+               it, beside the plain version and the analytic bound.  The
+               spill pair is checked at 13 qubits (m = 6), at 17 qubits
+               (m = 8, blocks of 16 samples) and on tied 5q/7q circuits
+               under a forced shared-memory budget;
+  4. train   — QuClassi Algorithm 1 through the data plane's
+               ``worker_batched_executor``, 3 steps of 64 images after one
+               warm-up step each: ``quclassi-7q-3l`` on 4 workers with
+               implicit banks (shift kernel) and materialized (fused
+               kernel), then 13-qubit, 3-layer QuClassi on 2 workers with
+               implicit banks (spill pair).  Launch counts are zeroed just
+               before each run and read just after; then one profiled
+               gradient step per run shows where the time goes.
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Needs CUDA; without it, or without the
 repository around it, it exits non-zero and prints no result.
@@ -103,6 +107,29 @@ def shift_flops(K, plan, groups, n_params: int) -> int:
     return ops_flops(ops, plan.m) + n_inner * INNER_FLOPS_PER_AMP * 2**plan.m
 
 
+def spill_flops(K, plan, tab, tile_plan) -> tuple[int, int]:
+    """Per-sample flops of the spill pair, (forward, tile).  Forward: the
+    data pass, the train forward pass and f0.  Tile: per tile the recompute
+    of its checkpoints from its boundary (ops lo .. last - 1), the chi walk
+    over every op from the end down to the shallowest tile's lo (the last
+    one skipped), and per variant row its replay span and inner product."""
+    dim = 2**plan.m
+    fwd = ops_flops(list(plan.data_ops) + list(plan.train_ops), plan.m) + INNER_FLOPS_PER_AMP * dim
+    ops, n_inner = [], 0
+    for _, lo, _, rows_t in tile_plan:
+        last = max(plan.theta_positions[j][0] for _, j, _, _ in rows_t)
+        ops += plan.train_ops[lo:last]
+    ops += plan.train_ops[tile_plan[-1][1] + 1 :]
+    n_rows = len(tab.variant_rows)  # one replay and one inner product each
+    for (_, _, _, rows_t) in tile_plan:
+        for _, j, _, _ in rows_t:
+            ps = plan.theta_positions[j]
+            ops += plan.train_ops[ps[0] : ps[-1] + 1]
+            n_inner += 1
+    assert n_inner == n_rows  # every requested group once
+    return fwd, ops_flops(ops, plan.m) + n_inner * INNER_FLOPS_PER_AMP * dim
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs a GPU", file=sys.stderr)
@@ -112,7 +139,7 @@ def main() -> int:
         from repro_torch.api.capabilities import capabilities_of, declare
         from repro_torch.comanager import dataplane
         from repro_torch.configs.quclassi_paper import get_quclassi
-        from repro_torch.core import circuits, quclassi, shift_rule
+        from repro_torch.core import circuits, quclassi, segmentation, shift_rule
         from repro_torch.core.trainer import train
         from repro_torch.data.mnist import make_pair_dataset, train_test_split
         from repro_torch.kernels import _build, ops, ref
@@ -138,7 +165,7 @@ def main() -> int:
     for name, rep in report.items():
         log(f"  {name}: {rep['seconds']:.2f} s")
         for line in rep["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Function properties" in line:
                 log(f"    {line.strip()}")
 
     # ----------------------------------------------------------- 3. kernels
@@ -155,6 +182,18 @@ def main() -> int:
         "7q-3l": spec7,
         "tied-7q-3l": circuits.build_tied_quclassi_circuit(7, 3),
     }
+    # the spill slice: 13-qubit, 3-layer QuClassi (m = 6, P = 32) trained on
+    # 2 workers, the paper's segmentation on 8x8 images (9 patches)
+    cfg13 = quclassi.QuClassiConfig(
+        qc=13, n_layers=3,
+        seg=segmentation.SegmentationConfig(filter_width=4, stride=2, n_filters=4),
+        image_size=(8, 8))
+    spec13, n_workers13 = cfg13.spec, 2
+    plan13 = K.build_shift_plan(spec13)
+    n_groups13 = 1 + 2 * cfg13.n_theta
+    assign13 = dataplane.round_robin_assignment(n_groups13, n_workers13)
+    worker_groups13 = [tuple(g for g in range(n_groups13) if assign13[g] == w)
+                       for w in range(n_workers13)]
 
     def angles(spec, c):
         th = rng.uniform(-np.pi, np.pi, (c, spec.n_theta))
@@ -162,14 +201,15 @@ def main() -> int:
         return (torch.tensor(th, dtype=torch.float32, device=dev),
                 torch.tensor(dt, dtype=torch.float32, device=dev))
 
-    errs = {"fidelity": 0.0, "state": 0.0, "shiftbank": 0.0}  # against plain only
+    errs = {"fidelity": 0.0, "state": 0.0, "shiftbank": 0.0,
+            "shift_forward": 0.0, "shift_tile": 0.0}  # against plain only
 
     def check(kernel: str, label: str, got, want, tol: float = TOL, plain: bool = True):
         torch.cuda.synchronize()
         err = float((got - want).abs().max()) if got.numel() else 0.0
         if plain:
             errs[kernel] = max(errs[kernel], err)
-        log(f"  {kernel:9s} {label:40s} max|diff| = {err:.3e}")
+        log(f"  {kernel:13s} {label:44s} max|diff| = {err:.3e}")
         if not err <= tol:
             raise AssertionError(f"{kernel} {label}: max|diff| {err} > {tol}")
 
@@ -217,12 +257,88 @@ def main() -> int:
             check("shiftbank", f"{name} multibank bank {k} vs per-bank", out,
                   ops.vqc_fidelity_shiftgroups(spec, th, dt, False, gs), tol=0.0, plain=False)
 
-    # timing at the training path's shapes (quclassi-7q-3l, 4 workers)
+    def spill_inputs(spec, groups, four=False, budget=K.SMEM_BUDGET_BYTES):
+        """The spill table and the plain pair's tile plan for one request."""
+        plan = K.build_shift_plan(spec)
+        tab = K._spill_table(spec, four, tuple(groups), budget)
+        variants = K._collect_variants(plan, K.shift_values(four), tuple(groups), spec.n_theta)
+        return plan, tab, variants, K._tile_plan(plan, variants, tab.tiling.tiles)
+
+    def check_spill(label, spec, b, groups, four=False, budget=K.SMEM_BUDGET_BYTES):
+        """Each spill kernel against its plain version on the same inputs,
+        then the wrapper end to end against the plain pair."""
+        plan, tab, variants, tile_plan = spill_inputs(spec, groups, four, budget)
+        th, dt = angles(spec, b)
+        los = [lo for lo, _ in tab.tiling.tiles]
+        f0, d_state, bnd = K._shift_forward_plain(plan, los, th, dt)
+        rows = K._shift_tile_plain(plan, tile_plan, th, dt, d_state, bnd)
+        want = K._spilled_rows(variants, tuple(groups), tile_plan, f0, rows)
+        label = (f"{label} four={four} G={len(groups)} B={b} tiles={tab.n_tiles} "
+                 f"tb={tab.tiling.tb} smem={tab.tiling.smem_bytes}")
+        if tab.tiling.smem_bytes > K.SMEM_BUDGET_BYTES:
+            raise AssertionError(f"{label}: asks for more shared memory than a block has")
+        var_rows = list(tab.variant_rows)
+        f0_rows = [r for r in range(len(groups)) if r not in tab.variant_rows]
+        out = torch.full_like(want, float("nan"))
+        got_d, got_bnd = K._shift_forward_cuda(tab, th, dt, out)
+        check("shift_forward", f"{label} f0", out[f0_rows], want[f0_rows])
+        check("shift_forward", f"{label} data state", got_d, d_state)
+        check("shift_forward", f"{label} boundaries", got_bnd, bnd)
+        out = want.clone()
+        out[var_rows] = float("nan")
+        K._shift_tile_cuda(tab, th, dt, d_state, bnd, out)
+        check("shift_tile", f"{label} rows", out, want)
+        check("shift_tile", f"{label} wrapper",
+              K.vqc_shift_fidelity(spec, th, dt, four_term=four, groups=tuple(groups),
+                                   smem_budget=budget), want)
+
+    log("checks: the spill pair (forward and tile kernels)")
+    all13 = tuple(range(n_groups13))
+    for groups in (all13, *worker_groups13):
+        for b in (100, samples):
+            check_spill("13q-3l", spec13, b, groups)
+    for name, (qc, nl) in (("tied-7q-3l", (7, 3)), ("tied-5q-3l", (5, 3))):
+        spec = circuits.build_tied_quclassi_circuit(qc, nl)
+        budget = K.checkpoint_smem_bytes(K.build_shift_plan(spec), 3, K.LANES)
+        for four in (False, True):
+            g_all = tuple(range(1 + (4 if four else 2) * spec.n_theta))
+            check_spill(f"{name} budget={budget}", spec, 100, g_all, four, budget)
+    for nl in (1, 3):
+        spec = circuits.build_quclassi_circuit(17, nl)
+        check_spill(f"17q-{nl}l", spec, 100, tuple(range(1 + 2 * spec.n_theta)))
+    bank = shift_rule.build_shift_bank(*angles(spec13, 8))
+    mat = bank.materialize()
+    check("shift_tile", "13q-3l B=8 vs dense simulator",
+          ops.vqc_fidelity_shiftgroups(spec13, bank.theta, bank.data).reshape(-1),
+          ref.vqc_fidelity_ref(spec13, mat.theta, mat.data), plain=False)
+    banks = [angles(spec13, b) for b in (samples, 100, 333, 64)]
+    group_sets = (*worker_groups13, all13, tuple(range(0, n_groups13, 3)))
+    outs = ops.vqc_fidelity_shiftgroups_multibank(
+        spec13, tuple(t for t, _ in banks), tuple(d for _, d in banks), False, group_sets)
+    for k, ((th, dt), gs, out) in enumerate(zip(banks, group_sets, outs)):
+        if K.shift_execution_info(spec13, th.shape[0], groups=gs)["mode"] != "spill":
+            raise AssertionError(f"13q multibank bank {k}: groups {gs} do not spill")
+        plain = K._shiftbank_plain(plan13, K.shift_values(False), gs, cfg13.n_theta, th, dt)
+        check("shift_tile", f"13q-3l multibank bank {k} B={th.shape[0]}",
+              out, torch.clamp(plain, 0.0, 1.0))
+        check("shift_tile", f"13q-3l multibank bank {k} vs per-bank", out,
+              ops.vqc_fidelity_shiftgroups(spec13, th, dt, False, gs), tol=0.0, plain=False)
+
+    # timing at the training path's shapes (quclassi-7q-3l on 4 workers;
+    # 13q-3l on 2 workers for the spill pair)
     plan7 = K.build_shift_plan(spec7)
     p, d = spec7.n_theta, spec7.n_data
     th_rows, dt_rows = angles(spec7, rows_per_worker)
     th_smp, dt_smp = angles(spec7, samples)
     shifts2 = K.shift_values(False)
+    _, tab13, _, tile_plan13 = spill_inputs(spec13, worker_groups13[0])
+    los13 = [lo for lo, _ in tab13.tiling.tiles]
+    th13, dt13 = angles(spec13, samples)
+    out13 = torch.empty((len(worker_groups13[0]), samples), dtype=torch.float32, device=dev)
+    d13, bnd13 = K._shift_forward_cuda(tab13, th13, dt13, out13)
+    fwd_flops, tile_flops = spill_flops(K, plan13, tab13, tile_plan13)
+    p13, d13n, dim13 = spec13.n_theta, spec13.n_data, 2**plan13.m
+    states13 = 8 * dim13 * (1 + tab13.n_tiles)  # chi seed + boundaries, one way
     timed = {
         "fidelity": (
             lambda: K.vqc_p0(spec7, th_rows, dt_rows),
@@ -245,6 +361,22 @@ def main() -> int:
             samples * (4 * (p + d) + 4 * len(worker0_groups)),
             f"B={samples} samples, G={len(worker0_groups)} groups (worker 0)",
         ),
+        "shift_forward": (
+            lambda: K._shift_forward_cuda(tab13, th13, dt13, out13),
+            lambda: K._shift_forward_plain(plan13, los13, th13, dt13),
+            samples * fwd_flops,
+            samples * (4 * (p13 + d13n) + 4 * tab13.n_f0_rows + states13),
+            f"13q-3l B={samples}, G={len(worker_groups13[0])} (worker 0 of 2), "
+            f"{tab13.n_tiles} tiles",
+        ),
+        "shift_tile": (
+            lambda: K._shift_tile_cuda(tab13, th13, dt13, d13, bnd13, out13),
+            lambda: K._shift_tile_plain(plan13, tile_plan13, th13, dt13, d13, bnd13),
+            samples * tile_flops,
+            samples * (4 * (p13 + d13n) + states13 + 4 * len(tab13.variant_rows)),
+            f"13q-3l B={samples}, {len(tab13.variant_rows)} variant rows, "
+            f"{tab13.n_tiles} tiles, tb={tab13.tiling.tb}",
+        ),
     }
     records = {}
     for kname, (kern, plain, flops, nbytes, shape) in timed.items():
@@ -253,8 +385,8 @@ def main() -> int:
         bound_ms, bound_by = bound(flops, nbytes)
         records[kname] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                           "bound_by": bound_by}
-        log(f"  time {kname:9s} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.6f} ms ({bound_by}) [{card}]")
+        log(f"  time {kname:13s} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.6f} ms ({bound_by}; {flops} flops, {nbytes} bytes) [{card}]")
     log("kernels: " + json.dumps(
         [{"name": k, "max_abs_err": errs[k], **records[k]} for k in records]))
 
@@ -262,66 +394,83 @@ def main() -> int:
     x, y = make_pair_dataset(1, 5, n_per_class=128, seed=0)
     train_set, test_set = train_test_split(x, y)
     steps = len(train_set[1]) // batch
-    init = quclassi.init_params(cfg, torch.Generator().manual_seed(0), dev)
-    executors = {}
+    warm = (train_set[0][:batch], train_set[1][:batch])
+    runs = {}
     for mode in ("implicit", "materialized"):
         n_units = n_groups if mode == "implicit" else samples * n_groups
-        executors[mode] = dataplane.worker_batched_executor(
-            spec7, dataplane.round_robin_assignment(n_units, n_workers), n_workers)
-    # warm-up, one step per mode, so neither timed run pays first-call costs
-    warm = (train_set[0][:batch], train_set[1][:batch])
-    for mode, run in executors.items():
-        train(cfg, warm, test_set, epochs=1, batch_size=batch, executor=run,
-              bank_mode=mode, init_params=init, device=dev)
+        runs[f"7q {mode}"] = (cfg, mode, "shiftbank" if mode == "implicit" else "fidelity",
+                              dataplane.worker_batched_executor(
+                                  spec7, dataplane.round_robin_assignment(n_units, n_workers),
+                                  n_workers))
+    runs["13q implicit"] = (cfg13, "implicit", "shift_tile",
+                            dataplane.worker_batched_executor(spec13, assign13, n_workers13))
+    inits = {label: quclassi.init_params(c, torch.Generator().manual_seed(0), dev)
+             for label, (c, _, _, _) in runs.items()}
+    # warm-up, one step per run, so no timed run pays first-call costs
+    for label, (c, mode, _, run) in runs.items():
+        train(c, warm, test_set, epochs=1, batch_size=batch, executor=run,
+              bank_mode=mode, init_params=inits[label], device=dev)
 
     launches = {k: 0 for k in K.LAUNCHES}
-    first_fids = {}
-    for mode, run in executors.items():
+    first = {}
+    for label, (c, mode, want, run) in runs.items():
         seen = []
 
         def recording(*args, run=run, seen=seen):
             out = run(*args)
             if not seen:
-                seen.append(out.detach().clone())
+                seen.append((args[0], out.detach().clone()))
             return out
 
         executor = declare(recording, shiftbank=capabilities_of(run).shiftbank)
         torch.cuda.synchronize()
         for key in K.LAUNCHES:
             K.LAUNCHES[key] = 0
-        rep = train(cfg, train_set, test_set, epochs=1, batch_size=batch, lr=1e-3,
-                    executor=executor, bank_mode=mode, seed=0, init_params=init,
+        rep = train(c, train_set, test_set, epochs=1, batch_size=batch, lr=1e-3,
+                    executor=executor, bank_mode=mode, seed=0, init_params=inits[label],
                     device=dev)
         torch.cuda.synchronize()
         counts = dict(K.LAUNCHES)
         for key in counts:
             launches[key] += counts[key]
         ep = rep.epochs[0]
-        first_fids[mode] = seen[0]
-        log(f"train {mode}: loss {ep.loss:.6f}, train acc {ep.train_accuracy:.4f}, "
+        first[label] = seen[0]
+        log(f"train {label}: loss {ep.loss:.6f}, train acc {ep.train_accuracy:.4f}, "
             f"test acc {ep.test_accuracy:.4f}, {steps} steps in {ep.wall_seconds:.4f} s "
             f"({steps / ep.wall_seconds:.3f} steps/s, "
             f"{ep.circuits_executed / ep.wall_seconds:.1f} circuits/s), "
             f"launches {counts} [{card}]")
         if not math.isfinite(ep.loss):
-            raise AssertionError(f"{mode}: loss {ep.loss} is not finite")
+            raise AssertionError(f"{label}: loss {ep.loss} is not finite")
         if not all(torch.isfinite(v).all() for v in rep.params.values()):
-            raise AssertionError(f"{mode}: parameters are not finite")
-        want = "shiftbank" if mode == "implicit" else "fidelity"
-        if counts[want] <= 0:
-            raise AssertionError(f"{mode}: the {want} kernel was never launched")
-    diff = float((first_fids["implicit"] - first_fids["materialized"]).abs().max())
-    log(f"train: first-step fidelities, implicit vs materialized: max|diff| = {diff:.3e}")
+            raise AssertionError(f"{label}: parameters are not finite")
+        wanted = ("shift_forward", "shift_tile") if want == "shift_tile" else (want,)
+        for key in wanted:
+            if counts[key] <= 0:
+                raise AssertionError(f"{label}: the {key} kernel was never launched")
+    diff = float((first["7q implicit"][1] - first["7q materialized"][1]).abs().max())
+    log(f"train 7q: first-step fidelities, implicit vs materialized: max|diff| = {diff:.3e}")
     if not diff <= TOL:
         raise AssertionError(f"implicit and materialized first steps differ by {diff}")
+    # 13q: the first bank through the plain spill pair, worker by worker
+    bank, got = first["13q implicit"]
+    plain = torch.empty((n_groups13, bank.n_samples), dtype=torch.float32, device=dev)
+    for gs in worker_groups13:
+        tiles = K.shift_execution_info(spec13, bank.n_samples, groups=gs)["tiles"]
+        plain[list(gs)] = torch.clamp(K._shift_spilled_plain(
+            plan13, shifts2, gs, cfg13.n_theta, tiles, bank.theta, bank.data), 0.0, 1.0)
+    diff = float((got - plain.reshape(-1)).abs().max())
+    log(f"train 13q: first-step fidelities, spill kernels vs plain pair: max|diff| = {diff:.3e}")
+    if not diff <= TOL:
+        raise AssertionError(f"13q first step differs from the plain pair by {diff}")
 
     # where one gradient step's time goes (after the counts were read)
     xb = torch.as_tensor(train_set[0][:batch], device=dev)
     yb = torch.as_tensor(train_set[1][:batch], device=dev)
     cuda_kind = torch.autograd.DeviceType.CUDA
-    for mode, run in executors.items():
-        def step(run=run, mode=mode):
-            loss, _, _ = quclassi.grad_shift(cfg, init, xb, yb, executor=run,
+    for label, (c, mode, _, run) in runs.items():
+        def step(c=c, run=run, mode=mode, init=inits[label]):
+            loss, _, _ = quclassi.grad_shift(c, init, xb, yb, executor=run,
                                              implicit=mode == "implicit")
             return float(loss)
 
@@ -336,11 +485,15 @@ def main() -> int:
         kern = [e for e in prof.key_averages() if e.device_type == cuda_kind]
         busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
-        log(f"profile {mode}: one gradient step {wall_ms:.3f} ms host clock (profiled), "
+        log(f"profile {label}: one gradient step {wall_ms:.3f} ms host clock (profiled), "
             f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
             f"{sum(e.count for e in kern)} kernel launches [{card}]")
         for e in top:
             log(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<5d} {e.key[:90]}")
+        for e in kern:
+            if "vqc::" in e.key:
+                log(f"  circuit kernel {e.self_device_time_total / 1e3:.4f} ms "
+                    f"x{e.count} {e.key[:60]}")
 
     kernels = [
         {"name": "fidelity", "route": "cuda",
@@ -352,6 +505,12 @@ def main() -> int:
         {"name": "shiftbank", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/vqc_shiftbank.cu",
          "replaces": "src/repro/kernels/vqc_statevector.py:520"},
+        {"name": "shift_forward", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/vqc_spill.cu",
+         "replaces": "src/repro/kernels/vqc_statevector.py:822"},
+        {"name": "shift_tile", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/vqc_spill.cu",
+         "replaces": "src/repro/kernels/vqc_statevector.py:848"},
     ]
     for k in kernels:
         n = k["name"]

@@ -59,19 +59,19 @@ def _notify_launch(spec, n_lanes, four_term, groups, banks=1):
     obs(info)
     if info["mode"] != "spill":
         return
-    # spill path: one event per depth-tile launch segment (the summary event
-    # above covers the forward launch); tiles run deepest-first and
-    # ping-pong between two boundary buffers.  Total events = launches.
-    n_tiles = info["n_tiles"]
-    for order in range(n_tiles):
+    # spill path: the summary event above is the forward launch; then one
+    # event per depth tile of the single tile launch, in the order it runs
+    # them (deepest first).  Each tile's boundary is loaded into the one
+    # boundary buffer when the tile starts, after the previous tile is done.
+    tiles = info["tiles"]
+    for order, (lo, hi) in enumerate(reversed(tiles)):
         obs(
             {
                 "mode": "spill_tile",
-                "tile": n_tiles - 1 - order,
+                "tile": len(tiles) - 1 - order,
                 "tile_order": order,
-                "buffer": order % 2,
+                "ops": (lo, hi),
                 "boundary_bytes": info["spill_buffer_bytes"],
-                "overlapped": order > 0,
                 "lanes": n_lanes,
                 "banks": banks,
             }

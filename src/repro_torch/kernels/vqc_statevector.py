@@ -3,8 +3,8 @@
 The data plane executes millions of small circuits (5–7 qubits, 10–30
 gates): the parameter-shift circuit banks.  Each circuit is simulated whole
 inside one kernel, from |0...0> to the ancilla readout; the statevector
-never touches device memory.  Three CUDA kernels (``csrc/``) replace the
-three Pallas kernels of ``repro/kernels/vqc_statevector.py`` that the
+never touches device memory.  Five CUDA kernels (``csrc/``) replace the
+five Pallas kernels of ``repro/kernels/vqc_statevector.py`` that the
 training path reaches:
 
   * ``vqc_fused.cu`` ``fused_kernel<false>`` replaces ``_fidelity_kernel``
@@ -15,8 +15,13 @@ training path reaches:
   * ``vqc_shiftbank.cu`` ``shiftbank_kernel`` replaces ``_shiftbank_kernel``
     (the single-sweep branch of ``vqc_shift_fidelity``): prefix reuse on
     the two m-qubit registers of the SWAP-test product structure.
+  * ``vqc_spill.cu`` ``shift_forward_kernel`` and ``shift_tile_kernel``
+    replace ``_shift_forward_kernel`` and ``_shift_tile_kernel`` (the
+    spilled branch): when the checkpoints do not fit one block's shared
+    memory, the forward pass writes one boundary prefix state per depth
+    tile to device memory and one backward launch sweeps every tile.
 
-Design, shared by all three:
+Design, shared by all five:
 
   * The spec is data: ``spec.ops`` (or the shift plan) becomes an int32
     table of ``(gate, q0, q1, q2, param_kind, param_idx)`` rows plus a
@@ -45,8 +50,9 @@ or raises.
 The host half (``ShiftPlan`` .. ``multibank_stats``) is the reference's,
 with the TPU tile policy (``LANES = 128``, ``kernel_tb``, a 14 MB VMEM
 budget) replaced by one Hopper memory model: ``kernel_tb`` picks circuits
-per block from a 227 KB shared-memory budget, and the kernel wrappers,
-``plan_depth_tiles`` and ``shift_execution_info`` all read it.
+per block from a 227 KB shared-memory budget, ``spill_tiling`` picks the
+spill tile kernel's block and depth tiles, and the kernel wrappers,
+``shift_execution_info`` and the launch observer all read those two.
 """
 from __future__ import annotations
 
@@ -70,12 +76,23 @@ MAX_BLOCK_LANES = 1024
 #: dynamic shared memory one block may use on an H100 (227 KB of the SM's
 #: 256 KB; above 48 KB only after cudaFuncSetAttribute, done per launch).
 SMEM_BUDGET_BYTES = 227 * 1024
-#: live non-checkpoint states the shift kernel holds (data state, running
-#: state, chi, one shifted variant) — reserved out of the budget.
+#: live non-checkpoint states the single-sweep shift kernel holds (data
+#: state, running state, chi, one shifted variant); ``plan_depth_tiles``
+#: (the reference's) reserves this many out of the budget it is given.
 _RESERVED_STATES = 4
+#: boundary buffers the spill tile kernel holds: one.  A tile's boundary
+#: prefix state is loaded into it from device memory and advanced in place
+#: through the tile's checkpoints, so it is also the running state; the
+#: next tile's boundary is loaded only when that tile starts (no prefetch).
+SPILL_BOUNDARY_BUFFERS = 1
+#: the spill tile kernel's other live non-checkpoint states: chi and one
+#: shifted variant.
+_TILE_LIVE_STATES = 2
+#: the spill forward kernel's states: the data state and the running state.
+_FORWARD_STATES = 2
 
 #: kernel launches per wrapper; counted only where a CUDA kernel launches.
-LAUNCHES = {"fidelity": 0, "state": 0, "shiftbank": 0}
+LAUNCHES = {"fidelity": 0, "state": 0, "shiftbank": 0, "shift_forward": 0, "shift_tile": 0}
 
 
 def _state_bytes(m: int, tb: int) -> int:
@@ -91,10 +108,10 @@ def kernel_tb(n_lanes: int, lane_bytes: int, smem_budget: int = SMEM_BUDGET_BYTE
     when not even one warp of circuits fits.
 
     Every launch, and every model of a launch's footprint
-    (``plan_depth_tiles``, ``shift_execution_info``), MUST take its block
-    size from here: a divergent copy would silently mis-predict the
-    kernel's shared memory, and a launch asking for more than the card
-    has is refused."""
+    (``shift_execution_info``), MUST take its block size from here, or for
+    the spill tile kernel from ``spill_tiling``: a divergent copy would
+    silently mis-predict the kernel's shared memory, and a launch asking
+    for more than the card has is refused."""
     tb = MAX_BLOCK_LANES
     while tb >= LANES and tb * lane_bytes > smem_budget:
         tb //= 2
@@ -327,6 +344,10 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(None)
 
 
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
 @functools.cache
 def _lib(name: str):
     """The built kernel library with its C entry points declared."""
@@ -337,11 +358,20 @@ def _lib(name: str):
             [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, vp, i32, i32, i32, vp]
         )
         lib.vqc_fused_launch.restype = i32
-    else:
+    elif name == "vqc_shiftbank":
         lib.vqc_shiftbank_launch.argtypes = (
             [vp, vp, i32, i32, i32, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp, i32, i32, vp]
         )
         lib.vqc_shiftbank_launch.restype = i32
+    else:
+        lib.vqc_shift_forward_launch.argtypes = (
+            [vp, vp, i32, i32, i32, vp, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp, i32, i32, vp]
+        )
+        lib.vqc_shift_forward_launch.restype = i32
+        lib.vqc_shift_tile_launch.argtypes = (
+            [vp, vp, i32, i32, i32, vp, vp, i32, i32, i32, i32, i32, vp, vp, vp, i32, i32, vp]
+        )
+        lib.vqc_shift_tile_launch.restype = i32
     lib.vqc_error_string.argtypes = [i32]
     lib.vqc_error_string.restype = ctypes.c_char_p
     return lib
@@ -412,8 +442,7 @@ def _fused_cuda(spec: CircuitSpec, theta, data, want_state: bool):
                 _ptr(theta), _ptr(data), c, theta.shape[1], data.shape[1],
                 _ptr(ops_i), _ptr(ops_f), len(spec.ops), n,
                 _ptr(p0), _ptr(re), _ptr(im), int(want_state),
-                tb, _state_bytes(n, tb),
-                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+                tb, _state_bytes(n, tb), _stream(dev),
             )
         _check_launch(lib, rc, "fused statevector")
         LAUNCHES["state" if want_state else "fidelity"] += 1
@@ -579,7 +608,8 @@ def _replay_variant(plan: ShiftPlan, j: int, s: float, state, theta_t, data_t):
 
 
 def checkpoint_smem_bytes(plan: ShiftPlan, n_positions: int, tb: int) -> int:
-    """Shared memory the shift kernel holds for its live checkpoint set."""
+    """Shared memory the single-sweep shift kernel holds: its checkpoints
+    and ``_RESERVED_STATES`` live states."""
     return (n_positions + _RESERVED_STATES) * _state_bytes(plan.m, tb)
 
 
@@ -694,6 +724,92 @@ def _n_checkpoints(plan: ShiftPlan, variants, positions) -> int:
     return len({plan.theta_positions[j][0] for k in positions for (_, j, _) in variants[k]})
 
 
+def spill_tile_smem_bytes(m: int, n_ckpt: int, tb: int) -> int:
+    """Shared memory of the spill tile kernel for ``tb`` circuits: its
+    checkpoints, its live states and its boundary buffer(s)."""
+    return (n_ckpt + _TILE_LIVE_STATES + SPILL_BOUNDARY_BUFFERS) * _state_bytes(m, tb)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpillTiling:
+    """Launch geometry of the spill tile kernel: circuits per block, the
+    (lo, hi) train-op depth tiles in ascending order, the checkpoints each
+    tile holds, and the block's shared memory (what the launch asks for)."""
+
+    tb: int
+    tiles: tuple[tuple[int, int], ...]
+    n_ckpt: tuple[int, ...]
+    smem_bytes: int
+
+
+def spill_tiling(plan: ShiftPlan, positions, smem_budget: int = SMEM_BUDGET_BYTES):
+    """The spill tile kernel's block and depth tiles for the variant anchor
+    ``positions``: the largest block of at most one warp (halving from
+    LANES) whose fullest tile fits ``smem_budget``, or None when not even
+    one circuit's fits.  The only source of the tile kernel's geometry.
+
+    ``plan_depth_tiles`` is the reference's, unchanged, and takes
+    ``_RESERVED_STATES`` out of the budget it is given; it gets the budget
+    less what the tile kernel holds besides checkpoints (its boundary
+    buffer and live states), with that reserve added back, so its tiles
+    fill exactly what the launch asks for.  Where everything fits one tile
+    it returns None, and the one tile spans the shallowest checkpoint to
+    the end."""
+    positions = sorted(positions)
+    if not positions:
+        return None
+    first_of = {ps[-1]: ps[0] for ps in plan.theta_positions if ps}
+    firsts = [first_of.get(k, k) for k in positions]
+    tb = LANES
+    while tb >= 1:
+        s = _state_bytes(plan.m, tb)
+        budget = smem_budget - spill_tile_smem_bytes(plan.m, 0, tb) + _RESERVED_STATES * s
+        tiles = plan_depth_tiles(plan, positions, tb, budget) or (
+            (min(firsts), len(plan.train_ops)),
+        )
+        n_ckpt = tuple(
+            len({f for k, f in zip(positions, firsts) if lo <= k < hi}) for lo, hi in tiles
+        )
+        smem = spill_tile_smem_bytes(plan.m, max(n_ckpt), tb)
+        if smem <= smem_budget:
+            return SpillTiling(tb, tiles, n_ckpt, smem)
+        tb //= 2
+    return None
+
+
+def _forward_tb(m: int, n_samples: int, smem_budget: int) -> int:
+    """Circuits per block of the spill forward kernel (0: a warp does not
+    fit, from m = 9 at 227 KB)."""
+    return kernel_tb(n_samples, _FORWARD_STATES * _state_bytes(m, 1), smem_budget)
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_route(
+    spec: CircuitSpec, four_term: bool, groups: tuple[int, ...], smem_budget: int
+) -> SpillTiling | None:
+    """How an implicit shift bank runs: None for the single-sweep kernel
+    (every checkpoint of a warp of samples fits one block), else the spill
+    pair's ``SpillTiling``.  Raises, naming the limit, when no block of
+    either kernel can hold the plan.  The wrapper, ``shift_execution_info``
+    and through it the launch observer all read this."""
+    plan = build_shift_plan(spec)
+    variants = _collect_variants(plan, shift_values(four_term), groups, spec.n_theta)
+    positions = sorted(k for k in variants if k >= 0)
+    lane_bytes = checkpoint_smem_bytes(plan, _n_checkpoints(plan, variants, positions), 1)
+    if (
+        plan_depth_tiles(plan, positions, LANES, smem_budget) is None
+        and kernel_tb(1, lane_bytes, smem_budget) > 0
+    ):
+        return None
+    tiling = spill_tiling(plan, positions, smem_budget)
+    if tiling is None or _forward_tb(plan.m, 1, smem_budget) == 0:
+        raise NotImplementedError(
+            f"not even one sample of this {plan.m}-qubit register plan fits the "
+            f"{smem_budget}-byte shared-memory budget of one block of the spill kernels"
+        )
+    return tiling
+
+
 def shift_execution_info(
     spec: CircuitSpec,
     n_samples: int,
@@ -703,14 +819,17 @@ def shift_execution_info(
     smem_budget: int = SMEM_BUDGET_BYTES,
 ) -> dict:
     """Static execution-mode report: which path a shift bank takes, the
-    block size ``kernel_tb`` gives it and its shared memory.  ``mode`` is
-    "materialize", "fused" (single-sweep shift kernel) or "spill" (depth
-    tiles; analytic only until the spill kernels are ported)."""
+    block size it gets and the shared memory its launch asks for.  ``mode``
+    is "materialize", "fused" (single-sweep shift kernel) or "spill" (the
+    spill pair: one forward launch, then one tile launch over every depth
+    tile, deepest first; ``tb`` / ``smem_bytes`` are the tile kernel's,
+    ``forward_tb`` / ``forward_smem_bytes`` the forward kernel's)."""
     plan = build_shift_plan(spec)
     n_shifts = 4 if four_term else 2
     if groups is None:
         groups = tuple(range(1 + n_shifts * spec.n_theta))
-    cost = shift_cost_info(spec, four_term, tuple(groups))
+    groups = tuple(groups)
+    cost = shift_cost_info(spec, four_term, groups)
     base = {
         "gate_apps_implicit": cost["gate_apps_implicit"],
         "gate_apps_materialized": cost["gate_apps_materialized"],
@@ -721,26 +840,24 @@ def shift_execution_info(
         tb = kernel_tb(n_samples, _state_bytes(spec.n_qubits, 1), smem_budget)
         return {"mode": "materialize", "launches": 1, "n_tiles": 0, "tb": tb,
                 "smem_bytes": _state_bytes(spec.n_qubits, tb), **base}
-    variants = _collect_variants(plan, shift_values(four_term), groups, spec.n_theta)
-    positions = sorted(k for k in variants if k >= 0)
-    tiles = plan_depth_tiles(plan, positions, LANES, smem_budget)
-    if tiles is None:
-        n_ckpt = _n_checkpoints(plan, variants, positions)
+    tiling = _shift_route(spec, four_term, groups, smem_budget)
+    if tiling is None:
+        variants = _collect_variants(plan, shift_values(four_term), groups, spec.n_theta)
+        n_ckpt = _n_checkpoints(plan, variants, [k for k in variants if k >= 0])
         tb = kernel_tb(n_samples, checkpoint_smem_bytes(plan, n_ckpt, 1), smem_budget)
         return {"mode": "fused", "launches": 1, "n_tiles": 0, "tb": tb,
                 "smem_bytes": checkpoint_smem_bytes(plan, n_ckpt, tb), **base}
-    n_ckpt_max = max(
-        _n_checkpoints(plan, variants, [k for k in positions if lo <= k < hi])
-        for lo, hi in tiles
-    )
-    spill = _state_bytes(plan.m, LANES)
+    fwd_tb = _forward_tb(plan.m, n_samples, smem_budget)
     return {
         "mode": "spill",
-        "launches": 1 + len(tiles),
-        "n_tiles": len(tiles),
-        "tb": LANES,
-        "smem_bytes": checkpoint_smem_bytes(plan, n_ckpt_max, LANES) + spill,
-        "spill_buffer_bytes": spill,
+        "launches": 2,
+        "n_tiles": len(tiling.tiles),
+        "tiles": tiling.tiles,
+        "tb": tiling.tb,
+        "smem_bytes": tiling.smem_bytes,
+        "spill_buffer_bytes": SPILL_BOUNDARY_BUFFERS * _state_bytes(plan.m, tiling.tb),
+        "forward_tb": fwd_tb,
+        "forward_smem_bytes": _FORWARD_STATES * _state_bytes(plan.m, fwd_tb),
         **base,
     }
 
@@ -811,22 +928,17 @@ class _ShiftTable:
     n_variants: int
     n_f0_rows: int
     lowest: int
-    positions: tuple[int, ...]
 
 
-@functools.lru_cache(maxsize=None)
-def _shift_table(spec: CircuitSpec, four_term: bool, groups: tuple[int, ...]) -> _ShiftTable:
-    plan = build_shift_plan(spec)
-    variants = _collect_variants(plan, shift_values(four_term), groups, spec.n_theta)
+def _variant_table(plan: ShiftPlan, variants, groups):
+    """Variant rows (row, param, first, last, anchor) in the order the
+    backward walk meets them (anchor descending), their float32 shifts, and
+    the output rows that take the base fidelity."""
     rows_of: dict[int, list[int]] = {}
     for i, g in enumerate(groups):
         rows_of.setdefault(g, []).append(i)
-    anchors = sorted(k for k in variants if k >= 0)
-    firsts = sorted({plan.theta_positions[j][0] for a in anchors for (_, j, _) in variants[a]})
-    slot = {k: i for i, k in enumerate(firsts)}
-    ckpt = [slot.get(k, -1) for k in range(len(plan.train_ops))]
     var_ints, var_shifts = [], []
-    for k in reversed(anchors):
+    for k in sorted((k for k in variants if k >= 0), reverse=True):
         for g, j, s in variants[k]:
             ps = plan.theta_positions[j]
             for r in rows_of[g]:
@@ -834,6 +946,18 @@ def _shift_table(spec: CircuitSpec, four_term: bool, groups: tuple[int, ...]) ->
                 var_shifts.append(s)
     f0_groups = {g for g, _, _ in variants.get(-1, ())} | ({0} & set(groups))
     f0_rows = [i for i, g in enumerate(groups) if g in f0_groups]
+    return var_ints, var_shifts, f0_rows
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_table(spec: CircuitSpec, four_term: bool, groups: tuple[int, ...]) -> _ShiftTable:
+    plan = build_shift_plan(spec)
+    variants = _collect_variants(plan, shift_values(four_term), groups, spec.n_theta)
+    anchors = sorted(k for k in variants if k >= 0)
+    firsts = sorted({plan.theta_positions[j][0] for a in anchors for (_, j, _) in variants[a]})
+    slot = {k: i for i, k in enumerate(firsts)}
+    ckpt = [slot.get(k, -1) for k in range(len(plan.train_ops))]
+    var_ints, var_shifts, f0_rows = _variant_table(plan, variants, groups)
     d_i, d_f = _ops_table(plan.data_ops)
     t_i, t_f = _ops_table(plan.train_ops)
     ints = np.concatenate(
@@ -842,21 +966,16 @@ def _shift_table(spec: CircuitSpec, four_term: bool, groups: tuple[int, ...]) ->
     floats = np.concatenate([d_f, t_f, np.array(var_shifts, np.float32)]).astype(np.float32)
     return _ShiftTable(
         ints, floats, len(plan.data_ops), len(plan.train_ops), len(firsts),
-        len(var_shifts), len(f0_rows),
-        anchors[0] if anchors else len(plan.train_ops), tuple(anchors),
+        len(var_shifts), len(f0_rows), anchors[0] if anchors else len(plan.train_ops),
     )
 
 
-def _shiftbank_cuda(spec: CircuitSpec, plan: ShiftPlan, four_term: bool, groups, theta, data):
+def _shiftbank_cuda(
+    spec: CircuitSpec, plan: ShiftPlan, four_term: bool, groups, theta, data, smem_budget: int
+):
     tab = _shift_table(spec, four_term, groups)
     b = theta.shape[0]
-    tb = kernel_tb(b, checkpoint_smem_bytes(plan, tab.n_ckpt, 1))
-    if plan_depth_tiles(plan, tab.positions, LANES) is not None or tb == 0:
-        raise NotImplementedError(
-            f"the checkpoints of this {plan.m}-qubit register plan exceed one "
-            "block's shared memory and need the spill kernels, which are not "
-            "ported yet (ROADMAP Queue 2, kernels 4+5)"
-        )
+    tb = kernel_tb(b, checkpoint_smem_bytes(plan, tab.n_ckpt, 1), smem_budget)
     dev = theta.device
     ints, floats = _on_device((spec, four_term, groups), (tab.ints, tab.floats), dev)
     out = torch.empty((len(groups), b), dtype=torch.float32, device=dev)
@@ -867,12 +986,224 @@ def _shiftbank_cuda(spec: CircuitSpec, plan: ShiftPlan, four_term: bool, groups,
                 _ptr(theta), _ptr(data), b, theta.shape[1], data.shape[1],
                 _ptr(ints), _ptr(floats), plan.m, tab.n_data_ops, tab.n_train_ops,
                 tab.n_ckpt, tab.n_variants, tab.n_f0_rows, tab.lowest,
-                _ptr(out), tb, checkpoint_smem_bytes(plan, tab.n_ckpt, tb),
-                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+                _ptr(out), tb, checkpoint_smem_bytes(plan, tab.n_ckpt, tb), _stream(dev),
             )
         _check_launch(lib, rc, "shift-bank")
         LAUNCHES["shiftbank"] += 1
     return out
+
+
+# ------------------------------------- kernels 4 and 5: spilled shift groups
+#
+# When a warp's checkpoints do not fit one block, the train-op sequence is
+# cut into depth tiles (``spill_tiling``).  The forward kernel runs the data
+# pass and the train forward pass once, writes f0, the data-register state
+# (the seed of chi) and each tile's boundary prefix state to device memory,
+# layout [tile][re/im][amp][sample].  The tile kernel then sweeps every
+# tile, deepest first: it loads the tile's boundary, re-derives the tile's
+# checkpoints from it, and walks chi down through the tile, replaying each
+# variant anchored there; chi carries into the next tile in shared memory.
+# Per lane the gates apply in the same order as the single sweep, so the
+# plain pair below is bit-identical to ``_shiftbank_plain``.
+
+
+def _tile_plan(plan: ShiftPlan, variants, tiles):
+    """((tile, lo, hi, rows_t), ...) deepest tile first, each ``rows_t`` the
+    tile's (group, param, shift, anchor) in descending anchor order."""
+    return tuple(
+        (t, lo, hi, tuple((g, j, s, k) for k in range(hi - 1, lo - 1, -1)
+                          for (g, j, s) in variants.get(k, ())))
+        for t, (lo, hi) in reversed(list(enumerate(tiles)))
+    )
+
+
+def _shift_forward_plain(plan: ShiftPlan, tile_los, theta, data):
+    """Plain version of ``shift_forward_kernel``: -> f0 (B,), the data-
+    register state (2*dim, B) and the boundary prefix states (2*n_tiles*dim,
+    B), each state a [re; im] stack."""
+    dim, b = 2**plan.m, theta.shape[0]
+    th, dt = theta.T, data.T
+    d_re, d_im = _zero_tile(dim, b, theta.device)
+    for op in plan.data_ops:
+        d_re, d_im = _apply_one(op, d_re, d_im, plan.m, th, dt)
+    los = {lo: t for t, lo in enumerate(tile_los)}
+    bnd = [None] * len(tile_los)
+    t_re, t_im = _zero_tile(dim, b, theta.device)
+    for k, op in enumerate(plan.train_ops):
+        if k in los:
+            bnd[los[k]] = (t_re, t_im)
+        t_re, t_im = _apply_one(op, t_re, t_im, plan.m, th, dt)
+    f0 = _inner_fidelity((d_re, d_im), (t_re, t_im))
+    return f0, torch.cat([d_re, d_im]), torch.cat([x for state in bnd for x in state])
+
+
+def _shift_tile_plain(plan: ShiftPlan, tile_plan, theta, data, chi, boundaries):
+    """Plain version of ``shift_tile_kernel``: every tile of ``tile_plan``
+    (see ``_tile_plan``) in order, chi seeded from ``chi`` (2*dim, B).
+    Returns one row per (group, param, shift, anchor) of the tile plan, in
+    its order, (R, B)."""
+    dim = 2**plan.m
+    th, dt = theta.T, data.T
+    c_re, c_im = chi[:dim], chi[dim:]
+    out_rows = []
+    for pos, (t, lo, hi, rows_t) in enumerate(tile_plan):
+        # re-derive this tile's checkpoints from its boundary prefix state
+        firsts = {plan.theta_positions[j][0] for (_, j, _, _) in rows_t}
+        last = max(firsts)
+        re = boundaries[2 * t * dim : (2 * t + 1) * dim]
+        im = boundaries[(2 * t + 1) * dim : (2 * t + 2) * dim]
+        checkpoints = {}
+        for k in range(lo, last + 1):
+            if k in firsts:
+                checkpoints[k] = (re, im)
+            if k < last:
+                re, im = _apply_one(plan.train_ops[k], re, im, plan.m, th, dt)
+        # chi walk + per-variant suffix replay, the single sweep's order; chi
+        # at lo seeds the next (shallower) tile.
+        rows = {}
+        for k in range(hi - 1, lo - 1, -1):
+            for g, j, s, anchor in rows_t:
+                if anchor == k:
+                    v = _replay_variant(plan, j, s, checkpoints[plan.theta_positions[j][0]], th, dt)
+                    rows[g] = _inner_fidelity((c_re, c_im), v)
+            if k > lo or pos + 1 < len(tile_plan):
+                c_re, c_im = _apply_one(plan.train_ops[k], c_re, c_im, plan.m, th, dt, invert=True)
+        out_rows.extend(rows[g] for g, _, _, _ in rows_t)
+    return torch.stack(out_rows, dim=0)
+
+
+def _spilled_rows(variants, groups, tile_plan, f0, rows):
+    """The (G, B) result in ``groups`` order from the forward kernel's f0 and
+    the tile kernel's rows (in ``tile_plan`` order)."""
+    by_group = {g: f0 for g, _, _ in variants.get(-1, ())}
+    if 0 in groups:
+        by_group[0] = f0
+    flat = [r for (_, _, _, rows_t) in tile_plan for r in rows_t]
+    for i, (g, _, _, _) in enumerate(flat):
+        by_group[g] = rows[i]
+    return torch.stack([by_group[g] for g in groups], dim=0)
+
+
+def _shift_spilled_plain(plan: ShiftPlan, shifts, groups, n_params: int, tiles, theta, data):
+    """The plain pair orchestrated like the kernels: one forward pass, then
+    one backward pass over every tile, deepest first.  -> (G, B)."""
+    variants = _collect_variants(plan, shifts, groups, n_params)
+    tile_plan = _tile_plan(plan, variants, tiles)
+    f0, d_state, boundaries = _shift_forward_plain(plan, [lo for lo, _ in tiles], theta, data)
+    rows = _shift_tile_plain(plan, tile_plan, theta, data, d_state, boundaries)
+    return _spilled_rows(variants, groups, tile_plan, f0, rows)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _SpillTable:
+    """The spill pair's plan as kernel data.  ``ints`` holds, in order: data
+    ops and train ops (6 ints each); per train op, the tile whose boundary
+    is the state just before it (-1 for none), then per train op its
+    checkpoint slot within its tile (-1 for none); the tiles deepest first
+    as (lo, hi, last, tile), ``last`` the tile's deepest checkpoint; the
+    variants and base-fidelity rows as in ``_ShiftTable``.  ``floats`` as in
+    ``_ShiftTable``.  Compared by identity: ``_spill_table`` caches one per
+    plan, and the device copies are keyed on it."""
+
+    ints: np.ndarray
+    floats: np.ndarray
+    m: int
+    n_data_ops: int
+    n_train_ops: int
+    n_tiles: int
+    n_variants: int
+    n_f0_rows: int
+    variant_rows: tuple[int, ...]
+    tiling: SpillTiling
+    smem_budget: int
+
+
+@functools.lru_cache(maxsize=None)
+def _spill_table(
+    spec: CircuitSpec, four_term: bool, groups: tuple[int, ...], smem_budget: int
+) -> _SpillTable:
+    plan = build_shift_plan(spec)
+    tiling = _shift_route(spec, four_term, groups, smem_budget)
+    variants = _collect_variants(plan, shift_values(four_term), groups, spec.n_theta)
+    nt = len(plan.train_ops)
+    bnd_of, ckpt, tile_rows = [-1] * nt, [-1] * nt, []
+    for t, (lo, hi) in enumerate(tiling.tiles):
+        bnd_of[lo] = t
+        firsts = sorted({plan.theta_positions[j][0] for k in range(lo, hi)
+                         for (_, j, _) in variants.get(k, ())})
+        for i, f in enumerate(firsts):
+            ckpt[f] = i
+        tile_rows.append([lo, hi, firsts[-1], t])
+    var_ints, var_shifts, f0_rows = _variant_table(plan, variants, groups)
+    d_i, d_f = _ops_table(plan.data_ops)
+    t_i, t_f = _ops_table(plan.train_ops)
+    tiles_flat = [x for row in reversed(tile_rows) for x in row]
+    ints = np.concatenate(
+        [d_i.ravel(), t_i.ravel(),
+         np.array(bnd_of + ckpt + tiles_flat + var_ints + f0_rows, np.int32)]
+    ).astype(np.int32)
+    floats = np.concatenate([d_f, t_f, np.array(var_shifts, np.float32)]).astype(np.float32)
+    return _SpillTable(
+        ints, floats, plan.m, len(plan.data_ops), nt, len(tiling.tiles), len(var_shifts),
+        len(f0_rows), tuple(sorted(set(var_ints[0::5]))), tiling, smem_budget,
+    )
+
+
+def _shift_forward_cuda(tab: _SpillTable, theta, data, out):
+    """Launch ``shift_forward_kernel``: f0 into the base-fidelity rows of
+    ``out`` (G, B); returns the data-register state (2*dim, B) and the tile
+    boundaries (2*n_tiles*dim, B), layout [tile][re/im][amp][sample]."""
+    b, dim, dev = theta.shape[0], 2**tab.m, theta.device
+    d_state = torch.empty((2 * dim, b), dtype=torch.float32, device=dev)
+    boundaries = torch.empty((2 * tab.n_tiles * dim, b), dtype=torch.float32, device=dev)
+    if b:
+        tb = _forward_tb(tab.m, b, tab.smem_budget)
+        ints, floats = _on_device(tab, (tab.ints, tab.floats), dev)
+        lib = _lib("vqc_spill")
+        with torch.cuda.device(dev):
+            rc = lib.vqc_shift_forward_launch(
+                _ptr(theta), _ptr(data), b, theta.shape[1], data.shape[1],
+                _ptr(ints), _ptr(floats), tab.m, tab.n_data_ops, tab.n_train_ops,
+                tab.n_tiles, tab.n_variants, tab.n_f0_rows,
+                _ptr(out), _ptr(d_state), _ptr(boundaries),
+                tb, _FORWARD_STATES * _state_bytes(tab.m, tb), _stream(dev),
+            )
+        _check_launch(lib, rc, "spill forward")
+        LAUNCHES["shift_forward"] += 1
+    return d_state, boundaries
+
+
+def _shift_tile_cuda(tab: _SpillTable, theta, data, chi, boundaries, out):
+    """Launch ``shift_tile_kernel`` over every tile, deepest first, chi
+    seeded from ``chi`` (2*dim, B): writes the variant rows of ``out``."""
+    b, dim, dev = theta.shape[0], 2**tab.m, theta.device
+    for name, t, rows in (("chi", chi, 2 * dim), ("boundaries", boundaries, 2 * tab.n_tiles * dim)):
+        if (t.shape != (rows, b) or t.dtype != torch.float32 or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous float32 ({rows}, {b}) tensor on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    if b:
+        ints, floats = _on_device(tab, (tab.ints, tab.floats), dev)
+        lib = _lib("vqc_spill")
+        with torch.cuda.device(dev):
+            rc = lib.vqc_shift_tile_launch(
+                _ptr(theta), _ptr(data), b, theta.shape[1], data.shape[1],
+                _ptr(ints), _ptr(floats), tab.m, tab.n_data_ops, tab.n_train_ops,
+                tab.n_tiles, tab.n_variants, _ptr(chi), _ptr(boundaries), _ptr(out),
+                tab.tiling.tb, tab.tiling.smem_bytes, _stream(dev),
+            )
+        _check_launch(lib, rc, "spill tile")
+        LAUNCHES["shift_tile"] += 1
+    return out
+
+
+def _shift_spilled_cuda(spec: CircuitSpec, four_term: bool, groups, theta, data, smem_budget: int):
+    tab = _spill_table(spec, four_term, groups, smem_budget)
+    out = torch.empty((len(groups), theta.shape[0]), dtype=torch.float32, device=theta.device)
+    d_state, boundaries = _shift_forward_cuda(tab, theta, data, out)
+    return _shift_tile_cuda(tab, theta, data, d_state, boundaries, out)
 
 
 def vqc_shift_fidelity(
@@ -882,14 +1213,18 @@ def vqc_shift_fidelity(
     *,
     four_term: bool = False,
     groups: tuple[int, ...] | None = None,
+    smem_budget: int = SMEM_BUDGET_BYTES,
 ) -> torch.Tensor:
     """Prefix-reuse shift-bank fidelities. theta: (B,P), data: (B,D).
 
     Returns (G, B) where G = len(groups) (default: every group of the bank,
     1 + 2P or 1 + 4P rows); flattening in group-major order reproduces the
-    materialized bank's fidelity vector.  Raises ValueError when the spec
-    doesn't match the SWAP-test product structure, and NotImplementedError
-    on CUDA when the checkpoint set needs depth tiles.
+    materialized bank's fidelity vector.  When a warp's checkpoints exceed
+    ``smem_budget`` (the counterpart of the reference's ``vmem_budget``)
+    the bank runs as depth tiles through the spill pair, on the CPU (plain
+    versions) as on the card.  Raises ValueError when the spec doesn't
+    match the SWAP-test product structure, and NotImplementedError when no
+    block can hold the plan.
     """
     plan = build_shift_plan(spec)
     if plan is None:
@@ -904,11 +1239,16 @@ def vqc_shift_fidelity(
     if not groups or not all(0 <= g < n_groups for g in groups):
         raise ValueError(f"groups out of range for {n_groups}-group bank: {groups}")
     _shift_table(spec, four_term, groups)  # rejects unsupported gates
+    tiling = _shift_route(spec, four_term, groups, smem_budget)
     theta, data, kind = _prepare(spec, theta, data)
     if kind == "cpu":
         shifts = tuple(float(s) for s in shift_values(four_term))
-        return _shiftbank_plain(plan, shifts, groups, spec.n_theta, theta, data)
-    return _shiftbank_cuda(spec, plan, four_term, groups, theta, data)
+        if tiling is None:
+            return _shiftbank_plain(plan, shifts, groups, spec.n_theta, theta, data)
+        return _shift_spilled_plain(plan, shifts, groups, spec.n_theta, tiling.tiles, theta, data)
+    if tiling is None:
+        return _shiftbank_cuda(spec, plan, four_term, groups, theta, data, smem_budget)
+    return _shift_spilled_cuda(spec, four_term, groups, theta, data, smem_budget)
 
 
 # ------------------------------------------------------- analytic counters

@@ -77,11 +77,41 @@ def test_multibank_lane_identity_on_card(cuda):
         assert torch.equal(out, ops.vqc_fidelity_shiftgroups(spec, t, d, False, gs))
 
 
+@pytest.mark.parametrize("qc,nl,tied,budget_ckpts", [
+    (13, 3, False, None),   # m = 6: the checkpoints need tiles at 227 KB
+    (17, 1, False, None),   # m = 8: blocks of 16 samples
+    (17, 3, False, None),
+    (7, 3, True, 3),        # forced budget: multi-use replay spans tile
+    (5, 3, True, 3),
+])
+@pytest.mark.parametrize("four", [False, True])
+def test_spill_kernels_match_plain(cuda, qc, nl, tied, budget_ckpts, four):
+    build = circuits.build_tied_quclassi_circuit if tied else circuits.build_quclassi_circuit
+    spec = build(qc, nl)
+    plan = K.build_shift_plan(spec)
+    budget = (K.SMEM_BUDGET_BYTES if budget_ckpts is None
+              else K.checkpoint_smem_bytes(plan, budget_ckpts, K.LANES))
+    shifts = K.shift_values(four)
+    n_groups = 1 + len(shifts) * spec.n_theta
+    th, dt = _angles(spec, 100, cuda, seed=qc + nl)
+    for groups in (tuple(range(n_groups)), tuple(range(1, n_groups, 2))):
+        info = K.shift_execution_info(spec, 100, four_term=four, groups=groups,
+                                      smem_budget=budget)
+        assert info["mode"] == "spill" and info["smem_bytes"] <= K.SMEM_BUDGET_BYTES
+        before = dict(K.LAUNCHES)
+        got = K.vqc_shift_fidelity(spec, th, dt, four_term=four, groups=groups,
+                                   smem_budget=budget)
+        assert K.LAUNCHES["shift_forward"] == before["shift_forward"] + 1
+        assert K.LAUNCHES["shift_tile"] == before["shift_tile"] + 1
+        want = K._shift_spilled_plain(plan, shifts, groups, spec.n_theta, info["tiles"], th, dt)
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+
+
 def test_unfit_shapes_raise_instead_of_running(cuda):
-    wide = circuits.build_quclassi_circuit(13, 3)  # m = 6: checkpoints need tiles
+    wide = circuits.build_quclassi_circuit(13, 3)  # m = 6: runs as depth tiles
     th, dt = _angles(wide, 8, cuda)
-    with pytest.raises(NotImplementedError, match="spill kernels"):
-        K.vqc_shift_fidelity(wide, th, dt)
+    with pytest.raises(NotImplementedError, match="shared-memory budget"):
+        K.vqc_shift_fidelity(wide, th, dt, smem_budget=2 * K._state_bytes(6, 1))
     big = circuits.build_quclassi_circuit(11, 1)  # 2**11 amplitudes: 16 KB a circuit
     th, dt = _angles(big, 8, cuda)
     with pytest.raises(NotImplementedError, match="shared-memory budget"):
