@@ -14,6 +14,13 @@ Phases, in order; any failure exits non-zero before the result line:
                spill pair is checked at 13 qubits (m = 6), at 17 qubits
                (m = 8, blocks of 16 samples) and on tied 5q/7q circuits
                under a forced shared-memory budget;
+               The flash-attention kernel is checked against its plain
+               version at the SmolLM-360M prefill shape (BH 60, S 2048,
+               hd 64, g 3) in bf16 and f32, at Qwen3-4B's (BH 32, hd 128,
+               g 4) in bf16, with window 64 and non-causal at S 256, and at
+               S 100 (the last tile part full), within 2e-5 (f32) and 2e-2
+               (bf16), then timed at the prefill shape beside
+               ``scaled_dot_product_attention`` (timed only);
   4. train   — QuClassi Algorithm 1 through the data plane's
                ``worker_batched_executor``, 3 steps of 64 images after one
                warm-up step each: ``quclassi-7q-3l`` on 4 workers with
@@ -21,7 +28,16 @@ Phases, in order; any failure exits non-zero before the result line:
                kernel), then 13-qubit, 3-layer QuClassi on 2 workers with
                implicit banks (spill pair).  Launch counts are zeroed just
                before each run and read just after; then one profiled
-               gradient step per run shows where the time goes.
+               gradient step per run shows where the time goes;
+  5. serve   — ``smollm-360m`` at full width and depth (32 layers, bf16,
+               seeded weights) on the flash path: (a) a 4 x 2048-token
+               prefill through ``make_prefill_step`` (counts zeroed before
+               and read after; 32 flash launches), timed, then profiled
+               once; (b) 4 requests of a 64-token prompt, 16 greedy tokens
+               each, through ``make_serve_step``'s cache; (c) in float32,
+               TF32 off, the cached decode's logits at every prompt position
+               within 1e-3 of the flash prefill's, and the first generated
+               token equal.
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Needs CUDA; without it, or without the
 repository around it, it exits non-zero and prints no result.
@@ -40,9 +56,16 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-5  # float32 fidelities: the reference's own kernel tolerance
-#: H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
+#: H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
+#: bf16 dense on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+#: flash attention against its plain version: the reference's own
+#: tolerances (tests/test_flash_attention.py)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: float32 decode logits against the float32 flash prefill's
+SERVE_TOL = 1e-3
 #: float32 operations per amplitude of one gate application: a rotation
 #: updates each amplitude with 2 products and 1 sum for re and for im; a
 #: controlled rotation touches half the amplitudes; H is 1 sum and 1
@@ -78,9 +101,94 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def profile_window(fn):
+    """Run ``fn`` once under ``torch.profiler``: host-clock ms (ending in a
+    synchronise), the CUDA kernels' key averages, and their busy ms."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda_kind = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages() if e.device_type == cuda_kind]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    return wall_ms, kern, busy_ms
+
+
+def log_top(kern, n: int) -> None:
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:n]:
+        log(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def flash_inputs(bh: int, s: int, hd: int, dtype, groups: int, dev, seed: int):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple((torch.randn((n, s, hd), generator=g, device=dev) * 0.5).to(dtype)
+                 for n in (bh, bh // groups, bh // groups))
+
+
+def check_flash(dev, card: str) -> tuple[float, dict]:
+    """The flash kernel against its plain version on the card at the
+    serving path's shapes and the edge cases, then timed at the
+    SmolLM-360M prefill shape.  Returns (max |diff|, timing record)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # label, BH, S, hd, dtype, groups, causal, window
+        ("smollm-360m prefill", 60, 2048, 64, bf16, 3, True, 0),
+        ("smollm-360m prefill", 60, 2048, 64, f32, 3, True, 0),
+        ("qwen3-4b prefill", 32, 2048, 128, bf16, 4, True, 0),
+        ("window 64", 8, 256, 64, bf16, 1, True, 64),
+        ("window 64", 8, 256, 64, f32, 1, True, 64),
+        ("non-causal", 8, 256, 64, bf16, 2, False, 0),
+        ("non-causal", 8, 256, 64, f32, 2, False, 0),
+        ("non-causal window 64", 8, 256, 128, f32, 2, False, 64),
+        ("part-full tile", 6, 100, 64, f32, 3, True, 0),
+        ("part-full tile", 6, 100, 128, bf16, 3, True, 0),
+        ("part-full tile", 6, 100, 16, f32, 1, True, 0),
+        ("part-full tile", 6, 100, 32, bf16, 1, False, 0),
+    ]
+    worst = 0.0
+    for i, (label, bh, s, hd, dtype, groups, causal, window) in enumerate(cases):
+        q, k, v = flash_inputs(bh, s, hd, dtype, groups, dev, seed=i)
+        got = FA.flash_attention(q, k, v, causal=causal, window=window, groups=groups)
+        want = FA._flash_plain(q, k, v, causal=causal, window=window, groups=groups)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        tol = FLASH_TOL[dtype]
+        log(f"  {'flash':13s} {label} BH={bh} S={s} hd={hd} g={groups} "
+            f"{str(dtype)[6:]} causal={causal} window={window}: max|diff| = {err:.3e}")
+        if not (got.dtype == dtype and torch.isfinite(got.float()).all() and err <= tol):
+            raise AssertionError(f"flash {label}: max|diff| {err} > {tol} or not finite")
+
+    # timing at the prefill's shape: 4 requests x 2048 tokens, 15 heads over
+    # 5 kv heads (BH 60, g 3), bf16
+    b, h, kv, s, hd = 4, 15, 5, 2048, 64
+    q, k, v = flash_inputs(b * h, s, hd, bf16, h // kv, dev, seed=99)
+    ms = time_ms(lambda: FA.flash_attention(q, k, v, groups=h // kv))
+    plain_ms = time_ms(lambda: FA._flash_plain(q, k, v, groups=h // kv), iters=3, warmup=1)
+    q4, k4, v4 = q.view(b, h, s, hd), k.view(b, kv, s, hd), v.view(b, kv, s, hd)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = lambda: sdpa(q4, k4, v4, is_causal=True, scale=1.0, enable_gqa=True)  # noqa: E731
+    library_ms = time_ms(library)
+    lib_diff = float((library().reshape(b * h, s, hd).float()
+                      - FA.flash_attention(q, k, v, groups=h // kv).float()).abs().max())
+    flops = 4 * b * h * hd * s * (s + 1) // 2          # visible (query, key) pairs
+    nbytes = 2 * (2 * b * h + 2 * b * kv) * s * hd     # q, o at 60 heads; k, v at 20
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    log(f"  time flash         BH={b * h} S={s} hd={hd} g={h // kv} bf16 causal: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
+        f"(max|diff| to the kernel {lib_diff:.3e}), bound {bound_ms:.6f} ms ({bound_by}; "
+        f"{flops} flops, {nbytes} bytes) [{card}]")
+    return worst, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms}
 
 
 def ops_flops(ops, n: int) -> int:
@@ -130,6 +238,102 @@ def spill_flops(K, plan, tab, tile_plan) -> tuple[int, int]:
     return fwd, ops_flops(ops, plan.m) + n_inner * INNER_FLOPS_PER_AMP * dim
 
 
+def serve_smollm(dev, card: str) -> int:
+    """Phase 5: SmolLM-360M at full width and depth on the flash path.
+    Returns the flash launches of the main-path prefill."""
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import vqc_statevector as K
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import multimodal, transformer
+
+    cfg = cfg_base.get("smollm-360m").with_(attention_impl="flash")
+    b, s, plen, gen = 4, 2048, 64, 16
+    prefill, model = steps.make_prefill_step(cfg, device=dev)
+    log(f"serve {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.kv_heads} heads, hd {cfg.resolved_head_dim}, {cfg.dtype}, "
+        f"{transformer.param_count(model):,} parameters (seeded init)")
+
+    # (a) prefill of 4 x 2048 tokens through the flash kernel
+    batch = multimodal.text_batch(cfg, b, s, seed=0)
+    prefill(batch)  # warm-up: first-call costs, the kernel library's load
+    torch.cuda.synchronize()
+    for key in K.LAUNCHES:
+        K.LAUNCHES[key] = 0
+    FA.LAUNCHES["flash"] = 0
+    logits = prefill(batch)
+    torch.cuda.synchronize()
+    launches = FA.LAUNCHES["flash"]
+    others = {k: n for k, n in K.LAUNCHES.items() if n}
+    if launches != cfg.n_layers or others:
+        raise AssertionError(f"prefill launched flash {launches} times (want {cfg.n_layers}) "
+                             f"and other kernels {others}")
+    if logits.shape != (b, s, cfg.vocab) or not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} are not finite")
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill(batch)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    ms = sum(runs) / len(runs)
+    log(f"serve prefill: {b} x {s} tokens in {ms:.3f} ms mean of {len(runs)} "
+        f"({', '.join(f'{r:.3f}' for r in runs)}), {b * s / ms * 1e3:,.1f} tokens/s, "
+        f"{launches} flash launches a prefill [{card}]")
+    wall_ms, kern, busy_ms = profile_window(lambda: prefill(batch))
+    flash_ms = sum(e.self_device_time_total for e in kern if "flash_fwd" in e.key) / 1e3
+    log(f"profile prefill: {wall_ms:.3f} ms host clock (profiled), device busy {busy_ms:.3f} ms, "
+        f"idle share {1 - busy_ms / wall_ms:.4f}, flash kernel {flash_ms:.3f} ms = "
+        f"{flash_ms / busy_ms:.4f} of busy time, {sum(e.count for e in kern)} kernel launches "
+        f"[{card}]")
+    log_top(kern, 6)
+    del logits
+
+    # (b) requests as run_reduced serves them: one seeded token repeated as
+    # the prompt, greedy tokens through the cache
+    serve_step, _ = steps.make_serve_step(cfg, model=model)
+    prompt = multimodal.decode_batch_for(cfg, b)
+    prompt = {"tokens": prompt["tokens"].repeat(1, plen)}
+    serve.generate(serve_step, model, {"tokens": prompt["tokens"][:, :4]}, 2)  # warm-up
+    res = serve.generate(serve_step, model, prompt, gen)
+    toks = res["tokens"]
+    if toks.shape != (b, gen) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"generated tokens {tuple(toks.shape)} out of range")
+    total_s = res["prompt_s"] + res["gen_s"]
+    log(f"serve requests: {b} x ({plen} prompt + {gen} generated) cached decode steps: "
+        f"prompt {res['prompt_s'] * 1e3:.3f} ms, generation {res['gen_s'] * 1e3:.3f} ms, "
+        f"{b * gen / res['gen_s']:,.1f} generated tokens/s, "
+        f"{b * (plen + gen) / total_s:,.1f} decode steps/s incl. prompt; "
+        f"continuation of request 0: {toks[0].tolist()} [{card}]")
+    one = {"tokens": prompt["tokens"][:, :1]}
+    wall_ms, kern, busy_ms = profile_window(lambda: serve.generate(serve_step, model, one, 1))
+    log(f"profile decode: 2 cached decode steps (1 prompt + 1 generated token) in "
+        f"{wall_ms:.3f} ms host clock (profiled), device busy {busy_ms:.3f} ms, "
+        f"idle share {1 - busy_ms / wall_ms:.4f}, {sum(e.count for e in kern)} kernel launches "
+        f"[{card}]")
+    log_top(kern, 4)
+    del model, prefill, serve_step
+    torch.cuda.empty_cache()
+
+    # (c) float32 at full width: cached decode against the flash prefill
+    cfg32 = cfg.with_(dtype="float32")
+    prefill32, model32 = steps.make_prefill_step(cfg32, device=dev)
+    serve32, _ = steps.make_serve_step(cfg32, model=model32)
+    prompt = multimodal.text_batch(cfg32, b, plen, seed=0)
+    full = prefill32(prompt).float()
+    res = serve.generate(serve32, model32, prompt, 1, keep_logits=True)
+    diff = float((res["prompt_logits"] - full).abs().max())
+    first_ok = torch.equal(res["tokens"][:, 0].cpu(), full[:, -1].argmax(-1).cpu())
+    log(f"serve consistency (float32, TF32 off): decode vs flash prefill logits over "
+        f"{b} x {plen} positions: max|diff| = {diff:.3e} (limit {SERVE_TOL}), "
+        f"logit scale {float(full.abs().max()):.3f}; first generated token equal: {first_ok}")
+    if not (diff <= SERVE_TOL and first_ok):
+        raise AssertionError(f"decode and prefill disagree: {diff}, first token equal {first_ok}")
+    del model32, prefill32, serve32
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs a GPU", file=sys.stderr)
@@ -143,6 +347,7 @@ def main() -> int:
         from repro_torch.core.trainer import train
         from repro_torch.data.mnist import make_pair_dataset, train_test_split
         from repro_torch.kernels import _build, ops, ref
+        from repro_torch.kernels import flash_attention as FA
         from repro_torch.kernels import vqc_statevector as K
     except ImportError as exc:
         print(f"chip_smoke: the repro_torch package is missing: {exc}", file=sys.stderr)
@@ -387,6 +592,8 @@ def main() -> int:
                           "bound_by": bound_by}
         log(f"  time {kname:13s} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.6f} ms ({bound_by}; {flops} flops, {nbytes} bytes) [{card}]")
+    log("checks: the flash-attention kernel")
+    errs["flash"], records["flash"] = check_flash(dev, card)
     log("kernels: " + json.dumps(
         [{"name": k, "max_abs_err": errs[k], **records[k]} for k in records]))
 
@@ -426,11 +633,14 @@ def main() -> int:
         torch.cuda.synchronize()
         for key in K.LAUNCHES:
             K.LAUNCHES[key] = 0
+        FA.LAUNCHES["flash"] = 0
         rep = train(c, train_set, test_set, epochs=1, batch_size=batch, lr=1e-3,
                     executor=executor, bank_mode=mode, seed=0, init_params=inits[label],
                     device=dev)
         torch.cuda.synchronize()
         counts = dict(K.LAUNCHES)
+        if FA.LAUNCHES["flash"]:
+            raise AssertionError(f"{label}: training launched the flash kernel")
         for key in counts:
             launches[key] += counts[key]
         ep = rep.epochs[0]
@@ -467,7 +677,6 @@ def main() -> int:
     # where one gradient step's time goes (after the counts were read)
     xb = torch.as_tensor(train_set[0][:batch], device=dev)
     yb = torch.as_tensor(train_set[1][:batch], device=dev)
-    cuda_kind = torch.autograd.DeviceType.CUDA
     for label, (c, mode, _, run) in runs.items():
         def step(c=c, run=run, mode=mode, init=inits[label]):
             loss, _, _ = quclassi.grad_shift(c, init, xb, yb, executor=run,
@@ -475,25 +684,18 @@ def main() -> int:
             return float(loss)
 
         step()
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kern = [e for e in prof.key_averages() if e.device_type == cuda_kind]
-        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+        wall_ms, kern, busy_ms = profile_window(step)
         log(f"profile {label}: one gradient step {wall_ms:.3f} ms host clock (profiled), "
             f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
             f"{sum(e.count for e in kern)} kernel launches [{card}]")
-        for e in top:
-            log(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<5d} {e.key[:90]}")
+        log_top(kern, 5)
         for e in kern:
             if "vqc::" in e.key:
                 log(f"  circuit kernel {e.self_device_time_total / 1e3:.4f} ms "
                     f"x{e.count} {e.key[:60]}")
+
+    # ------------------------------------------------------------- 5. serve
+    launches["flash"] = serve_smollm(dev, card)
 
     kernels = [
         {"name": "fidelity", "route": "cuda",
@@ -511,10 +713,13 @@ def main() -> int:
         {"name": "shift_tile", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/vqc_spill.cu",
          "replaces": "src/repro/kernels/vqc_statevector.py:848"},
+        {"name": "flash", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:31"},
     ]
     for k in kernels:
         n = k["name"]
-        k.update(launches=launches[n], max_abs_err=errs[n], library_ms=None, **records[n])
+        k.update(launches=launches[n], max_abs_err=errs[n], **{"library_ms": None, **records[n]})
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -1,1 +1,23 @@
-"""Workload configurations (the QuClassi paper settings)."""
+"""Workload configurations: the QuClassi paper settings
+(``quclassi_paper``) and the LM architectures the port serves, one module
+each, registered in ``base`` (``base.get(name)`` loads them lazily)."""
+from __future__ import annotations
+
+import importlib
+
+#: only the architectures this port runs; the reference registers more
+_MODULES = (
+    "smollm_360m",
+    "qwen3_4b",
+)
+
+_loaded = False
+
+
+def load_all() -> None:
+    global _loaded
+    if _loaded:
+        return
+    for m in _MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
+    _loaded = True

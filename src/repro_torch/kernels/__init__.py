@@ -1,2 +1,3 @@
-"""Hand-written CUDA statevector kernels, their plain PyTorch versions, and
-the wrappers that pick between them by the device of their inputs."""
+"""Hand-written CUDA kernels (the statevector kernels and flash attention),
+their plain PyTorch versions, and the wrappers that pick between them by
+the device of their inputs."""

@@ -20,10 +20,12 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 #: one shared library per source file
-KERNELS = ("vqc_fused", "vqc_shiftbank", "vqc_spill")
+KERNELS = ("vqc_fused", "vqc_shiftbank", "vqc_spill", "flash_attn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -89,6 +91,16 @@ def build(names=KERNELS) -> dict[str, dict]:
     if failures:
         raise RuntimeError("\n".join(failures))
     return report
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device address for a C entry point (None -> NULL)."""
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def stream(dev) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``dev``: kernels launch on it."""
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -340,12 +340,7 @@ def _on_device(key, arrays, device) -> tuple[torch.Tensor, ...]:
     return got
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(None)
-
-
-def _stream(dev):
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+_ptr, _stream = _build.ptr, _build.stream
 
 
 @functools.cache

@@ -1,0 +1,99 @@
+"""Serving launcher: cached decode of batched requests.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+      --reduced --batch 4 --prompt-len 16 --gen 24 --device cpu
+
+``--reduced`` serves the smoke-scale config with real batched requests on
+``--device`` (default ``cuda``).  Without it the reference lowers the full
+config's serve_step against a production mesh (its dry-run), which is not
+ported yet (ROADMAP Queue 1 item 15).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import base as cfg_base
+from repro_torch.launch import steps
+from repro_torch.models import multimodal, transformer
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(serve_step, model, prompt: dict, gen: int, *, keep_logits: bool = False) -> dict:
+    """Step ``prompt["tokens"]`` (B, P) through a fresh cache one token at a
+    time, then decode ``gen`` greedy tokens.  Returns ``tokens`` (B, gen),
+    ``prompt_s`` and ``gen_s`` (host seconds, each ending in a device
+    synchronise), and with ``keep_logits`` the float32 logits at every
+    prompt position, ``prompt_logits`` (B, P, V)."""
+    toks = prompt["tokens"].to(model.device)
+    b, plen = toks.shape
+    caches = model.init_caches(b, plen + gen)
+    logits, kept = None, []
+    _sync(model.device)
+    t0 = time.perf_counter()
+    for t in range(plen):
+        logits, caches = serve_step({"tokens": toks[:, t:t + 1]}, caches, t)
+        if keep_logits:
+            kept.append(logits[:, 0].to(torch.float32))
+    _sync(model.device)
+    t1 = time.perf_counter()
+    out = []
+    for t in range(plen, plen + gen):
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).reshape(b, 1)
+        logits, caches = serve_step({"tokens": nxt}, caches, t)
+        out.append(nxt)
+    _sync(model.device)
+    t2 = time.perf_counter()
+    return {"tokens": torch.cat(out, dim=1) if out else toks[:, :0],
+            "prompt_s": t1 - t0, "gen_s": t2 - t1,
+            "prompt_logits": torch.stack(kept, dim=1) if keep_logits else None}
+
+
+def run_reduced(arch: str, batch: int, prompt_len: int, gen: int, *, device="cuda",
+                params: dict | None = None) -> torch.Tensor:
+    """Serve the reduced ``arch``: ``batch`` requests whose prompt repeats
+    one seeded token ``prompt_len`` times, each decoding ``gen`` greedy
+    tokens.  ``params`` (the reference's pytree as numpy) replaces the
+    seeded init.  Returns the generated tokens (batch, gen)."""
+    cfg = cfg_base.get(arch).reduced()
+    serve_step, model = steps.make_serve_step(cfg, device=device)
+    if params is not None:
+        model.load_state_dict(transformer.params_from_numpy(cfg, params, model.device))
+    print(f"[serve] {arch} (reduced): batch {batch}, prompt {prompt_len}, "
+          f"generating {gen} tokens/request")
+    prompt = multimodal.decode_batch_for(cfg, batch)
+    prompt = {"tokens": prompt["tokens"].repeat(1, prompt_len)}
+    res = generate(serve_step, model, prompt, gen)
+    dt = res["prompt_s"] + res["gen_s"]
+    total = batch * (prompt_len + gen)
+    print(f"[serve] {total} cached decode steps in {dt:.1f}s "
+          f"({total / dt:,.0f} tok/s incl. prefill) on {model.device}; "
+          f"sample continuation: {res['tokens'][0, :8].tolist()}")
+    return res["tokens"]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=24)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if not args.reduced:
+        raise NotImplementedError(
+            "serving the full config lowers serve_step against a production mesh "
+            "(the reference's dry-run), which is not ported yet (ROADMAP Queue 1 item 15); "
+            "pass --reduced")
+    run_reduced(args.arch, args.batch, args.prompt_len, args.gen, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

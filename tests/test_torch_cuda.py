@@ -10,10 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import base as cfg_base
 from repro_torch.core import circuits, quclassi, trainer
 from repro_torch.data import mnist
+from repro_torch.kernels import flash_attention as F
 from repro_torch.kernels import ops
 from repro_torch.kernels import vqc_statevector as K
+from repro_torch.models import multimodal, transformer
 
 pytestmark = pytest.mark.requires_cuda
 ATOL = 1e-5  # float32: other cos/sin and summation order than the plain version
@@ -128,3 +131,42 @@ def test_training_step_on_card(cuda):
     assert np.isfinite(rep.epochs[0].loss)
     assert K.LAUNCHES["shiftbank"] > before
     assert all(v.is_cuda for v in rep.params.values())
+
+
+#: flash attention: float32 (summation order) and bfloat16 (one rounding of
+#: the output), the reference's own tolerances
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(bh, s, hd, dtype, device, groups=1, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((n, s, hd), generator=g) * 0.5 for n in (bh, bh // groups, bh // groups))
+    return tuple(t.to(device=device, dtype=dtype) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("hd", F.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0), (False, 48)])
+@pytest.mark.parametrize("s", [128, 100])  # 100: the last tile is part full
+def test_flash_kernel_matches_plain(cuda, hd, dtype, causal, window, s):
+    q, k, v = _qkv(6, s, hd, dtype, cuda, groups=3, seed=hd + s)
+    before = F.LAUNCHES["flash"]
+    got = F.flash_attention(q, k, v, causal=causal, window=window, groups=3)
+    assert F.LAUNCHES["flash"] == before + 1
+    assert got.dtype == dtype
+    want = F._flash_plain(q, k, v, causal=causal, window=window, groups=3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=FLASH_ATOL[dtype])
+
+
+def test_flash_prefill_on_card_matches_naive(cuda):
+    cfg = cfg_base.get("smollm-360m").reduced().with_(attention_impl="flash")
+    model = transformer.Model(cfg, device=cuda)
+    toks = multimodal.text_batch(cfg, 2, 96)
+    before = F.LAUNCHES["flash"]
+    with torch.no_grad():
+        flash, _ = model.prefill(toks)
+        model.cfg = cfg.with_(attention_impl="naive")
+        naive, _ = model.prefill(toks)
+    assert F.LAUNCHES["flash"] == before + cfg.n_layers
+    torch.testing.assert_close(flash, naive, rtol=0, atol=1e-4)

@@ -1,0 +1,282 @@
+"""The port's dense-LM serving path against the reference on the CPU.
+
+Both packages get the same inputs: tokens from the same numpy seeding, and
+the reference's parameters (``jax.random`` streams cannot be reproduced in
+torch) carried across with ``params_from_numpy``.  Everything is float32
+(``reduced()`` sets it; numpy has no bf16), and the port's flash path runs
+its plain version.  Tolerances: 1e-4 on logits (float32 through 2 layers:
+other summation orders in the projections and the attention).
+"""
+import dataclasses
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as rbase
+from repro.launch import serve as rserve
+from repro.launch import steps as rsteps
+from repro.models import common as rcommon
+from repro.models import multimodal as rmm
+from repro.models import transformer as rtransformer
+from repro_torch.configs import base
+from repro_torch.launch import serve, steps
+from repro_torch.models import blocks, common, multimodal, transformer
+
+ATOL = 1e-4
+
+
+def _ref_params(cfg, seed=0):
+    params = rtransformer.Model(cfg).init_params(jax.random.PRNGKey(seed))
+    return jax.tree.map(np.asarray, params)
+
+
+def _port(cfg, tree):
+    model = transformer.Model(cfg, device="cpu")
+    model.load_state_dict(transformer.params_from_numpy(cfg, tree))
+    return model
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+# ------------------------------------------------------------------ configs
+_SYNTH = dict(name="synth", family="hybrid", n_layers=8, d_model=1024, n_heads=16,
+              kv_heads=8, d_ff=4096, vocab=70_000, pattern=("attn", "mamba"),
+              sliding_window=4096, n_prefix_embeds=576, prefix_embed_dim=1024)
+
+
+def _synth(pkg):
+    return pkg.ModelConfig(
+        **_SYNTH, moe=pkg.MoEConfig(n_experts=64, top_k=6, d_ff_expert=1408, every=2),
+        mla=pkg.MLAConfig(), ssm=pkg.SSMConfig())
+
+
+@pytest.mark.parametrize("name", ["smollm-360m", "qwen3-4b", "synth"])
+def test_config_and_reduced_field_for_field(name):
+    if name == "synth":
+        port, ref = _synth(base), _synth(rbase)
+    else:
+        port, ref = base.get(name), rbase.get(name)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(port.reduced()) == dataclasses.asdict(ref.reduced())
+    assert port.layer_kinds == ref.layer_kinds
+    assert port.resolved_head_dim == ref.resolved_head_dim
+    assert port.n_periods == ref.n_periods
+
+
+def test_registry_holds_only_the_ported_architectures():
+    assert base.all_names() == ["qwen3-4b", "smollm-360m"]
+    assert base.INPUT_SHAPES == {k: base.InputShape(*dataclasses.astuple(v))
+                                 for k, v in rbase.INPUT_SHAPES.items()}
+
+
+# ------------------------------------------------------------------ common
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_and_rope_match_reference(dtype):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 12, 3, 64), dtype=np.float32)
+    scale = rng.standard_normal((64,), dtype=np.float32)
+    pos = np.arange(3, 15)[None, :].repeat(2, 0)
+    jd, td = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    jx, tx = jnp.asarray(x).astype(jd), torch.from_numpy(x).to(td)
+    js, ts = jnp.asarray(scale).astype(jd), torch.from_numpy(scale).to(td)
+    atol = 1e-5 if dtype == "float32" else 1e-2
+    got = common.rms_norm(tx, ts, 1e-5)
+    assert got.dtype == td
+    np.testing.assert_allclose(_np(got), _np(rcommon.rms_norm(jx, js, 1e-5)), atol=atol)
+    for theta in (10_000.0, 1_000_000.0):
+        got = common.apply_rope(tx, torch.from_numpy(pos), theta)
+        assert got.dtype == td
+        np.testing.assert_allclose(_np(got), _np(rcommon.apply_rope(jx, jnp.asarray(pos), theta)),
+                                   atol=atol)
+
+
+def test_causal_mask_and_activations_match_reference():
+    for args in ((5, 9, 4, 0), (5, 9, 4, 3), (8, 8, 0, 0)):
+        np.testing.assert_array_equal(_np(common.causal_mask(*args)),
+                                      _np(rcommon.causal_mask(*args)))
+    x = np.linspace(-4, 4, 101, dtype=np.float32)
+    for name in ("silu", "gelu", "relu2"):
+        np.testing.assert_allclose(_np(common.activation_fn(name)(torch.from_numpy(x))),
+                                   _np(rcommon.activation_fn(name)(jnp.asarray(x))), atol=1e-6)
+
+
+# ------------------------------------------------------------------ params
+def test_params_from_numpy_round_trip():
+    """Every leaf of the reference's pytree lands in the port's model and
+    reads back unchanged: top-level leaves by name, and slice p of
+    ``blocks[j]`` as layer ``p * len(pattern) + j``."""
+    cfg = base.get("qwen3-4b").reduced()
+    tree = _ref_params(rbase.get("qwen3-4b").reduced())
+    model = _port(cfg, tree)  # load_state_dict is strict: no key missing or extra
+    state = model.state_dict()
+    n_leaves = 0
+    for path, arr in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        keys = [getattr(k, "key", getattr(k, "idx", None)) for k in path]
+        if keys[0] == "blocks":
+            j, *name = keys[1:]
+            for p in range(cfg.n_periods):
+                layer = p * len(cfg.pattern) + j
+                np.testing.assert_array_equal(_np(state[f"blocks.{layer}.{'.'.join(name)}"]),
+                                              arr[p])
+                n_leaves += 1
+        else:
+            np.testing.assert_array_equal(_np(state[keys[0]]), arr)
+            n_leaves += 1
+    assert n_leaves == len(state)
+    assert transformer.param_count(model) == rtransformer.param_count(tree)
+
+
+# ----------------------------------------------------------------- prefill
+def _prefill_both(rcfg, cfg, b, s):
+    tree = _ref_params(rcfg)
+    toks = multimodal.text_batch(cfg, b, s, seed=0)
+    rtoks = rmm.text_batch(rcfg, b, s, seed=0)
+    np.testing.assert_array_equal(toks["tokens"].numpy(), np.asarray(rtoks["tokens"]))
+    rstep, _ = rsteps.make_prefill_step(rcfg)
+    want = _np(jax.jit(rstep)(jax.tree.map(jnp.asarray, tree), rtoks))
+    step, _ = steps.make_prefill_step(cfg, model=_port(cfg, tree))
+    got = _np(step(toks))
+    assert got.shape == (b, s, cfg.vocab)
+    return got, want
+
+
+@pytest.mark.parametrize("name", ["smollm-360m", "qwen3-4b"])
+def test_prefill_logits_match_reference_reduced(name):
+    rcfg = rbase.get(name).reduced().with_(attention_impl="flash")
+    cfg = base.get(name).reduced().with_(attention_impl="flash")
+    got, want = _prefill_both(rcfg, cfg, 2, 32)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_prefill_logits_match_reference_smollm_full_widths():
+    """d 960, 15 / 5 heads (BH not a power of two, g = 3), hd 64, d_ff 2560;
+    2 layers and vocab 512 to keep the CPU run short."""
+    cut = dict(n_layers=2, vocab=512, dtype="float32", attention_impl="flash")
+    rcfg, cfg = rbase.get("smollm-360m").with_(**cut), base.get("smollm-360m").with_(**cut)
+    got, want = _prefill_both(rcfg, cfg, 1, 128)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_naive_and_flash_prefill_agree():
+    cfg = base.get("qwen3-4b").reduced()
+    tree = _ref_params(rbase.get("qwen3-4b").reduced())
+    toks = multimodal.text_batch(cfg, 2, 24, seed=3)
+    naive, _ = _port(cfg, tree).prefill(toks)
+    flash, _ = _port(cfg.with_(attention_impl="flash"), tree).prefill(toks)
+    np.testing.assert_allclose(_np(flash), _np(naive), atol=ATOL)
+
+
+# ------------------------------------------------------------------ decode
+def _decode_both(rcfg, cfg, n_pos, capacity):
+    tree = _ref_params(rcfg)
+    toks = multimodal.text_batch(cfg, 2, n_pos, seed=1)
+    rstep, rmodel = rsteps.make_serve_step(rcfg)
+    rstep = jax.jit(rstep)
+    rparams = jax.tree.map(jnp.asarray, tree)
+    rcaches = rmodel.init_caches(2, capacity)
+    step, model = steps.make_serve_step(cfg, model=_port(cfg, tree))
+    caches = model.init_caches(2, capacity)
+    got, want = [], []
+    for t in range(n_pos):
+        tok = toks["tokens"][:, t:t + 1]
+        lg, caches = step({"tokens": tok}, caches, t)
+        rlg, rcaches = rstep(rparams, {"tokens": jnp.asarray(tok.numpy(), jnp.int32)},
+                             rcaches, jnp.int32(t))
+        got.append(_np(lg)[:, 0])
+        want.append(_np(rlg)[:, 0])
+    return np.stack(got, 1), np.stack(want, 1), model, toks
+
+
+def test_decode_step_matches_reference():
+    cfg, rcfg = base.get("smollm-360m").reduced(), rbase.get("smollm-360m").reduced()
+    got, want, model, toks = _decode_both(rcfg, cfg, 8, 8)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    # the cache reproduces the full-sequence forward at every position
+    full, _ = model.prefill(toks)
+    np.testing.assert_allclose(got, _np(full), atol=ATOL)
+
+
+def test_sliding_window_ring_buffer_matches_reference():
+    """window 16 in a 20-token run: the cache holds 16 slots and wraps."""
+    cfg = base.get("smollm-360m").reduced().with_(sliding_window=16)
+    rcfg = rbase.get("smollm-360m").reduced().with_(sliding_window=16)
+    got, want, model, toks = _decode_both(rcfg, cfg, 20, 20)
+    assert model.init_caches(2, 20)[0]["k"].shape[1] == 16
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    model.cfg = cfg.with_(attention_impl="flash")
+    full, _ = model.prefill(toks)
+    np.testing.assert_allclose(got, _np(full), atol=ATOL)
+
+
+# ------------------------------------------------------------------- serve
+def test_run_reduced_tokens_equal_reference(capsys):
+    arch, b, plen, gen = "smollm-360m", 2, 4, 8
+    rserve.run_reduced(arch, b, plen, gen)
+    printed = capsys.readouterr().out
+    want_row0 = [int(t) for t in
+                 re.search(r"sample continuation: \[([^\]]*)\]", printed).group(1).split(",")]
+    tree = _ref_params(rbase.get(arch).reduced())  # run_reduced's own PRNGKey(0) init
+    got = serve.run_reduced(arch, b, plen, gen, device="cpu", params=tree)
+    assert got.shape == (b, gen)
+    assert got[0, :8].tolist() == want_row0
+    # every request, against the reference's cached decode
+    rcfg = rbase.get(arch).reduced()
+    rstep, rmodel = rsteps.make_serve_step(rcfg)
+    rstep, rparams = jax.jit(rstep), jax.tree.map(jnp.asarray, tree)
+    caches = rmodel.init_caches(b, plen + gen)
+    prompt = jnp.tile(rmm.decode_batch_for(rcfg, b)["tokens"], (1, plen))
+    for t in range(plen):
+        logits, caches = rstep(rparams, {"tokens": prompt[:, t:t + 1]}, caches, jnp.int32(t))
+    want = []
+    for t in range(plen, plen + gen):
+        nxt = jnp.argmax(logits[..., -1, :], axis=-1).astype(jnp.int32).reshape(b, 1)
+        logits, caches = rstep(rparams, {"tokens": nxt}, caches, jnp.int32(t))
+        want.append(np.asarray(nxt))
+    np.testing.assert_array_equal(got.numpy(), np.concatenate(want, 1))
+
+
+def test_serve_main_on_cpu_and_full_config_raises(capsys):
+    serve.main(["--arch", "qwen3-4b", "--reduced", "--batch", "2", "--prompt-len", "3",
+                "--gen", "2", "--device", "cpu"])
+    assert "sample continuation" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        serve.main(["--arch", "smollm-360m", "--device", "cpu"])
+
+
+def test_cuda_requested_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.Model(base.get("smollm-360m").reduced())
+
+
+@pytest.mark.parametrize("change,item", [
+    (dict(attention_impl="chunked"), "14b"),
+    (dict(mla=base.MLAConfig()), "14c"),
+    (dict(moe=base.MoEConfig(n_experts=4, top_k=2, d_ff_expert=64)), "14d"),
+    (dict(pattern=("attn", "mamba")), "14e"),
+    (dict(n_prefix_embeds=4, prefix_embed_dim=8), "14f"),
+])
+def test_unported_layers_raise_naming_their_roadmap_item(change, item):
+    cfg = base.get("smollm-360m").reduced().with_(**change)
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        transformer.Model(cfg, device="cpu")
+
+
+def test_blocks_route_by_attention_impl(monkeypatch):
+    calls = []
+    monkeypatch.setattr(blocks, "gqa_flash_attention",
+                        lambda p, x, cfg: calls.append("flash") or torch.zeros_like(x))
+    monkeypatch.setattr(blocks.attention, "gqa_attention",
+                        lambda p, x, cfg: calls.append("naive") or torch.zeros_like(x))
+    for impl in ("flash", "naive"):
+        cfg = base.get("smollm-360m").reduced().with_(attention_impl=impl)
+        transformer.Model(cfg, device="cpu").prefill(multimodal.text_batch(cfg, 1, 4))
+    assert calls == ["flash", "flash", "naive", "naive"]
