@@ -14,13 +14,16 @@ Phases, in order; any failure exits non-zero before the result line:
                spill pair is checked at 13 qubits (m = 6), at 17 qubits
                (m = 8, blocks of 16 samples) and on tied 5q/7q circuits
                under a forced shared-memory budget;
-               The flash-attention kernel is checked against its plain
-               version at the SmolLM-360M prefill shape (BH 60, S 2048,
-               hd 64, g 3) in bf16 and f32, at Qwen3-4B's (BH 32, hd 128,
-               g 4) in bf16, with window 64 and non-causal at S 256, and at
-               S 100 (the last tile part full), within 2e-5 (f32) and 2e-2
-               (bf16), then timed at the prefill shape beside
-               ``scaled_dot_product_attention`` (timed only);
+               The flash-attention kernels are checked against their plain
+               version, each on its dtype's route (bf16: the wgmma kernel of
+               flash_attn_sm90.cu; float32: the SIMT kernel of
+               flash_attn.cu), at the SmolLM-360M prefill shape (BH 60,
+               S 2048, hd 64, g 3) in bf16 and f32, at Qwen3-4B's (BH 32,
+               hd 128, g 4) in bf16, with window 64 and non-causal at S 256,
+               at S 100 (the last tile part full), S 1 and S 192, within
+               2e-5 (f32) and 2e-2 (bf16), then both routes are timed at the
+               prefill shape beside ``scaled_dot_product_attention`` (timed
+               only);
   4. train   — QuClassi Algorithm 1 through the data plane's
                ``worker_batched_executor``, 3 steps of 64 images after one
                warm-up step each: ``quclassi-7q-3l`` on 4 workers with
@@ -32,12 +35,12 @@ Phases, in order; any failure exits non-zero before the result line:
   5. serve   — ``smollm-360m`` at full width and depth (32 layers, bf16,
                seeded weights) on the flash path: (a) a 4 x 2048-token
                prefill through ``make_prefill_step`` (counts zeroed before
-               and read after; 32 flash launches), timed, then profiled
-               once; (b) 4 requests of a 64-token prompt, 16 greedy tokens
-               each, through ``make_serve_step``'s cache; (c) in float32,
-               TF32 off, the cached decode's logits at every prompt position
-               within 1e-3 of the flash prefill's, and the first generated
-               token equal.
+               and read after; 32 launches, all on the wgmma route), timed,
+               then profiled once; (b) 4 requests of a 64-token prompt, 16
+               greedy tokens each, through ``make_serve_step``'s cache; (c)
+               in float32, TF32 off, the cached decode's logits at every
+               prompt position within 1e-3 of the flash prefill's (the
+               float32 route), and the first generated token equal.
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Needs CUDA; without it, or without the
 repository around it, it exits non-zero and prints no result.
@@ -134,9 +137,10 @@ def flash_inputs(bh: int, s: int, hd: int, dtype, groups: int, dev, seed: int):
 
 
 def check_flash(dev, card: str) -> tuple[float, dict]:
-    """The flash kernel against its plain version on the card at the
-    serving path's shapes and the edge cases, then timed at the
-    SmolLM-360M prefill shape.  Returns (max |diff|, timing record)."""
+    """The flash kernels against their plain version on the card at the
+    serving path's shapes and the edge cases, each on its dtype's route,
+    then timed at the SmolLM-360M prefill shape.  Returns (max |diff| of
+    the bf16 route, timing record with the float32 route's under "simt")."""
     from repro_torch.kernels import flash_attention as FA
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -153,42 +157,57 @@ def check_flash(dev, card: str) -> tuple[float, dict]:
         ("part-full tile", 6, 100, 128, bf16, 3, True, 0),
         ("part-full tile", 6, 100, 16, f32, 1, True, 0),
         ("part-full tile", 6, 100, 32, bf16, 1, False, 0),
+        ("one row", 6, 1, 64, bf16, 3, True, 0),
+        ("1.5 tiles", 6, 192, 64, bf16, 3, True, 0),
     ]
-    worst = 0.0
+    worst = {bf16: 0.0, f32: 0.0}
     for i, (label, bh, s, hd, dtype, groups, causal, window) in enumerate(cases):
         q, k, v = flash_inputs(bh, s, hd, dtype, groups, dev, seed=i)
+        route = FA.ROUTES[dtype]
+        before = FA.LAUNCHES[route]
         got = FA.flash_attention(q, k, v, causal=causal, window=window, groups=groups)
         want = FA._flash_plain(q, k, v, causal=causal, window=window, groups=groups)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        worst = max(worst, err)
+        worst[dtype] = max(worst[dtype], err)
         tol = FLASH_TOL[dtype]
-        log(f"  {'flash':13s} {label} BH={bh} S={s} hd={hd} g={groups} "
+        log(f"  {route:13s} {label} BH={bh} S={s} hd={hd} g={groups} "
             f"{str(dtype)[6:]} causal={causal} window={window}: max|diff| = {err:.3e}")
+        if FA.LAUNCHES[route] != before + 1:
+            raise AssertionError(f"flash {label}: {dtype} did not launch the {route} kernel")
         if not (got.dtype == dtype and torch.isfinite(got.float()).all() and err <= tol):
             raise AssertionError(f"flash {label}: max|diff| {err} > {tol} or not finite")
 
     # timing at the prefill's shape: 4 requests x 2048 tokens, 15 heads over
-    # 5 kv heads (BH 60, g 3), bf16
+    # 5 kv heads (BH 60, g 3), bf16 (the wgmma route) and float32 (SIMT)
     b, h, kv, s, hd = 4, 15, 5, 2048, 64
     q, k, v = flash_inputs(b * h, s, hd, bf16, h // kv, dev, seed=99)
-    ms = time_ms(lambda: FA.flash_attention(q, k, v, groups=h // kv))
+    ms = time_ms(lambda: FA.flash_attention(q, k, v, groups=h // kv), iters=50)
     plain_ms = time_ms(lambda: FA._flash_plain(q, k, v, groups=h // kv), iters=3, warmup=1)
     q4, k4, v4 = q.view(b, h, s, hd), k.view(b, kv, s, hd), v.view(b, kv, s, hd)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library = lambda: sdpa(q4, k4, v4, is_causal=True, scale=1.0, enable_gqa=True)  # noqa: E731
-    library_ms = time_ms(library)
+    library_ms = time_ms(library, iters=50)
     lib_diff = float((library().reshape(b * h, s, hd).float()
                       - FA.flash_attention(q, k, v, groups=h // kv).float()).abs().max())
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    simt_ms = time_ms(lambda: FA.flash_attention(q32, k32, v32, groups=h // kv), iters=10)
     flops = 4 * b * h * hd * s * (s + 1) // 2          # visible (query, key) pairs
     nbytes = 2 * (2 * b * h + 2 * b * kv) * s * hd     # q, o at 60 heads; k, v at 20
     bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    log(f"  time flash         BH={b * h} S={s} hd={hd} g={h // kv} bf16 causal: kernel "
+    simt_bound_ms, simt_bound_by = bound(flops, 2 * nbytes, PEAK_F32_FLOPS)
+    log(f"  time flash_wgmma   BH={b * h} S={s} hd={hd} g={h // kv} bf16 causal: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
         f"(max|diff| to the kernel {lib_diff:.3e}), bound {bound_ms:.6f} ms ({bound_by}; "
         f"{flops} flops, {nbytes} bytes) [{card}]")
-    return worst, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": library_ms}
+    log(f"  time flash_simt    the same inputs in float32: kernel {simt_ms:.4f} ms, bound "
+        f"{simt_bound_ms:.6f} ms ({simt_bound_by} at float32's {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), "
+        f"wgmma route {simt_ms / ms:.1f}x faster [{card}]")
+    simt = {"source": "src/repro_torch/kernels/csrc/flash_attn.cu", "dtype": "float32",
+            "max_abs_err": worst[f32], "ms": simt_ms, "bound_ms": simt_bound_ms,
+            "bound_by": simt_bound_by}
+    return worst[bf16], {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": library_ms, "simt": simt}
 
 
 def ops_flops(ops, n: int) -> int:
@@ -238,9 +257,17 @@ def spill_flops(K, plan, tab, tile_plan) -> tuple[int, int]:
     return fwd, ops_flops(ops, plan.m) + n_inner * INNER_FLOPS_PER_AMP * dim
 
 
-def serve_smollm(dev, card: str) -> int:
+def zero_flash_counts() -> None:
+    from repro_torch.kernels import flash_attention as FA
+
+    for key in FA.LAUNCHES:
+        FA.LAUNCHES[key] = 0
+
+
+def serve_smollm(dev, card: str) -> tuple[int, int]:
     """Phase 5: SmolLM-360M at full width and depth on the flash path.
-    Returns the flash launches of the main-path prefill."""
+    Returns the wgmma launches of the main-path (bf16) prefill and the SIMT
+    launches of the float32 prefill of (c)."""
     from repro_torch.configs import base as cfg_base
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import vqc_statevector as K
@@ -260,14 +287,15 @@ def serve_smollm(dev, card: str) -> int:
     torch.cuda.synchronize()
     for key in K.LAUNCHES:
         K.LAUNCHES[key] = 0
-    FA.LAUNCHES["flash"] = 0
+    zero_flash_counts()
     logits = prefill(batch)
     torch.cuda.synchronize()
-    launches = FA.LAUNCHES["flash"]
+    counts = dict(FA.LAUNCHES)
+    launches = counts["flash_wgmma"]
     others = {k: n for k, n in K.LAUNCHES.items() if n}
-    if launches != cfg.n_layers or others:
-        raise AssertionError(f"prefill launched flash {launches} times (want {cfg.n_layers}) "
-                             f"and other kernels {others}")
+    if launches != cfg.n_layers or counts["flash"] != launches or counts["flash_simt"] or others:
+        raise AssertionError(f"prefill launched flash {counts} (want {cfg.n_layers} on the "
+                             f"wgmma route) and other kernels {others}")
     if logits.shape != (b, s, cfg.vocab) or not torch.isfinite(logits.float()).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} are not finite")
     runs = []
@@ -279,13 +307,14 @@ def serve_smollm(dev, card: str) -> int:
     ms = sum(runs) / len(runs)
     log(f"serve prefill: {b} x {s} tokens in {ms:.3f} ms mean of {len(runs)} "
         f"({', '.join(f'{r:.3f}' for r in runs)}), {b * s / ms * 1e3:,.1f} tokens/s, "
-        f"{launches} flash launches a prefill [{card}]")
+        f"{launches} flash launches a prefill, all flash_wgmma [{card}]")
     wall_ms, kern, busy_ms = profile_window(lambda: prefill(batch))
-    flash_ms = sum(e.self_device_time_total for e in kern if "flash_fwd" in e.key) / 1e3
+    flash = [e for e in kern if "flash_wgmma_kernel" in e.key]
+    flash_ms = sum(e.self_device_time_total for e in flash) / 1e3
     log(f"profile prefill: {wall_ms:.3f} ms host clock (profiled), device busy {busy_ms:.3f} ms, "
-        f"idle share {1 - busy_ms / wall_ms:.4f}, flash kernel {flash_ms:.3f} ms = "
-        f"{flash_ms / busy_ms:.4f} of busy time, {sum(e.count for e in kern)} kernel launches "
-        f"[{card}]")
+        f"idle share {1 - busy_ms / wall_ms:.4f}, flash_wgmma_kernel {flash_ms:.3f} ms "
+        f"x{sum(e.count for e in flash)} = {flash_ms / busy_ms:.4f} of busy time, "
+        f"{sum(e.count for e in kern)} kernel launches [{card}]")
     log_top(kern, 6)
     del logits
 
@@ -320,7 +349,13 @@ def serve_smollm(dev, card: str) -> int:
     prefill32, model32 = steps.make_prefill_step(cfg32, device=dev)
     serve32, _ = steps.make_serve_step(cfg32, model=model32)
     prompt = multimodal.text_batch(cfg32, b, plen, seed=0)
+    zero_flash_counts()
     full = prefill32(prompt).float()
+    torch.cuda.synchronize()
+    simt = FA.LAUNCHES["flash_simt"]
+    if simt != cfg.n_layers or FA.LAUNCHES["flash_wgmma"]:
+        raise AssertionError(f"float32 prefill launched flash {dict(FA.LAUNCHES)} (want "
+                             f"{cfg.n_layers} on the SIMT route)")
     res = serve.generate(serve32, model32, prompt, 1, keep_logits=True)
     diff = float((res["prompt_logits"] - full).abs().max())
     first_ok = torch.equal(res["tokens"][:, 0].cpu(), full[:, -1].argmax(-1).cpu())
@@ -331,7 +366,7 @@ def serve_smollm(dev, card: str) -> int:
         raise AssertionError(f"decode and prefill disagree: {diff}, first token equal {first_ok}")
     del model32, prefill32, serve32
     torch.cuda.empty_cache()
-    return launches
+    return launches, simt
 
 
 def main() -> int:
@@ -633,7 +668,7 @@ def main() -> int:
         torch.cuda.synchronize()
         for key in K.LAUNCHES:
             K.LAUNCHES[key] = 0
-        FA.LAUNCHES["flash"] = 0
+        zero_flash_counts()
         rep = train(c, train_set, test_set, epochs=1, batch_size=batch, lr=1e-3,
                     executor=executor, bank_mode=mode, seed=0, init_params=inits[label],
                     device=dev)
@@ -695,7 +730,8 @@ def main() -> int:
                     f"x{e.count} {e.key[:60]}")
 
     # ------------------------------------------------------------- 5. serve
-    launches["flash"] = serve_smollm(dev, card)
+    launches["flash"], simt_launches = serve_smollm(dev, card)
+    records["flash"]["simt"]["launches"] = simt_launches  # float32 prefill of phase 5c
 
     kernels = [
         {"name": "fidelity", "route": "cuda",
@@ -714,7 +750,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/vqc_spill.cu",
          "replaces": "src/repro/kernels/vqc_statevector.py:848"},
         {"name": "flash", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+         "source": "src/repro_torch/kernels/csrc/flash_attn_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:31"},
     ]
     for k in kernels:

@@ -1,13 +1,15 @@
-// Flash-attention forward (kernel 6 of the port).
+// Flash-attention forward, float32 route (kernel 6 of the port).
 //
 // Replaces repro/kernels/flash_attention.py::_flash_kernel (launched from
-// flash_attention through pl.pallas_call): causal, sliding-window or full
-// attention over (BH, S, hd) with an online softmax, the scale pre-applied.
-// q, k, v are float32 or bfloat16; scores, the softmax and the P.V product
-// are float32, as the reference casts its tiles to float32; the output is
-// acc / max(l, 1e-30) in q's type.  Masked scores are -1e30, not -inf, so a
-// row whose first kv tile is fully masked gets exp(0) terms that the next
-// unmasked tile multiplies by exp(-1e30 - m) = 0, never NaN.
+// flash_attention through pl.pallas_call) for float32 q, k, v: causal,
+// sliding-window or full attention over (BH, S, hd) with an online softmax,
+// the scale pre-applied; scores, the softmax and the P.V product are
+// float32, as the reference casts its tiles to float32; the output is
+// acc / max(l, 1e-30).  Masked scores are -1e30, not -inf, so a row whose
+// first kv tile is fully masked gets exp(0) terms that the next unmasked
+// tile multiplies by exp(-1e30 - m) = 0, never NaN.  bfloat16 inputs take
+// flash_attn_sm90.cu (wgmma fed by TMA): no tensor-core type keeps the
+// float32 tolerance (TF32 keeps 10 mantissa bits).
 //
 // GQA: k and v hold BH / groups heads and query head bh reads kv head
 // bh / groups, the reference's repeat of K/V over groups without
@@ -15,9 +17,9 @@
 //
 // Layout: one block per (bh, tile of 64 query rows), 128 threads, two per
 // row.  The query tile and each kv tile of 64 keys are staged through
-// shared memory as float32 (rows padded to hd + 1 words, so the two key
-// rows and sixteen query rows a warp reads at once fall in distinct banks).
-// The thread pair of a row splits the keys of a tile (even / odd) for the
+// shared memory (rows padded to hd + 1 words, so the two key rows and
+// sixteen query rows a warp reads at once fall in distinct banks).  The
+// thread pair of a row splits the keys of a tile (even / odd) for the
 // scores and the columns of the accumulator (even / odd) for P.V, and
 // exchanges the row max, the row sum and the probabilities by shuffles; m,
 // l and acc stay in registers.  kv tiles that the mask hides entirely are
@@ -25,12 +27,10 @@
 // most causal work) are scheduled first.
 //
 // Bound on an H100: 4 * hd flops per visible (query, key) pair against
-// 2 * (BH + 2 * BH / groups) * S * hd elements moved, so at the prefill's
-// S = 2048 the tensor cores' rate bounds it (989 TFLOP/s in bf16).  This
-// kernel does its products as float32 FMAs in the CUDA cores, each fed by
-// a shared-memory load, so the shared-memory pipe bounds it first: it is
-// the simple, right version; wgmma tiles with TMA staging are later work.
-#include <cuda_bf16.h>
+// 2 * (BH + 2 * BH / groups) * S * hd elements moved, so at S = 2048 the
+// float32 rate bounds it (67 TFLOP/s outside the tensor cores).  Its
+// products are FMAs in the CUDA cores, each fed by a shared-memory load,
+// so the shared-memory pipe bounds it first.
 #include <cuda_runtime.h>
 
 namespace flash {
@@ -40,32 +40,28 @@ constexpr int kBlockK = 64;             // keys per staged kv tile
 constexpr int kThreads = 2 * kBlockQ;   // two threads per query row
 constexpr float kNegInf = -1e30f;       // the reference's NEG_INF
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 template <int HD>
 constexpr int smem_bytes() {
   return static_cast<int>(sizeof(float)) * (kBlockQ * (HD + 1) + kBlockK * (HD + 1) + kBlockK * HD);
 }
 
-// Rows [row0, row0 + 64) of one (seq, HD) head into shared memory as
-// float32 with leading dimension ld; rows at or past seq become zeros.
-template <int HD, typename T>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* __restrict__ src, int row0,
+// Rows [row0, row0 + 64) of one (seq, HD) head into shared memory with
+// leading dimension ld; rows at or past seq become zeros.
+template <int HD>
+__device__ __forceinline__ void stage(float* dst, int ld, const float* __restrict__ src, int row0,
                                       int seq) {
   for (int e = threadIdx.x; e < kBlockK * HD; e += kThreads) {
     const int row = e / HD, col = e % HD;
     const int p = row0 + row;
-    dst[row * ld + col] = p < seq ? load_f(src + static_cast<size_t>(p) * HD + col) : 0.f;
+    dst[row * ld + col] = p < seq ? src[static_cast<size_t>(p) * HD + col] : 0.f;
   }
 }
 
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int seq, int groups, int n_qt, int causal, int window) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int seq, int groups,
+                 int n_qt, int causal, int window) {
   constexpr int LD = HD + 1;
   constexpr int HALF = HD / 2;   // accumulator columns per thread
   constexpr int KH = kBlockK / 2;  // keys per thread per tile
@@ -77,9 +73,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x % n_qt);
   const int bh = static_cast<int>(blockIdx.x / n_qt);
   const size_t head = static_cast<size_t>(seq) * HD;
-  const T* qh = q + bh * head;
-  const T* kh = k + (bh / groups) * head;
-  const T* vh = v + (bh / groups) * head;
+  const float* qh = q + bh * head;
+  const float* kh = k + (bh / groups) * head;
+  const float* vh = v + (bh / groups) * head;
   const int q0 = qt * kBlockQ;
   const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
   const int qpos = q0 + r;
@@ -159,13 +155,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   if (qpos < seq) {
     const float denom = fmaxf(l, 1e-30f);
-    T* orow = o + bh * head + static_cast<size_t>(qpos) * HD + half;
+    float* orow = o + bh * head + static_cast<size_t>(qpos) * HD + half;
 #pragma unroll
-    for (int c = 0; c < HALF; ++c) store_f(orow + 2 * c, acc[c] / denom);
+    for (int c = 0; c < HALF; ++c) orow[2 * c] = acc[c] / denom;
   }
 }
 
-template <int HD, typename T>
+template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int seq,
                    int groups, int causal, int window, cudaStream_t st) {
   const int n_qt = (seq + kBlockQ - 1) / kBlockQ;
@@ -174,43 +170,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
     return cudaErrorInvalidValue;
   }
   constexpr int smem = smem_bytes<HD>();
-  auto kern = flash_fwd_kernel<HD, T>;
+  auto kern = flash_fwd_kernel<HD>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   kern<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), seq, groups, n_qt, causal, window);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), seq, groups, n_qt, causal, window);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int bh, int seq,
-                     int head_dim, int groups, int causal, int window, cudaStream_t st) {
-  switch (head_dim) {
-    case 16: return launch<16, T>(q, k, v, o, bh, seq, groups, causal, window, st);
-    case 32: return launch<32, T>(q, k, v, o, bh, seq, groups, causal, window, st);
-    case 64: return launch<64, T>(q, k, v, o, bh, seq, groups, causal, window, st);
-    case 128: return launch<128, T>(q, k, v, o, bh, seq, groups, causal, window, st);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace flash
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// float32 q (BH, S, hd), k and v (BH / groups, S, hd), o like q.  Returns a
+// cudaError_t (0 = launched).
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o, int bh,
                                  int seq, int head_dim, int groups, int causal, int window,
-                                 int dtype, void* stream) {
+                                 void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) {
-    err = flash::dispatch<float>(q, k, v, o, bh, seq, head_dim, groups, causal, window, st);
-  } else if (dtype == 1) {
-    err = flash::dispatch<__nv_bfloat16>(q, k, v, o, bh, seq, head_dim, groups, causal, window,
-                                         st);
+  switch (head_dim) {
+    case 16: err = flash::launch<16>(q, k, v, o, bh, seq, groups, causal, window, st); break;
+    case 32: err = flash::launch<32>(q, k, v, o, bh, seq, groups, causal, window, st); break;
+    case 64: err = flash::launch<64>(q, k, v, o, bh, seq, groups, causal, window, st); break;
+    case 128: err = flash::launch<128>(q, k, v, o, bh, seq, groups, causal, window, st); break;
+    default: break;
   }
   return static_cast<int>(err);
 }

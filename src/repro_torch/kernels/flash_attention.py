@@ -1,15 +1,19 @@
 """Flash-attention forward for Hopper — the dense-LM prefill's kernel.
 
-``csrc/flash_attn.cu`` ``flash_fwd_kernel`` replaces the Pallas
-``_flash_kernel`` of ``repro/kernels/flash_attention.py`` (launched from its
-``flash_attention``): causal, sliding-window or full attention over
-(BH, S, hd) with an online softmax, so no (S, S) score tensor leaves the
-chip.  Scale is pre-applied by the caller.
+It replaces the Pallas ``_flash_kernel`` of
+``repro/kernels/flash_attention.py`` (launched from its ``flash_attention``):
+causal, sliding-window or full attention over (BH, S, hd) with an online
+softmax, so no (S, S) score tensor leaves the chip.  Scale is pre-applied by
+the caller.
 
 The function, on every device:
-  * q, k, v are float32 or bfloat16; scores, softmax and the P·V product
-    are float32 (the reference casts q, k, v to float32 in its kernel and
-    keeps p in float32); the output is ``acc / max(l, 1e-30)`` in q's dtype;
+  * scores, softmax, ``m`` and ``l`` are float32 (the reference casts q, k,
+    v to float32 in its kernel); the output is ``acc / max(l, 1e-30)`` in
+    q's dtype;
+  * for bfloat16 q, the probabilities are rounded to bfloat16 before P·V
+    (the one place where the function departs from the reference kernel,
+    which keeps p in float32; the reference's naive path rounds them the
+    same way); float32 keeps p in float32;
   * masked scores are ``-1e30``, not ``-inf``: a row whose first kv tile
     is fully masked then gives ``exp(0) = 1`` terms that the next unmasked
     tile multiplies by ``exp(-1e30 - m) = 0``, never ``NaN``;
@@ -17,12 +21,23 @@ The function, on every device:
     kv head ``bh // groups`` (the reference's ``jnp.repeat`` over groups,
     without materializing the repeat).
 
-The kernel works on tiles of 64 query rows by 64 keys and skips kv tiles
-that the mask hides entirely (their terms are exactly 0, so the function
-is the same).  ``_flash_plain`` is the same computation in PyTorch, kv
-tile after kv tile in the reference's order with no skip.  On a CPU
-tensor the wrapper takes the plain version; on a CUDA tensor it launches
-the kernel or raises.
+On a CUDA tensor the route is fixed by the dtype, and neither falls back
+to the other or to the plain version:
+  * bfloat16 -> ``csrc/flash_attn_sm90.cu`` ``flash_wgmma_kernel``: both
+    products as ``wgmma`` tensor-core tiles with float32 accumulators, Q, K
+    and V tiles copied by TMA into a ring of stages, one producer warpgroup
+    and three consumer warpgroups of 64 query rows.  At the prefill's
+    S = 2048 the tensor cores' rate bounds the work (4·hd flops per visible
+    pair against 2·(BH + 2·BH/g)·S·hd bytes); every pointer must be 16-byte
+    aligned;
+  * float32 -> ``csrc/flash_attn.cu`` ``flash_fwd_kernel``: float32 FMAs in
+    the CUDA cores (no tensor-core type holds the float32 tolerance), bound
+    by its shared-memory loads.
+Both skip kv tiles that the mask hides from a whole block (their terms are
+exactly 0, so the function is the same).  ``_flash_plain`` is the same
+computation in PyTorch, 64-row by 64-key tiles in the reference's order
+with no skip.  On a CPU tensor the wrapper takes the plain version; on a
+CUDA tensor it launches its route's kernel or raises.
 """
 from __future__ import annotations
 
@@ -35,14 +50,17 @@ from repro_torch.kernels import _build
 from repro_torch.models.attention import project_qkv
 
 NEG_INF = -1e30
-#: the kernel's tile: query rows per block and keys per staged kv tile
+#: the plain version's tile: query rows and keys per step
 BLOCK = 64
 #: head dims the kernel is compiled for
 HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: kernel launches since the count was last zeroed (CUDA path only)
-LAUNCHES = {"flash": 0}
+#: the kernel each dtype launches on a CUDA tensor (a key of LAUNCHES)
+ROUTES = {torch.bfloat16: "flash_wgmma", torch.float32: "flash_simt"}
+
+#: kernel launches since the counts were last zeroed (CUDA path only):
+#: "flash" counts both routes
+LAUNCHES = {"flash": 0, "flash_wgmma": 0, "flash_simt": 0}
 
 
 def _check(q, k, v, groups: int) -> None:
@@ -56,8 +74,8 @@ def _check(q, k, v, groups: int) -> None:
                          f"and {tuple(v.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q, k, v must share a dtype in {tuple(_DTYPES)}, got "
+    if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share a dtype in {tuple(ROUTES)}, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
@@ -77,8 +95,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _flash_plain(q, k, v, *, causal: bool = True, window: int = 0,
                  groups: int = 1) -> torch.Tensor:
-    """Plain version of ``flash_fwd_kernel``: per query tile, the online
-    softmax over every kv tile in order, as the reference's grid runs it."""
+    """Plain version of both kernels: per query tile, the online softmax
+    over every kv tile in order, as the reference's grid runs it; P is
+    rounded to q's dtype before P·V when that is bfloat16."""
     bh, s, hd = q.shape
     if groups > 1:
         k = k.repeat_interleave(groups, dim=0)
@@ -107,21 +126,38 @@ def _flash_plain(q, k, v, *, causal: bool = True, window: int = 0,
             p = torch.exp(scores - m_new[:, :, None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=2)
-            acc = acc * corr[:, :, None] + p @ vb
+            acc = acc * corr[:, :, None] + p.to(q.dtype).to(torch.float32) @ vb
             m = m_new
         out[:, q0:q0 + BLOCK] = (acc / torch.clamp(l, min=1e-30)[:, :, None]).to(q.dtype)
     return out
 
 
+#: per route: library, launch entry point, error-string entry point
+_LIBS = {"flash_wgmma": ("flash_attn_sm90", "flash_sm90_launch", "flash_sm90_error_string"),
+         "flash_simt": ("flash_attn", "flash_attn_launch", "flash_error_string")}
+
+
 @functools.cache
-def _lib():
-    lib = _build.load("flash_attn")
+def _lib(route: str):
+    """The route's (launch, error string) entry points, built at first use."""
+    name, launch, error = _LIBS[route]
+    lib = _build.load(name)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attn_launch.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp]
-    lib.flash_attn_launch.restype = i32
-    lib.flash_error_string.argtypes = [i32]
-    lib.flash_error_string.restype = ctypes.c_char_p
-    return lib
+    launch, error = getattr(lib, launch), getattr(lib, error)
+    launch.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
+    launch.restype = i32
+    error.argtypes = [i32]
+    error.restype = ctypes.c_char_p
+    return launch, error
+
+
+def check_tma_aligned(*tensors: torch.Tensor) -> None:
+    """TMA copies need every base address 16-byte aligned: raise if not."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"the wgmma flash kernel reads through TMA and needs 16-byte "
+                             f"aligned tensors; got address {t.data_ptr():#x} "
+                             f"(shape {tuple(t.shape)}, storage offset {t.storage_offset()})")
 
 
 def _flash_cuda(q, k, v, causal: bool, window: int, groups: int) -> torch.Tensor:
@@ -130,16 +166,19 @@ def _flash_cuda(q, k, v, causal: bool, window: int, groups: int) -> torch.Tensor
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    route = ROUTES[q.dtype]
+    if route == "flash_wgmma":
+        check_tma_aligned(q, k, v, out)
     dev = q.device
-    lib = _lib()
+    launch, error = _lib(route)
     with torch.cuda.device(dev):
-        rc = lib.flash_attn_launch(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-                                   bh, s, hd, groups, int(causal), int(window), _DTYPES[q.dtype],
-                                   _build.stream(dev))
+        rc = launch(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+                    bh, s, hd, groups, int(causal), int(window), _build.stream(dev))
     if rc != 0:
-        raise RuntimeError(f"flash-attention kernel launch failed: "
-                           f"{lib.flash_error_string(rc).decode()}")
+        raise RuntimeError(f"flash-attention kernel launch failed ({route}): "
+                           f"{error(rc).decode()}")
     LAUNCHES["flash"] += 1
+    LAUNCHES[route] += 1
     return out
 
 

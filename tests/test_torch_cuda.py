@@ -150,23 +150,93 @@ def _qkv(bh, s, hd, dtype, device, groups=1, seed=0):
 @pytest.mark.parametrize("s", [128, 100])  # 100: the last tile is part full
 def test_flash_kernel_matches_plain(cuda, hd, dtype, causal, window, s):
     q, k, v = _qkv(6, s, hd, dtype, cuda, groups=3, seed=hd + s)
-    before = F.LAUNCHES["flash"]
+    before = dict(F.LAUNCHES)
     got = F.flash_attention(q, k, v, causal=causal, window=window, groups=3)
-    assert F.LAUNCHES["flash"] == before + 1
+    _assert_one_launch(before, dtype)
     assert got.dtype == dtype
     want = F._flash_plain(q, k, v, causal=causal, window=window, groups=3)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=FLASH_ATOL[dtype])
 
 
+def _assert_one_launch(before, dtype):
+    """One launch, on the dtype's route (bf16: wgmma, float32: SIMT)."""
+    route = F.ROUTES[dtype]
+    assert F.LAUNCHES["flash"] == before["flash"] + 1
+    assert F.LAUNCHES[route] == before[route] + 1
+    assert all(F.LAUNCHES[r] == before[r] for r in F.ROUTES.values() if r != route)
+
+
+@pytest.mark.parametrize("bh,s,hd,groups,causal,window", [
+    (6, 2048, 64, 3, True, 0),      # the ring of K/V stages wraps many times
+    (4, 2048, 128, 4, True, 0),
+    (3, 2048, 32, 1, False, 0),
+    (6, 2048, 64, 3, True, 65),     # windows that cross tile edges
+    (4, 2048, 128, 4, True, 48),
+    (6, 1, 64, 3, True, 0),         # one row: a box of 128 rows, 127 zero-filled
+    (4, 1, 128, 4, False, 0),
+    (6, 192, 64, 3, True, 0),       # 1.5 query tiles, 1.5 kv tiles of 128
+    (8, 192, 128, 4, True, 48),
+    (3, 192, 16, 1, True, 65),
+    (6, 100, 64, 3, True, 65),      # ragged tile inside each of 6 heads
+    (4, 100, 128, 4, False, 48),
+    (2, 100, 32, 1, True, 48),
+])
+def test_flash_wgmma_pipeline_edges(cuda, bh, s, hd, groups, causal, window):
+    q, k, v = _qkv(bh, s, hd, torch.bfloat16, cuda, groups=groups, seed=s + hd + window)
+    before = dict(F.LAUNCHES)
+    got = F.flash_attention(q, k, v, causal=causal, window=window, groups=groups)
+    _assert_one_launch(before, torch.bfloat16)
+    want = F._flash_plain(q, k, v, causal=causal, window=window, groups=groups)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=FLASH_ATOL[torch.bfloat16])
+
+
+def test_flash_wgmma_rejects_unaligned_tensors(cuda):
+    """TMA needs 16-byte aligned bases: a view one element into its
+    storage raises before any launch."""
+    q, k, v = _qkv(2, 64, 64, torch.bfloat16, cuda)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    before = dict(F.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        F.flash_attention(shifted, k, v)
+    assert F.LAUNCHES == before
+
+
 def test_flash_prefill_on_card_matches_naive(cuda):
     cfg = cfg_base.get("smollm-360m").reduced().with_(attention_impl="flash")
     model = transformer.Model(cfg, device=cuda)
     toks = multimodal.text_batch(cfg, 2, 96)
-    before = F.LAUNCHES["flash"]
+    before = dict(F.LAUNCHES)
     with torch.no_grad():
         flash, _ = model.prefill(toks)
         model.cfg = cfg.with_(attention_impl="naive")
         naive, _ = model.prefill(toks)
-    assert F.LAUNCHES["flash"] == before + cfg.n_layers
+    assert F.LAUNCHES["flash"] == before["flash"] + cfg.n_layers
+    assert F.LAUNCHES["flash_simt"] == before["flash_simt"] + cfg.n_layers
     torch.testing.assert_close(flash, naive, rtol=0, atol=1e-4)
+
+
+def test_flash_prefill_on_card_matches_naive_bf16(cuda):
+    """The reduced smollm-360m prefill in bf16, the dtype of the full model,
+    through the wgmma kernel against the naive path.  The naive path rounds
+    scores to bf16 and the flash path does not; on the CPU (plain version)
+    the two differ by up to two bf16 steps of the logits after 2 layers.
+    atol: four bf16 steps (8 significant bits) at the logits' largest
+    magnitude."""
+    cfg = cfg_base.get("smollm-360m").reduced().with_(attention_impl="flash", dtype="bfloat16")
+    model = transformer.Model(cfg, device=cuda)
+    toks = multimodal.text_batch(cfg, 2, 96)
+    before = dict(F.LAUNCHES)
+    with torch.no_grad():
+        flash, _ = model.prefill(toks)
+        model.cfg = cfg.with_(attention_impl="naive")
+        naive, _ = model.prefill(toks)
+    assert F.LAUNCHES["flash_wgmma"] == before["flash_wgmma"] + cfg.n_layers
+    assert F.LAUNCHES["flash_simt"] == before["flash_simt"]
+    assert flash.dtype == torch.bfloat16 and torch.isfinite(flash.float()).all()
+    step = 2.0 ** (torch.floor(torch.log2(naive.float().abs().max())).item() - 7)
+    torch.testing.assert_close(flash.float(), naive.float(), rtol=0, atol=4 * step)

@@ -3,7 +3,8 @@ Pallas kernel in interpret mode: the same sweeps as
 ``tests/test_flash_attention.py``, on the same seeded numpy inputs.
 
 Tolerances are the reference's own: 2e-5 for float32 (another summation
-order), 2e-2 for bfloat16 outputs (one bf16 rounding of values near 1).
+order), 2e-2 for bfloat16 outputs (one bf16 rounding of values near 1; the
+port also rounds P to bf16 before P·V, as its wgmma kernel does).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -149,6 +150,28 @@ def test_gqa_layer_matches_naive_and_reference(kv_heads):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("kv_heads,s", [(5, 100), (5, 200), (1, 130)])
+def test_bf16_flash_layer_matches_reference_naive(kv_heads, s):
+    """bf16 at SmolLM-360M's layer widths (d 960, 15 heads, hd 64): the
+    port's flash layer (plain version: float32 scores, P rounded to bf16)
+    against the reference's naive ``gqa_attention`` in bf16 (scores and
+    probabilities rounded to bf16).  They differ by the rounding of the
+    scores; atol: two bf16 steps (8 significant bits) at the outputs'
+    largest magnitude."""
+    kw = dict(name="m", family="dense", n_layers=2, d_model=960, n_heads=15,
+              kv_heads=kv_heads, d_ff=128, vocab=97, dtype="bfloat16", attention_impl="flash")
+    rcfg, cfg = RefConfig(**kw), ModelConfig(**kw)
+    p = _gqa_params(cfg)
+    x = np.random.default_rng(s).standard_normal((2, s, 960), dtype=np.float32)
+    jp = {k: jnp.asarray(a).astype(jnp.bfloat16) for k, a in p.items()}
+    tp = {k: torch.from_numpy(a).to(torch.bfloat16) for k, a in p.items()}
+    got = F.gqa_flash_attention(tp, torch.from_numpy(x).to(torch.bfloat16), cfg)
+    assert got.dtype == torch.bfloat16
+    want = _np(RA.gqa_attention(jp, jnp.asarray(x).astype(jnp.bfloat16), rcfg))
+    step = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    np.testing.assert_allclose(_np(got), want, rtol=0, atol=2 * step)
+
+
 @pytest.mark.parametrize("args", [(2, 32768, 15, 5, 64), (1, 4096, 32, 8, 128, 4, 256),
                                   (4, 2048, 15, 5, 64, 2, 512)])
 def test_hbm_bytes_equal_reference(args):
@@ -156,11 +179,44 @@ def test_hbm_bytes_equal_reference(args):
 
 
 def test_cpu_takes_plain_version_without_launch():
-    tq, tk, tv = (torch.from_numpy(a) for a in _qkv(2, 64, 16))
-    before = F.LAUNCHES["flash"]
-    got = F.flash_attention(tq, tk, tv)
-    assert F.LAUNCHES["flash"] == before
-    assert torch.equal(got, F._flash_plain(tq, tk, tv))
+    for dtype in F.ROUTES:
+        tq, tk, tv = (torch.from_numpy(a).to(dtype) for a in _qkv(2, 64, 16))
+        before = dict(F.LAUNCHES)
+        got = F.flash_attention(tq, tk, tv)
+        assert F.LAUNCHES == before
+        assert torch.equal(got, F._flash_plain(tq, tk, tv))
+
+
+def test_routes_name_launch_counts():
+    """Each dtype has one kernel route on the card, counted under its own
+    key and under the total "flash"."""
+    assert F.ROUTES == {torch.bfloat16: "flash_wgmma", torch.float32: "flash_simt"}
+    assert set(F.LAUNCHES) == {"flash", *F.ROUTES.values()}
+
+
+def test_tma_alignment_is_checked():
+    buf = torch.zeros(4 * 16 + 1, dtype=torch.bfloat16)
+    F.check_tma_aligned(buf[:64].view(4, 16))
+    with pytest.raises(ValueError, match="16-byte"):
+        F.check_tma_aligned(buf[:64].view(4, 16), buf[1:].view(4, 16))
+
+
+def test_bf16_plain_rounds_probabilities():
+    """One kv tile (S = 64): the bf16 plain version is
+    bf16((bf16(p) @ v) / sum(p)) with p = exp(s - max s) in float32; float32
+    keeps p unrounded."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(4, 64, 32, seed=5))
+    qb, kb, vb = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    scores = qb @ kb.transpose(1, 2)
+    scores = torch.where(torch.ones(64, 64, dtype=torch.bool).tril(), scores,
+                         torch.tensor(F.NEG_INF))
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    rounded = ((p.to(torch.bfloat16).float() @ vb) / p.sum(-1, keepdim=True)).to(torch.bfloat16)
+    unrounded = ((p @ vb) / p.sum(-1, keepdim=True)).to(torch.bfloat16)
+    got = F._flash_plain(*(t.to(torch.bfloat16) for t in (q, k, v)))
+    assert torch.equal(got, rounded)
+    assert not torch.equal(got, unrounded)
+    assert torch.equal(F._flash_plain(qb, kb, vb), (p @ vb / p.sum(-1, keepdim=True)))
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "groups", "dtype", "rank"])
