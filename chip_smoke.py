@@ -6,14 +6,19 @@
 Phases, in order; any failure exits non-zero before the result line:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — every CUDA kernel compiled from ``src/repro_torch/kernels/csrc``
-               (one nvcc per source, all at once);
+               (one nvcc per source, all at once); ptxas (its report
+               kept beside a reused library) must show no spill stores
+               for the fidelity, spill forward and spill tile kernels;
   3. kernels — each kernel against its plain PyTorch version on the card
                (max |diff| <= 1e-5) and against the dense simulator on a
                small input, then timed at the shape the training path gives
-               it, beside the plain version and the analytic bound.  The
+               it (CUDA events around back-to-back wrapper calls, and the
+               kernel's own device time from torch.profiler), beside the
+               plain version and the analytic bound.  The
                spill pair is checked at 13 qubits (m = 6), at 17 qubits
-               (m = 8, blocks of 16 samples) and on tied 5q/7q circuits
-               under a forced shared-memory budget;
+               (m = 8, a footprint block of 16 samples) and on tied 5q/7q
+               circuits under a forced shared-memory budget; multibank
+               launches must equal per-bank launches bit for bit;
                The flash-attention kernels are checked against their plain
                version, each on its dtype's route (bf16: the wgmma kernel of
                flash_attn_sm90.cu; float32: the SIMT kernel of
@@ -49,6 +54,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -102,6 +108,52 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str, iters: int = 20) -> float | None:
+    """Mean device time of the CUDA kernel whose name contains ``kernel``
+    over ``iters`` calls of ``fn`` (torch.profiler's kernel records): the
+    kernel alone, where CUDA events around back-to-back calls also count
+    the gaps in which the card waits for the host.  None, said in the log,
+    when two profiled windows both miss some of the launches."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    cuda_kind = torch.autograd.DeviceType.CUDA
+    for _ in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == cuda_kind and kernel in e.key]
+        count = sum(e.count for e in hits)
+        if count == iters:
+            return sum(e.self_device_time_total for e in hits) / 1e3 / count
+    log(f"  the profiler recorded {count} of {iters} launches of {kernel}: "
+        "device time not measured")
+    return None
+
+
+def ptxas_spills(log: str) -> dict[str, tuple[int, int]]:
+    """(spill stores, spill loads) in bytes per function of an ``nvcc
+    -Xptxas -v`` log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = (int(m.group(1)), int(m.group(2)))
+            name = None
+    return out
+
+
+#: per library, the kernels whose ptxas report must show no spill stores
+NO_SPILL_KERNELS = {"vqc_fused": ("fidelity_kernel",),
+                    "vqc_spill": ("shift_forward_kernel", "shift_tile_kernel")}
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
@@ -369,6 +421,24 @@ def serve_smollm(dev, card: str) -> tuple[int, int]:
     return launches, simt
 
 
+def quclassi13():
+    """The spill slice: 13-qubit, 3-layer QuClassi (m = 6, P = 32) trained
+    on 2 workers, the paper's segmentation on 8x8 images (9 patches).
+    Returns the config, the round-robin group assignment and each worker's
+    groups."""
+    from repro_torch.comanager import dataplane
+    from repro_torch.core import quclassi, segmentation
+
+    cfg13 = quclassi.QuClassiConfig(
+        qc=13, n_layers=3,
+        seg=segmentation.SegmentationConfig(filter_width=4, stride=2, n_filters=4),
+        image_size=(8, 8))
+    n_groups, n_workers = 1 + 2 * cfg13.n_theta, 2
+    assign = dataplane.round_robin_assignment(n_groups, n_workers)
+    return cfg13, assign, [tuple(g for g in range(n_groups) if assign[g] == w)
+                           for w in range(n_workers)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs a GPU", file=sys.stderr)
@@ -378,7 +448,7 @@ def main() -> int:
         from repro_torch.api.capabilities import capabilities_of, declare
         from repro_torch.comanager import dataplane
         from repro_torch.configs.quclassi_paper import get_quclassi
-        from repro_torch.core import circuits, quclassi, segmentation, shift_rule
+        from repro_torch.core import circuits, quclassi, shift_rule
         from repro_torch.core.trainer import train
         from repro_torch.data.mnist import make_pair_dataset, train_test_split
         from repro_torch.kernels import _build, ops, ref
@@ -407,6 +477,12 @@ def main() -> int:
         for line in rep["log"].splitlines():
             if "registers" in line or "spill" in line or "Function properties" in line:
                 log(f"    {line.strip()}")
+        reported = ptxas_spills(rep["log"])
+        for kernel in NO_SPILL_KERNELS.get(name, ()):
+            spills = {f: v for f, v in reported.items() if kernel in f}
+            if not spills or any(st for st, _ in spills.values()):
+                raise AssertionError(f"ptxas: {kernel} spills or has no report: {spills}")
+            log(f"  {kernel}: no spill stores ({spills})")
 
     # ----------------------------------------------------------- 3. kernels
     rng = np.random.default_rng(0)
@@ -422,18 +498,10 @@ def main() -> int:
         "7q-3l": spec7,
         "tied-7q-3l": circuits.build_tied_quclassi_circuit(7, 3),
     }
-    # the spill slice: 13-qubit, 3-layer QuClassi (m = 6, P = 32) trained on
-    # 2 workers, the paper's segmentation on 8x8 images (9 patches)
-    cfg13 = quclassi.QuClassiConfig(
-        qc=13, n_layers=3,
-        seg=segmentation.SegmentationConfig(filter_width=4, stride=2, n_filters=4),
-        image_size=(8, 8))
-    spec13, n_workers13 = cfg13.spec, 2
+    cfg13, assign13, worker_groups13 = quclassi13()
+    spec13, n_workers13 = cfg13.spec, len(worker_groups13)
     plan13 = K.build_shift_plan(spec13)
     n_groups13 = 1 + 2 * cfg13.n_theta
-    assign13 = dataplane.round_robin_assignment(n_groups13, n_workers13)
-    worker_groups13 = [tuple(g for g in range(n_groups13) if assign13[g] == w)
-                       for w in range(n_workers13)]
 
     def angles(spec, c):
         th = rng.uniform(-np.pi, np.pi, (c, spec.n_theta))
@@ -514,8 +582,9 @@ def main() -> int:
         rows = K._shift_tile_plain(plan, tile_plan, th, dt, d_state, bnd)
         want = K._spilled_rows(variants, tuple(groups), tile_plan, f0, rows)
         label = (f"{label} four={four} G={len(groups)} B={b} tiles={tab.n_tiles} "
-                 f"tb={tab.tiling.tb} smem={tab.tiling.smem_bytes}")
-        if tab.tiling.smem_bytes > K.SMEM_BUDGET_BYTES:
+                 f"tb={tab.tiling.tb} launch {tab.tiling.launch_tb}/"
+                 f"{tab.tiling.launch_smem_bytes} B")
+        if max(tab.tiling.smem_bytes, tab.tiling.launch_smem_bytes) > K.SMEM_BUDGET_BYTES:
             raise AssertionError(f"{label}: asks for more shared memory than a block has")
         var_rows = list(tab.variant_rows)
         f0_rows = [r for r in range(len(groups)) if r not in tab.variant_rows]
@@ -615,18 +684,21 @@ def main() -> int:
             samples * tile_flops,
             samples * (4 * (p13 + d13n) + states13 + 4 * len(tab13.variant_rows)),
             f"13q-3l B={samples}, {len(tab13.variant_rows)} variant rows, "
-            f"{tab13.n_tiles} tiles, tb={tab13.tiling.tb}",
+            f"{tab13.n_tiles} tiles, {tab13.tiling.launch_tb} samples a block",
         ),
     }
     records = {}
     for kname, (kern, plain, flops, nbytes, shape) in timed.items():
         ms = time_ms(kern)
+        dev_ms = device_ms(kern, f"{kname}_kernel")
         plain_ms = time_ms(plain, iters=5, warmup=1)
         bound_ms, bound_by = bound(flops, nbytes)
-        records[kname] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                          "bound_by": bound_by}
-        log(f"  time {kname:13s} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.6f} ms ({bound_by}; {flops} flops, {nbytes} bytes) [{card}]")
+        records[kname] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by}
+        shown = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        log(f"  time {kname:13s} {shape}: kernel {ms:.4f} ms (events; device time "
+            f"{shown}), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+            f"({bound_by}; {flops} flops, {nbytes} bytes) [{card}]")
     log("checks: the flash-attention kernel")
     errs["flash"], records["flash"] = check_flash(dev, card)
     log("kernels: " + json.dumps(

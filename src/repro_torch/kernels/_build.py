@@ -5,8 +5,8 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds), loaded with ``ctypes``.  Libraries go to
 ``build/repro_torch_kernels/`` at the repository root, named by a hash of
 every source and the flags, so an edited source rebuilds and an unchanged
-one is reused.  ``build()`` starts one ``nvcc`` per missing library, all
-at once.  Nothing is downloaded; a missing or failing compiler raises with
+one is reused, with the compiler's report kept beside it.  ``build()``
+starts one ``nvcc`` per missing library, all at once.  Nothing is downloaded; a missing or failing compiler raises with
 its output.
 """
 from __future__ import annotations
@@ -60,18 +60,27 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_digest()}.so"
 
 
+def report_path(library: Path) -> Path:
+    """The compiler's output for ``library``, written with it."""
+    return library.with_suffix(".ptxas.txt")
+
+
 def build(names=KERNELS) -> dict[str, dict]:
     """Compile every library in ``names`` that is not built yet, one ``nvcc``
     process per source, all started together.  Returns per library its
     path, the seconds its compile took (0.0 when reused) and the compiler's
-    output (register and shared-memory use from ``-Xptxas -v``)."""
+    output (register, spill and shared-memory use from ``-Xptxas -v``; for
+    a reused library the output of the build that made it, or "" when that
+    report is missing)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     jobs, report = {}, {}
     for name in names:
         out = library_path(name)
         if out.exists():
-            report[name] = {"path": str(out), "seconds": 0.0, "log": ""}
+            kept = report_path(out)
+            log = kept.read_text() if kept.exists() else ""
+            report[name] = {"path": str(out), "seconds": 0.0, "log": log}
             continue
         nvcc = nvcc or nvcc_path()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -86,6 +95,8 @@ def build(names=KERNELS) -> dict[str, dict]:
             failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
             continue
+        report_path(tmp).write_text(log)
+        os.replace(report_path(tmp), report_path(out))
         os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
         report[name] = {"path": str(out), "seconds": seconds, "log": log}
     if failures:

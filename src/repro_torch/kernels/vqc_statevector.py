@@ -7,10 +7,10 @@ never touches device memory.  Five CUDA kernels (``csrc/``) replace the
 five Pallas kernels of ``repro/kernels/vqc_statevector.py`` that the
 training path reaches:
 
-  * ``vqc_fused.cu`` ``fused_kernel<false>`` replaces ``_fidelity_kernel``
+  * ``vqc_fused.cu`` ``fidelity_kernel`` replaces ``_fidelity_kernel``
     (launched from ``_grid_call``): evolve the full n-qubit state, write the
     ancilla P(0).  Materialized banks and per-worker row batches.
-  * ``vqc_fused.cu`` ``fused_kernel<true>`` replaces ``_state_kernel``: the
+  * ``vqc_fused.cu`` ``state_kernel`` replaces ``_state_kernel``: the
     same evolution, writes the final (re, im) state.
   * ``vqc_shiftbank.cu`` ``shiftbank_kernel`` replaces ``_shiftbank_kernel``
     (the single-sweep branch of ``vqc_shift_fidelity``): prefix reuse on
@@ -27,32 +27,44 @@ Design, shared by all five:
     table of ``(gate, q0, q1, q2, param_kind, param_idx)`` rows plus a
     float32 column of constant angles, cached on the device per spec, so
     one build serves every circuit.
-  * One thread owns one circuit.  Its state is one column of a block-shared
-    array laid out ``[amp][circuit]`` — the TPU's sublane/lane layout —
-    so neighbouring threads touch neighbouring words (no bank conflicts)
-    and no ``__syncthreads`` is needed between gates.
+  * Kernels 2–4 (state, shift bank, spill forward): one thread owns one
+    circuit.  Its state is one column of a block-shared array laid out
+    ``[amp][circuit]`` — the TPU's sublane/lane layout — so neighbouring
+    threads touch neighbouring words (no bank conflicts) and no
+    ``__syncthreads`` is needed between gates.
+  * Kernels 1 and 5 (fidelity, spill tile): one warp owns one circuit (or
+    sample).  Its state is the warp's slice of shared memory; each gate is
+    one pass of the 32 lanes over its amplitude pairs, ended by
+    ``__syncwarp``, and inner products end in a warp reduction.
   * What bounds them on an H100: per circuit the kernels read (P + D)
     angle floats and write one float per requested row, so device memory
     is never the limit; the float32 arithmetic of the gate applications
     is (``chip_smoke.py`` computes both bounds per launch).  In practice
     each gate is a read-modify-write sweep of the state through shared
-    memory, and shared-memory capacity caps a block at 128 circuits of a
-    7-qubit state, so latency and shared-memory traffic dominate.  The
-    design keeps the state out of device memory and leaves tensor-core
-    formulations to later work.
+    memory: the one-thread kernels walk it serially, 2**(n-1) dependent
+    steps a gate, in blocks that shared-memory capacity caps (128 circuits
+    of a 7-qubit state), so latency dominates them; the warp kernels cut
+    each gate to a pass or two of the lanes and spread the batch over
+    every SM.  The design keeps the state out of device memory and leaves
+    tensor-core formulations to later work.
 
 Lane independence: each circuit's result depends only on its own angles,
 never on its position or the batch around it (the multibank per-lane bit
-identity depends on this).  On the CPU every wrapper takes the plain
+identity depends on this).  Both layouts evaluate a gate with the same
+arithmetic, rounding included (``rot1``/``rot2`` in ``statevector.cuh``),
+so a spilled sample's checkpoints, re-derived by the warp kernel from a
+boundary the one-thread forward kernel wrote, do not depend on where its
+depth tiles start.  On the CPU every wrapper takes the plain
 PyTorch version beside its kernel; on a CUDA tensor it launches the kernel
 or raises.
 
 The host half (``ShiftPlan`` .. ``multibank_stats``) is the reference's,
 with the TPU tile policy (``LANES = 128``, ``kernel_tb``, a 14 MB VMEM
 budget) replaced by one Hopper memory model: ``kernel_tb`` picks circuits
-per block from a 227 KB shared-memory budget, ``spill_tiling`` picks the
-spill tile kernel's block and depth tiles, and the kernel wrappers,
-``shift_execution_info`` and the launch observer all read those two.
+per block from a 227 KB shared-memory budget for the one-thread kernels,
+``fused_geometry`` the fidelity kernel's warps per block, ``spill_tiling``
+the spill tile kernel's block and depth tiles, and the kernel wrappers,
+``shift_execution_info`` and the launch observer all read those three.
 """
 from __future__ import annotations
 
@@ -90,6 +102,14 @@ SPILL_BOUNDARY_BUFFERS = 1
 _TILE_LIVE_STATES = 2
 #: the spill forward kernel's states: the data state and the running state.
 _FORWARD_STATES = 2
+#: samples (warps) per block of the spill tile launch, where the footprint
+#: model's block holds more: 576 samples then make 144 blocks over the
+#: H100's 132 SMs instead of 18 blocks of 32 (``spill_tiling``).
+SPILL_LAUNCH_WARPS = 4
+
+#: warps (= circuits) per block of the fidelity kernel where the states fit
+#: and the batch fills a block (``fused_geometry``).
+FUSED_WARPS = 8
 
 #: kernel launches per wrapper; counted only where a CUDA kernel launches.
 LAUNCHES = {"fidelity": 0, "state": 0, "shiftbank": 0, "shift_forward": 0, "shift_tile": 0}
@@ -107,8 +127,9 @@ def kernel_tb(n_lanes: int, lane_bytes: int, smem_budget: int = SMEM_BUDGET_BYTE
     the batch's power-of-two envelope but never below one warp.  Returns 0
     when not even one warp of circuits fits.
 
-    Every launch, and every model of a launch's footprint
-    (``shift_execution_info``), MUST take its block size from here, or for
+    Every launch of a one-thread-per-circuit kernel, and every model of a
+    launch's footprint (``shift_execution_info``), MUST take its block size
+    from here, or for the fidelity kernel from ``fused_geometry`` and for
     the spill tile kernel from ``spill_tiling``: a divergent copy would
     silently mis-predict the kernel's shared memory, and a launch asking
     for more than the card has is refused."""
@@ -118,6 +139,25 @@ def kernel_tb(n_lanes: int, lane_bytes: int, smem_budget: int = SMEM_BUDGET_BYTE
     if tb < LANES:
         return 0
     return min(tb, max(LANES, 1 << (max(n_lanes, 1) - 1).bit_length()))
+
+
+def fused_geometry(
+    n: int, c: int, smem_budget: int = SMEM_BUDGET_BYTES
+) -> tuple[int, int]:
+    """(warps per block, shared-memory bytes) of the fidelity kernel for a
+    batch of ``c`` circuits of ``n`` qubits: one warp per circuit, the
+    largest power of two up to FUSED_WARPS whose states fit ``smem_budget``,
+    shrunk to the batch's power-of-two envelope.  (0, 0) when not even one
+    circuit's state fits (from n = 15 at 227 KB).  The only source of that
+    kernel's launch geometry: ``_fidelity_cuda`` and the materialize branch
+    of ``shift_execution_info`` both read it."""
+    w = FUSED_WARPS
+    while w >= 1 and _state_bytes(n, w) > smem_budget:
+        w //= 2
+    if w == 0:
+        return 0, 0
+    w = min(w, 1 << (max(c, 1) - 1).bit_length())
+    return w, _state_bytes(n, w)
 
 
 # ----------------------------------------------------------- gate micro-ops
@@ -349,10 +389,14 @@ def _lib(name: str):
     lib = _build.load(name)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "vqc_fused":
-        lib.vqc_fused_launch.argtypes = (
-            [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, vp, i32, i32, i32, vp]
+        lib.vqc_fidelity_launch.argtypes = (
+            [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, i32, i32, vp]
         )
-        lib.vqc_fused_launch.restype = i32
+        lib.vqc_fidelity_launch.restype = i32
+        lib.vqc_state_launch.argtypes = (
+            [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, vp]
+        )
+        lib.vqc_state_launch.restype = i32
     elif name == "vqc_shiftbank":
         lib.vqc_shiftbank_launch.argtypes = (
             [vp, vp, i32, i32, i32, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp, i32, i32, vp]
@@ -400,8 +444,9 @@ def _prepare(spec: CircuitSpec, theta, data):
 
 # ------------------------------------------- kernels 1 and 2: full circuits
 def _fused_plain(spec: CircuitSpec, theta, data, want_state: bool):
-    """Plain version of ``fused_kernel``: the whole circuit on a (2**n, C)
-    tile.  Returns P0 (C,) or the final state (re, im), each (C, 2**n)."""
+    """Plain version of ``fidelity_kernel`` and ``state_kernel``: the whole
+    circuit on a (2**n, C) tile.  Returns P0 (C,) or the final state
+    (re, im), each (C, 2**n)."""
     n = spec.n_qubits
     re, im = _zero_tile(2**n, theta.shape[0], theta.device)
     th, dt = theta.T, data.T
@@ -413,7 +458,31 @@ def _fused_plain(spec: CircuitSpec, theta, data, want_state: bool):
     return _rowsum(re[:half] * re[:half] + im[:half] * im[:half])
 
 
-def _fused_cuda(spec: CircuitSpec, theta, data, want_state: bool):
+def _fidelity_cuda(spec: CircuitSpec, theta, data):
+    c, n = theta.shape[0], spec.n_qubits
+    warps, smem = fused_geometry(n, c)
+    if warps == 0:
+        raise NotImplementedError(
+            f"one circuit's state of {n} qubits exceeds the {SMEM_BUDGET_BYTES}-byte "
+            "shared-memory budget of one block"
+        )
+    dev = theta.device
+    ops_i, ops_f = _on_device(spec, _spec_table(spec), dev)
+    p0 = torch.empty((c,), dtype=torch.float32, device=dev)
+    if c:
+        lib = _lib("vqc_fused")
+        with torch.cuda.device(dev):
+            rc = lib.vqc_fidelity_launch(
+                _ptr(theta), _ptr(data), c, theta.shape[1], data.shape[1],
+                _ptr(ops_i), _ptr(ops_f), len(spec.ops), n, _ptr(p0),
+                warps, smem, _stream(dev),
+            )
+        _check_launch(lib, rc, "fidelity")
+        LAUNCHES["fidelity"] += 1
+    return p0
+
+
+def _state_cuda(spec: CircuitSpec, theta, data):
     c, n = theta.shape[0], spec.n_qubits
     tb = kernel_tb(c, _state_bytes(n, 1))
     if tb == 0:
@@ -423,25 +492,19 @@ def _fused_cuda(spec: CircuitSpec, theta, data, want_state: bool):
         )
     dev = theta.device
     ops_i, ops_f = _on_device(spec, _spec_table(spec), dev)
-    if want_state:
-        p0 = None
-        re = torch.empty((c, 2**n), dtype=torch.float32, device=dev)
-        im = torch.empty((c, 2**n), dtype=torch.float32, device=dev)
-    else:
-        p0 = torch.empty((c,), dtype=torch.float32, device=dev)
-        re = im = None
+    re = torch.empty((c, 2**n), dtype=torch.float32, device=dev)
+    im = torch.empty((c, 2**n), dtype=torch.float32, device=dev)
     if c:
         lib = _lib("vqc_fused")
         with torch.cuda.device(dev):
-            rc = lib.vqc_fused_launch(
+            rc = lib.vqc_state_launch(
                 _ptr(theta), _ptr(data), c, theta.shape[1], data.shape[1],
-                _ptr(ops_i), _ptr(ops_f), len(spec.ops), n,
-                _ptr(p0), _ptr(re), _ptr(im), int(want_state),
+                _ptr(ops_i), _ptr(ops_f), len(spec.ops), n, _ptr(re), _ptr(im),
                 tb, _state_bytes(n, tb), _stream(dev),
             )
-        _check_launch(lib, rc, "fused statevector")
-        LAUNCHES["state" if want_state else "fidelity"] += 1
-    return (re, im) if want_state else p0
+        _check_launch(lib, rc, "state")
+        LAUNCHES["state"] += 1
+    return re, im
 
 
 def vqc_p0(spec: CircuitSpec, theta: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
@@ -450,7 +513,7 @@ def vqc_p0(spec: CircuitSpec, theta: torch.Tensor, data: torch.Tensor) -> torch.
     theta, data, kind = _prepare(spec, theta, data)
     if kind == "cpu":
         return _fused_plain(spec, theta, data, want_state=False)
-    return _fused_cuda(spec, theta, data, want_state=False)
+    return _fidelity_cuda(spec, theta, data)
 
 
 def vqc_state(spec: CircuitSpec, theta: torch.Tensor, data: torch.Tensor):
@@ -459,7 +522,7 @@ def vqc_state(spec: CircuitSpec, theta: torch.Tensor, data: torch.Tensor):
     theta, data, kind = _prepare(spec, theta, data)
     if kind == "cpu":
         return _fused_plain(spec, theta, data, want_state=True)
-    return _fused_cuda(spec, theta, data, want_state=True)
+    return _state_cuda(spec, theta, data)
 
 
 # ----------------------------------------------- shift-structured execution
@@ -725,23 +788,44 @@ def spill_tile_smem_bytes(m: int, n_ckpt: int, tb: int) -> int:
     return (n_ckpt + _TILE_LIVE_STATES + SPILL_BOUNDARY_BUFFERS) * _state_bytes(m, tb)
 
 
+def spill_table_bytes(plan: ShiftPlan, n_tiles: int, n_variants: int) -> int:
+    """Shared memory of the plan tables the spill tile kernel stages once
+    per block (``_SpillTable``'s ints up to the variants' end and every
+    float), rounded up to 32 words so the states after them start on
+    bank 0."""
+    n_data, n_train = len(plan.data_ops), len(plan.train_ops)
+    ints = (n_data + n_train) * 6 + 2 * n_train + 4 * n_tiles + 5 * n_variants
+    floats = n_data + n_train + n_variants
+    return 4 * (-(-(ints + floats) // 32) * 32)
+
+
 @dataclasses.dataclass(frozen=True)
 class SpillTiling:
-    """Launch geometry of the spill tile kernel: circuits per block, the
-    (lo, hi) train-op depth tiles in ascending order, the checkpoints each
-    tile holds, and the block's shared memory (what the launch asks for)."""
+    """Geometry of the spill tile kernel: the footprint model's samples
+    (warps) per block, the (lo, hi) train-op depth tiles in ascending
+    order, the checkpoints each tile holds, and that block's states'
+    shared memory; then what the launch asks for: ``launch_tb`` samples a
+    block and ``launch_smem_bytes`` (the plan tables and launch_tb
+    samples' states)."""
 
     tb: int
     tiles: tuple[tuple[int, int], ...]
     n_ckpt: tuple[int, ...]
     smem_bytes: int
+    launch_tb: int
+    launch_smem_bytes: int
 
 
-def spill_tiling(plan: ShiftPlan, positions, smem_budget: int = SMEM_BUDGET_BYTES):
+def spill_tiling(
+    plan: ShiftPlan, positions, n_variants: int, smem_budget: int = SMEM_BUDGET_BYTES
+):
     """The spill tile kernel's block and depth tiles for the variant anchor
-    ``positions``: the largest block of at most one warp (halving from
-    LANES) whose fullest tile fits ``smem_budget``, or None when not even
-    one circuit's fits.  The only source of the tile kernel's geometry.
+    ``positions`` (``n_variants`` variant rows): the largest block of at
+    most LANES samples (halving from LANES; one warp each) whose fullest
+    tile fits ``smem_budget``, or None when not even one sample's fits.
+    The launch takes blocks of at most SPILL_LAUNCH_WARPS of those samples
+    and the plan tables (None if they do not fit ``smem_budget``).  The
+    only source of the tile kernel's geometry.
 
     ``plan_depth_tiles`` is the reference's, unchanged, and takes
     ``_RESERVED_STATES`` out of the budget it is given; it gets the budget
@@ -767,9 +851,16 @@ def spill_tiling(plan: ShiftPlan, positions, smem_budget: int = SMEM_BUDGET_BYTE
         )
         smem = spill_tile_smem_bytes(plan.m, max(n_ckpt), tb)
         if smem <= smem_budget:
-            return SpillTiling(tb, tiles, n_ckpt, smem)
+            break
         tb //= 2
-    return None
+    else:
+        return None
+    launch_tb = min(tb, SPILL_LAUNCH_WARPS)
+    launch_smem = spill_table_bytes(plan, len(tiles), n_variants) + spill_tile_smem_bytes(
+        plan.m, max(n_ckpt), launch_tb)
+    if launch_smem > smem_budget:
+        return None
+    return SpillTiling(tb, tiles, n_ckpt, smem, launch_tb, launch_smem)
 
 
 def _forward_tb(m: int, n_samples: int, smem_budget: int) -> int:
@@ -796,7 +887,8 @@ def _shift_route(
         and kernel_tb(1, lane_bytes, smem_budget) > 0
     ):
         return None
-    tiling = spill_tiling(plan, positions, smem_budget)
+    n_variants = len(_variant_table(plan, variants, groups)[1])
+    tiling = spill_tiling(plan, positions, n_variants, smem_budget)
     if tiling is None or _forward_tb(plan.m, 1, smem_budget) == 0:
         raise NotImplementedError(
             f"not even one sample of this {plan.m}-qubit register plan fits the "
@@ -817,8 +909,11 @@ def shift_execution_info(
     block size it gets and the shared memory its launch asks for.  ``mode``
     is "materialize", "fused" (single-sweep shift kernel) or "spill" (the
     spill pair: one forward launch, then one tile launch over every depth
-    tile, deepest first; ``tb`` / ``smem_bytes`` are the tile kernel's,
-    ``forward_tb`` / ``forward_smem_bytes`` the forward kernel's)."""
+    tile, deepest first; ``tb`` / ``smem_bytes`` are the tile kernel's
+    footprint model, ``launch_tb`` / ``launch_smem_bytes`` its launch,
+    ``forward_tb`` / ``forward_smem_bytes`` the forward kernel's).  ``tb``
+    counts circuits (samples) per block: threads for the one-thread
+    kernels, warps for the fidelity ("materialize") and tile kernels."""
     plan = build_shift_plan(spec)
     n_shifts = 4 if four_term else 2
     if groups is None:
@@ -832,9 +927,10 @@ def shift_execution_info(
         "smem_budget": smem_budget,
     }
     if plan is None or not cost["use_implicit"]:
-        tb = kernel_tb(n_samples, _state_bytes(spec.n_qubits, 1), smem_budget)
-        return {"mode": "materialize", "launches": 1, "n_tiles": 0, "tb": tb,
-                "smem_bytes": _state_bytes(spec.n_qubits, tb), **base}
+        # one fidelity launch over the n_samples x G materialized rows
+        warps, smem = fused_geometry(spec.n_qubits, n_samples * len(groups), smem_budget)
+        return {"mode": "materialize", "launches": 1, "n_tiles": 0, "tb": warps,
+                "smem_bytes": smem, **base}
     tiling = _shift_route(spec, four_term, groups, smem_budget)
     if tiling is None:
         variants = _collect_variants(plan, shift_values(four_term), groups, spec.n_theta)
@@ -850,6 +946,8 @@ def shift_execution_info(
         "tiles": tiling.tiles,
         "tb": tiling.tb,
         "smem_bytes": tiling.smem_bytes,
+        "launch_tb": tiling.launch_tb,
+        "launch_smem_bytes": tiling.launch_smem_bytes,
         "spill_buffer_bytes": SPILL_BOUNDARY_BUFFERS * _state_bytes(plan.m, tiling.tb),
         "forward_tb": fwd_tb,
         "forward_smem_bytes": _FORWARD_STATES * _state_bytes(plan.m, fwd_tb),
@@ -1187,7 +1285,7 @@ def _shift_tile_cuda(tab: _SpillTable, theta, data, chi, boundaries, out):
                 _ptr(theta), _ptr(data), b, theta.shape[1], data.shape[1],
                 _ptr(ints), _ptr(floats), tab.m, tab.n_data_ops, tab.n_train_ops,
                 tab.n_tiles, tab.n_variants, _ptr(chi), _ptr(boundaries), _ptr(out),
-                tab.tiling.tb, tab.tiling.smem_bytes, _stream(dev),
+                tab.tiling.launch_tb, tab.tiling.launch_smem_bytes, _stream(dev),
             )
         _check_launch(lib, rc, "spill tile")
         LAUNCHES["shift_tile"] += 1

@@ -53,6 +53,26 @@ def test_fused_kernels_match_plain(cuda, qc, nl, tied, c):
     torch.testing.assert_close(im, pim, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("qc,nl", [(3, 1), (5, 2), (7, 3), (11, 1)])
+@pytest.mark.parametrize("c", [1, 33, 300, 1061])  # 1061: the last block ragged
+def test_fidelity_warp_kernel_matches_plain(cuda, qc, nl, c):
+    """The warp-per-circuit fidelity kernel, narrow circuits (idle lanes)
+    and 11 qubits (2**10 pairs a gate, beyond the one-thread kernel's
+    limit) included."""
+    spec = circuits.build_quclassi_circuit(qc, nl)
+    warps, smem = K.fused_geometry(qc, c)
+    assert warps > 0 and smem <= K.SMEM_BUDGET_BYTES
+    if c == 1061:
+        assert c % warps
+    th, dt = _angles(spec, c, cuda, seed=c + qc)
+    before = K.LAUNCHES["fidelity"]
+    got = K.vqc_p0(spec, th, dt)
+    assert K.LAUNCHES["fidelity"] == before + 1
+    want = K._fused_plain(spec, th, dt, False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+
+
 @pytest.mark.parametrize("qc,nl,tied", [(5, 1, False), (7, 3, False), (7, 3, True)])
 @pytest.mark.parametrize("four", [False, True])
 def test_shiftbank_kernel_matches_plain(cuda, qc, nl, tied, four):
@@ -110,6 +130,29 @@ def test_spill_kernels_match_plain(cuda, qc, nl, tied, budget_ckpts, four):
         torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
 
 
+def test_spilled_multibank_bit_identical_on_card(cuda):
+    """13q-3l spills: banks in one launch equal per-bank launches bit for
+    bit (a sample's result never depends on its warp's place in the
+    launch).  The banks ask for different groups, so the union launch cuts
+    other depth tiles than some per-bank launches: a checkpoint reached
+    through another tile start has the same bits."""
+    spec = circuits.build_quclassi_circuit(13, 3)
+    n_groups = 1 + 2 * spec.n_theta
+    group_sets = (tuple(range(0, n_groups, 2)), tuple(range(1, n_groups, 2)),
+                  tuple(range(0, n_groups, 3)))
+    sizes = (5, 100, 333)
+    union = tuple(sorted(set().union(*group_sets)))
+    tiles = K.shift_execution_info(spec, 512, groups=union)["tiles"]
+    infos = [K.shift_execution_info(spec, b, groups=gs) for b, gs in zip(sizes, group_sets)]
+    assert all(i["mode"] == "spill" for i in infos)
+    assert any(i["tiles"] != tiles for i in infos)
+    banks = [_angles(spec, b, cuda, seed=b) for b in sizes]
+    outs = ops.vqc_fidelity_shiftgroups_multibank(
+        spec, tuple(t for t, _ in banks), tuple(d for _, d in banks), False, group_sets)
+    for (t, d), gs, out in zip(banks, group_sets, outs):
+        assert torch.equal(out, ops.vqc_fidelity_shiftgroups(spec, t, d, False, gs))
+
+
 def test_unfit_shapes_raise_instead_of_running(cuda):
     wide = circuits.build_quclassi_circuit(13, 3)  # m = 6: runs as depth tiles
     th, dt = _angles(wide, 8, cuda)
@@ -118,7 +161,11 @@ def test_unfit_shapes_raise_instead_of_running(cuda):
     big = circuits.build_quclassi_circuit(11, 1)  # 2**11 amplitudes: 16 KB a circuit
     th, dt = _angles(big, 8, cuda)
     with pytest.raises(NotImplementedError, match="shared-memory budget"):
-        K.vqc_p0(big, th, dt)
+        K.vqc_state(big, th, dt)  # one thread per circuit: a warp of 16 KB states
+    widest = circuits.build_quclassi_circuit(15, 1)  # 256 KB: not one state fits
+    th, dt = _angles(widest, 8, cuda)
+    with pytest.raises(NotImplementedError, match="shared-memory budget"):
+        K.vqc_p0(widest, th, dt)
 
 
 def test_training_step_on_card(cuda):
