@@ -8,17 +8,21 @@ Phases, in order; any failure exits non-zero before the result line:
   2. build   — every CUDA kernel compiled from ``src/repro_torch/kernels/csrc``
                (one nvcc per source, all at once); ptxas (its report
                kept beside a reused library) must show no spill stores
-               for the fidelity, spill forward and spill tile kernels;
+               for the five statevector kernels;
   3. kernels — each kernel against its plain PyTorch version on the card
                (max |diff| <= 1e-5) and against the dense simulator on a
                small input, then timed at the shape the training path gives
                it (CUDA events around back-to-back wrapper calls, and the
                kernel's own device time from torch.profiler), beside the
-               plain version and the analytic bound.  The
-               spill pair is checked at 13 qubits (m = 6), at 17 qubits
-               (m = 8, a footprint block of 16 samples) and on tied 5q/7q
-               circuits under a forced shared-memory budget; multibank
-               launches must equal per-bank launches bit for bit;
+               plain version and the analytic bound.  The state kernel
+               is checked at 7 and 10-14 qubits; the spill pair, launched
+               directly, at 13 qubits (m = 6), 17 (m = 8), 19 (m = 9) and
+               on tied 5q/7q circuits under a forced shared-memory budget;
+               multibank launches must equal per-bank launches bit for bit
+               on both shift routes (13q: the single sweep it takes, and
+               the spill pair under a forced budget); both routes are
+               timed in turns at 13q-3l on 2 workers, 15q-3l, 17q-1l and
+               17q-3l (B = 576);
                The flash-attention kernels are checked against their plain
                version, each on its dtype's route (bf16: the wgmma kernel of
                flash_attn_sm90.cu; float32: the SIMT kernel of
@@ -34,9 +38,12 @@ Phases, in order; any failure exits non-zero before the result line:
                warm-up step each: ``quclassi-7q-3l`` on 4 workers with
                implicit banks (shift kernel) and materialized (fused
                kernel), then 13-qubit, 3-layer QuClassi on 2 workers with
-               implicit banks (spill pair).  Launch counts are zeroed just
-               before each run and read just after; then one profiled
-               gradient step per run shows where the time goes;
+               implicit banks (the single-sweep shift kernel: each
+               worker's checkpoints fit its launch's block; the first bank
+               is also run through the spill pair under a forced budget).
+               Launch counts are zeroed just before each run and read just
+               after; then one profiled gradient step per run shows where
+               the time goes;
   5. serve   — ``smollm-360m`` at full width and depth (32 layers, bf16,
                seeded weights) on the flash path: (a) a 4 x 2048-token
                prefill through ``make_prefill_step`` (counts zeroed before
@@ -52,6 +59,7 @@ repository around it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -152,7 +160,8 @@ def ptxas_spills(log: str) -> dict[str, tuple[int, int]]:
 
 
 #: per library, the kernels whose ptxas report must show no spill stores
-NO_SPILL_KERNELS = {"vqc_fused": ("fidelity_kernel",),
+NO_SPILL_KERNELS = {"vqc_fused": ("fidelity_kernel", "state_kernel"),
+                    "vqc_shiftbank": ("shiftbank_kernel",),
                     "vqc_spill": ("shift_forward_kernel", "shift_tile_kernel")}
 
 
@@ -307,6 +316,15 @@ def spill_flops(K, plan, tab, tile_plan) -> tuple[int, int]:
             n_inner += 1
     assert n_inner == n_rows  # every requested group once
     return fwd, ops_flops(ops, plan.m) + n_inner * INNER_FLOPS_PER_AMP * dim
+
+
+def spill_budget(K, spec, four: bool, groups, n_ckpt: int) -> int:
+    """A shared-memory budget under which the single sweep cannot hold one
+    sample and the spill pair must tile: the staged tables and, for one
+    sample, ``n_ckpt`` checkpoints and 4 live states."""
+    plan = K.build_shift_plan(spec)
+    n_variants = K._walk_table(spec, four, tuple(groups), K.SMEM_BUDGET_BYTES, False).n_variants
+    return K.walk_table_bytes(plan, n_variants) + (n_ckpt + 4) * K._state_bytes(plan.m, 1)
 
 
 def zero_flash_counts() -> None:
@@ -534,6 +552,15 @@ def main() -> int:
         th, dt = angles(spec, 32)  # the dense simulator, independent of both
         check("fidelity", f"{name} C=32 vs dense simulator",
               ops.vqc_fidelity(spec, th, dt), ref.vqc_fidelity_ref(spec, th, dt), plain=False)
+    for n in range(10, 15):  # the state kernel's widths beyond the one-thread kernel's 9
+        base = circuits.build_quclassi_circuit(n - 1 + n % 2, 1)
+        spec = dataclasses.replace(base, n_qubits=n)  # even n: one idle last qubit
+        th, dt = angles(spec, 100)
+        re, im = K.vqc_state(spec, th, dt)
+        pre, pim = K._fused_plain(spec, th, dt, want_state=True)
+        warps = K.fused_geometry(n, 100)[0]
+        check("state", f"{n} qubits C=100 ({warps} a block) re", re, pre)
+        check("state", f"{n} qubits C=100 ({warps} a block) im", im, pim)
 
     for name in ("7q-3l", "tied-7q-3l"):
         spec = specs[name]
@@ -566,26 +593,28 @@ def main() -> int:
                   ops.vqc_fidelity_shiftgroups(spec, th, dt, False, gs), tol=0.0, plain=False)
 
     def spill_inputs(spec, groups, four=False, budget=K.SMEM_BUDGET_BYTES):
-        """The spill table and the plain pair's tile plan for one request."""
+        """The spill pair's table and the plain pair's tile plan for one
+        request, whichever route the request takes."""
         plan = K.build_shift_plan(spec)
-        tab = K._spill_table(spec, four, tuple(groups), budget)
+        tab = K._walk_table(spec, four, tuple(groups), budget, True)
         variants = K._collect_variants(plan, K.shift_values(four), tuple(groups), spec.n_theta)
-        return plan, tab, variants, K._tile_plan(plan, variants, tab.tiling.tiles)
+        return plan, tab, variants, K._tile_plan(plan, variants, tab.tiles)
 
     def check_spill(label, spec, b, groups, four=False, budget=K.SMEM_BUDGET_BYTES):
         """Each spill kernel against its plain version on the same inputs,
-        then the wrapper end to end against the plain pair."""
+        then the wrapper end to end (on the route the request takes)
+        against the plain pair."""
         plan, tab, variants, tile_plan = spill_inputs(spec, groups, four, budget)
         th, dt = angles(spec, b)
-        los = [lo for lo, _ in tab.tiling.tiles]
-        f0, d_state, bnd = K._shift_forward_plain(plan, los, th, dt)
+        f0, d_state, bnd = K._shift_forward_plain(plan, [lo for lo, _ in tab.tiles], th, dt)
         rows = K._shift_tile_plain(plan, tile_plan, th, dt, d_state, bnd)
         want = K._spilled_rows(variants, tuple(groups), tile_plan, f0, rows)
         label = (f"{label} four={four} G={len(groups)} B={b} tiles={tab.n_tiles} "
-                 f"tb={tab.tiling.tb} launch {tab.tiling.launch_tb}/"
-                 f"{tab.tiling.launch_smem_bytes} B")
-        if max(tab.tiling.smem_bytes, tab.tiling.launch_smem_bytes) > K.SMEM_BUDGET_BYTES:
-            raise AssertionError(f"{label}: asks for more shared memory than a block has")
+                 f"{tab.tb}/{tab.smem_bytes} B, forward {tab.forward_tb}/"
+                 f"{tab.forward_smem_bytes} B")
+        if not (tab.tb and tab.forward_tb) or max(
+                tab.smem_bytes, tab.forward_smem_bytes) > K.SMEM_BUDGET_BYTES:
+            raise AssertionError(f"{label}: no block, or more shared memory than a block has")
         var_rows = list(tab.variant_rows)
         f0_rows = [r for r in range(len(groups)) if r not in tab.variant_rows]
         out = torch.full_like(want, float("nan"))
@@ -597,7 +626,9 @@ def main() -> int:
         out[var_rows] = float("nan")
         K._shift_tile_cuda(tab, th, dt, d_state, bnd, out)
         check("shift_tile", f"{label} rows", out, want)
-        check("shift_tile", f"{label} wrapper",
+        route = K.shift_execution_info(spec, b, four_term=four, groups=tuple(groups),
+                                       smem_budget=budget)["mode"]
+        check("shift_tile" if route == "spill" else "shiftbank", f"{label} wrapper ({route})",
               K.vqc_shift_fidelity(spec, th, dt, four_term=four, groups=tuple(groups),
                                    smem_budget=budget), want)
 
@@ -606,42 +637,66 @@ def main() -> int:
     for groups in (all13, *worker_groups13):
         for b in (100, samples):
             check_spill("13q-3l", spec13, b, groups)
-    for name, (qc, nl) in (("tied-7q-3l", (7, 3)), ("tied-5q-3l", (5, 3))):
+    for name, (qc, nl, n_ckpt) in (("tied-7q-3l", (7, 3, 3)), ("tied-5q-3l", (5, 3, 2))):
         spec = circuits.build_tied_quclassi_circuit(qc, nl)
-        budget = K.checkpoint_smem_bytes(K.build_shift_plan(spec), 3, K.LANES)
         for four in (False, True):
             g_all = tuple(range(1 + (4 if four else 2) * spec.n_theta))
+            budget = spill_budget(K, spec, four, g_all, n_ckpt)
             check_spill(f"{name} budget={budget}", spec, 100, g_all, four, budget)
-    for nl in (1, 3):
-        spec = circuits.build_quclassi_circuit(17, nl)
-        check_spill(f"17q-{nl}l", spec, 100, tuple(range(1 + 2 * spec.n_theta)))
+    for qc, nl in ((17, 1), (17, 3), (19, 1)):  # m = 8, 8, 9
+        spec = circuits.build_quclassi_circuit(qc, nl)
+        check_spill(f"{qc}q-{nl}l", spec, 100, tuple(range(1 + 2 * spec.n_theta)))
     bank = shift_rule.build_shift_bank(*angles(spec13, 8))
     mat = bank.materialize()
-    check("shift_tile", "13q-3l B=8 vs dense simulator",
+    check("shiftbank", "13q-3l B=8 vs dense simulator",
           ops.vqc_fidelity_shiftgroups(spec13, bank.theta, bank.data).reshape(-1),
           ref.vqc_fidelity_ref(spec13, mat.theta, mat.data), plain=False)
+    # multibank at 13q on both routes: banks packed into one launch equal
+    # per-bank launches bit for bit.  The single sweep (the route 13q
+    # takes) through the user's entry point; the spill pair under a
+    # budget that holds no single-sweep sample.
     banks = [angles(spec13, b) for b in (samples, 100, 333, 64)]
     group_sets = (*worker_groups13, all13, tuple(range(0, n_groups13, 3)))
-    outs = ops.vqc_fidelity_shiftgroups_multibank(
-        spec13, tuple(t for t, _ in banks), tuple(d for _, d in banks), False, group_sets)
-    for k, ((th, dt), gs, out) in enumerate(zip(banks, group_sets, outs)):
-        if K.shift_execution_info(spec13, th.shape[0], groups=gs)["mode"] != "spill":
-            raise AssertionError(f"13q multibank bank {k}: groups {gs} do not spill")
-        plain = K._shiftbank_plain(plan13, K.shift_values(False), gs, cfg13.n_theta, th, dt)
-        check("shift_tile", f"13q-3l multibank bank {k} B={th.shape[0]}",
-              out, torch.clamp(plain, 0.0, 1.0))
-        check("shift_tile", f"13q-3l multibank bank {k} vs per-bank", out,
-              ops.vqc_fidelity_shiftgroups(spec13, th, dt, False, gs), tol=0.0, plain=False)
+    forced13 = spill_budget(K, spec13, False, all13, 8)
+    for route, budget in (("fused", K.SMEM_BUDGET_BYTES), ("spill", forced13)):
+        kernel = "shiftbank" if route == "fused" else "shift_tile"
+        if route == "fused":
+            outs = ops.vqc_fidelity_shiftgroups_multibank(
+                spec13, tuple(t for t, _ in banks), tuple(d for _, d in banks), False,
+                group_sets)
+        else:
+            theta, data, segments = ops._pack_banks(tuple(t for t, _ in banks),
+                                                    tuple(d for _, d in banks))
+            out = K.vqc_shift_fidelity(spec13, theta, data, groups=all13, smem_budget=budget)
+            outs = [out[list(gs), off : off + b] for gs, (off, b) in zip(group_sets, segments)]
+        for k, ((th, dt), gs, out) in enumerate(zip(banks, group_sets, outs)):
+            info = K.shift_execution_info(spec13, th.shape[0], groups=gs, smem_budget=budget)
+            if info["mode"] != route:
+                raise AssertionError(f"13q multibank bank {k}: groups {gs} run {info['mode']}, "
+                                     f"not {route}")
+            plain = K._shiftbank_plain(plan13, K.shift_values(False), gs, cfg13.n_theta, th, dt)
+            if route == "fused":
+                plain = torch.clamp(plain, 0.0, 1.0)
+                per_bank = ops.vqc_fidelity_shiftgroups(spec13, th, dt, False, gs)
+            else:
+                per_bank = K.vqc_shift_fidelity(spec13, th, dt, groups=gs, smem_budget=budget)
+            check(kernel, f"13q-3l {route} multibank bank {k} B={th.shape[0]}", out, plain)
+            check(kernel, f"13q-3l {route} multibank bank {k} vs per-bank", out, per_bank,
+                  tol=0.0, plain=False)
 
     # timing at the training path's shapes (quclassi-7q-3l on 4 workers;
-    # 13q-3l on 2 workers for the spill pair)
+    # 13q-3l on 2 workers for the spill pair, forced into the two depth
+    # tiles of 11 and 5 checkpoints that earlier runs timed)
     plan7 = K.build_shift_plan(spec7)
     p, d = spec7.n_theta, spec7.n_data
     th_rows, dt_rows = angles(spec7, rows_per_worker)
     th_smp, dt_smp = angles(spec7, samples)
     shifts2 = K.shift_values(False)
-    _, tab13, _, tile_plan13 = spill_inputs(spec13, worker_groups13[0])
-    los13 = [lo for lo, _ in tab13.tiling.tiles]
+    sweep13 = K._walk_table(spec13, False, worker_groups13[0], K.SMEM_BUDGET_BYTES, False)
+    two_tiles13 = K.walk_table_bytes(plan13, sweep13.n_variants) + K.walk_smem_bytes(
+        plan13.m, 11, K.SPILL_LAUNCH_WARPS)
+    _, tab13, _, tile_plan13 = spill_inputs(spec13, worker_groups13[0], budget=two_tiles13)
+    los13 = [lo for lo, _ in tab13.tiles]
     th13, dt13 = angles(spec13, samples)
     out13 = torch.empty((len(worker_groups13[0]), samples), dtype=torch.float32, device=dev)
     d13, bnd13 = K._shift_forward_cuda(tab13, th13, dt13, out13)
@@ -684,7 +739,7 @@ def main() -> int:
             samples * tile_flops,
             samples * (4 * (p13 + d13n) + states13 + 4 * len(tab13.variant_rows)),
             f"13q-3l B={samples}, {len(tab13.variant_rows)} variant rows, "
-            f"{tab13.n_tiles} tiles, {tab13.tiling.launch_tb} samples a block",
+            f"{tab13.n_tiles} tiles, {tab13.tb} samples a block",
         ),
     }
     records = {}
@@ -699,6 +754,51 @@ def main() -> int:
         log(f"  time {kname:13s} {shape}: kernel {ms:.4f} ms (events; device time "
             f"{shown}), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
             f"({bound_by}; {flops} flops, {nbytes} bytes) [{card}]")
+    log("timing: the single sweep and the spill pair in turns, B = 576 "
+        f"(SWEEP_MIN_WARPS = {K.SWEEP_MIN_WARPS})")
+    routes = {}
+    for label, (qc, nl, stride) in (("13q-3l worker 0 of 2", (13, 3, 2)),
+                                    ("15q-3l", (15, 3, 1)), ("17q-1l", (17, 1, 1)),
+                                    ("17q-3l", (17, 3, 1)), ("19q-1l", (19, 1, 1)),
+                                    ("19q-3l", (19, 3, 1))):
+        spec = circuits.build_quclassi_circuit(qc, nl)
+        plan = K.build_shift_plan(spec)
+        groups = tuple(range(0, 1 + 2 * spec.n_theta, stride))
+        sweep = K._walk_table(spec, False, groups, K.SMEM_BUDGET_BYTES, False)
+        spill = K._walk_table(spec, False, groups, K.SMEM_BUDGET_BYTES, True)
+        taken = K._shift_route(spec, False, groups, K.SMEM_BUDGET_BYTES)
+        th, dt = angles(spec, samples)
+
+        def run_sweep(sweep=sweep, th=th, dt=dt):
+            return K._shiftbank_cuda(sweep, th, dt)
+
+        def run_spill(spill=spill, th=th, dt=dt):
+            return K._shift_spilled_cuda(spill, th, dt)
+
+        want = K._shiftbank_plain(plan, shifts2, groups, spec.n_theta, th, dt)
+        got_sweep, got_spill = run_sweep(), run_spill()
+        check("shiftbank", f"route {label} single sweep", got_sweep, want)
+        check("shift_tile", f"route {label} spill pair", got_spill, want)
+        check("shift_tile", f"route {label} spill pair vs single sweep", got_spill, got_sweep,
+              tol=0.0, plain=False)
+        turns = [time_ms(run_sweep), time_ms(run_spill), time_ms(run_spill), time_ms(run_sweep)]
+        sweep_dev = device_ms(run_sweep, "shiftbank_kernel")
+        fwd_dev = device_ms(run_spill, "shift_forward_kernel")
+        tile_dev = device_ms(run_spill, "shift_tile_kernel")
+        spill_dev = None if fwd_dev is None or tile_dev is None else fwd_dev + tile_dev
+        routes[label] = {
+            "taken": "spill" if taken.tiles else "fused",
+            "sweep": {"tb": sweep.tb, "smem_bytes": sweep.smem_bytes, "ms": [turns[0], turns[3]],
+                      "device_ms": sweep_dev},
+            "spill": {"tb": spill.tb, "n_tiles": spill.n_tiles, "forward_tb": spill.forward_tb,
+                      "ms": [turns[1], turns[2]], "device_ms": spill_dev,
+                      "forward_device_ms": fwd_dev, "tile_device_ms": tile_dev}}
+        log(f"  route {label}: single sweep ({sweep.tb} a block, {sweep.smem_bytes} B) "
+            f"{turns[0]:.4f} / {turns[3]:.4f} ms, device {sweep_dev}; spill pair "
+            f"({spill.n_tiles} tiles, {spill.tb} a block) {turns[1]:.4f} / {turns[2]:.4f} ms, "
+            f"device {spill_dev} (forward {fwd_dev}, tile {tile_dev}); the plan takes "
+            f"{routes[label]['taken']} [{card}]")
+    log("routes: " + json.dumps(routes))
     log("checks: the flash-attention kernel")
     errs["flash"], records["flash"] = check_flash(dev, card)
     log("kernels: " + json.dumps(
@@ -716,7 +816,13 @@ def main() -> int:
                               dataplane.worker_batched_executor(
                                   spec7, dataplane.round_robin_assignment(n_units, n_workers),
                                   n_workers))
-    runs["13q implicit"] = (cfg13, "implicit", "shift_tile",
+    # 13q: the route each worker's request takes (the single sweep at 227 KB)
+    route13 = {K.shift_execution_info(spec13, samples, groups=gs)["mode"]
+               for gs in worker_groups13}
+    if len(route13) != 1:
+        raise AssertionError(f"13q workers take different routes: {route13}")
+    route13 = route13.pop()
+    runs["13q implicit"] = (cfg13, "implicit", "shift_tile" if route13 == "spill" else "shiftbank",
                             dataplane.worker_batched_executor(spec13, assign13, n_workers13))
     inits = {label: quclassi.init_params(c, torch.Generator().manual_seed(0), dev)
              for label, (c, _, _, _) in runs.items()}
@@ -769,17 +875,36 @@ def main() -> int:
     log(f"train 7q: first-step fidelities, implicit vs materialized: max|diff| = {diff:.3e}")
     if not diff <= TOL:
         raise AssertionError(f"implicit and materialized first steps differ by {diff}")
-    # 13q: the first bank through the plain spill pair, worker by worker
+    # 13q: the first bank against the plain version of its route, worker
+    # by worker, and through the spill pair under a budget that holds no
+    # single-sweep sample (bit for bit the same rows)
     bank, got = first["13q implicit"]
     plain = torch.empty((n_groups13, bank.n_samples), dtype=torch.float32, device=dev)
+    forced = torch.empty_like(plain)
     for gs in worker_groups13:
-        tiles = K.shift_execution_info(spec13, bank.n_samples, groups=gs)["tiles"]
-        plain[list(gs)] = torch.clamp(K._shift_spilled_plain(
-            plan13, shifts2, gs, cfg13.n_theta, tiles, bank.theta, bank.data), 0.0, 1.0)
+        info = K.shift_execution_info(spec13, bank.n_samples, groups=gs)
+        if info["mode"] == "spill":
+            rows = K._shift_spilled_plain(plan13, shifts2, gs, cfg13.n_theta, info["tiles"],
+                                          bank.theta, bank.data)
+        else:
+            rows = K._shiftbank_plain(plan13, shifts2, gs, cfg13.n_theta, bank.theta, bank.data)
+        plain[list(gs)] = torch.clamp(rows, 0.0, 1.0)
+        budget = spill_budget(K, spec13, False, gs, 8)
+        if K.shift_execution_info(spec13, bank.n_samples, groups=gs,
+                                  smem_budget=budget)["mode"] != "spill":
+            raise AssertionError("13q: the forced budget does not spill")
+        forced[list(gs)] = torch.clamp(K.vqc_shift_fidelity(
+            spec13, bank.theta, bank.data, groups=gs, smem_budget=budget), 0.0, 1.0)
     diff = float((got - plain.reshape(-1)).abs().max())
-    log(f"train 13q: first-step fidelities, spill kernels vs plain pair: max|diff| = {diff:.3e}")
+    log(f"train 13q: first-step fidelities ({route13}) vs the plain version: "
+        f"max|diff| = {diff:.3e}")
     if not diff <= TOL:
-        raise AssertionError(f"13q first step differs from the plain pair by {diff}")
+        raise AssertionError(f"13q first step differs from the plain version by {diff}")
+    diff = float((got - forced.reshape(-1)).abs().max())
+    log(f"train 13q: first-step fidelities ({route13}) vs the spill pair under a forced "
+        f"budget: max|diff| = {diff:.3e}")
+    if not diff <= TOL:
+        raise AssertionError(f"13q first step differs from the spill pair by {diff}")
 
     # where one gradient step's time goes (after the counts were read)
     xb = torch.as_tensor(train_set[0][:batch], device=dev)

@@ -1,15 +1,8 @@
-// Gate micro-ops on circuit statevectors held in shared memory, in two
-// layouts.
-//
-// One thread per circuit (apply_op and the Col helpers; kernels 2, 3 and
-// 4): a state over n qubits is one column of a block-shared array laid out
-// [amplitude][circuit]: amplitude a of the thread's circuit sits at
-// re[a * tb] and im[a * tb], where tb is the block's circuit count.  Each
-// thread touches only its own column, so neighbouring threads hit
-// neighbouring words (no bank conflicts) and no barrier is needed.
-//
-// One warp per circuit (warp_apply and the warp_* helpers; kernels 1 and
-// 5): see the note above WarpState.
+// Gate micro-ops on circuit statevectors held in shared memory, one warp
+// per circuit (or sample): see the note above WarpState.  Every kernel of
+// the port (fidelity, state, shift bank, spill forward, spill tile) runs
+// its gates through warp_apply and, for the prefix-reuse shift walk,
+// ShiftWalk below.
 //
 // Qubit q is the q-th MOST significant bit of the amplitude index: its pair
 // stride is 2^(n-q-1).  Rotation matrices, sign conventions and the
@@ -26,50 +19,18 @@ enum : int { kNoParam = 0, kTheta = 1, kData = 2, kConst = 3 };
 // An op-table row: gate, q0, q1, q2, param kind, param index.
 constexpr int kOpFields = 6;
 
-struct Col {
-  float* re;
-  float* im;
-  int tb;
-  __device__ __forceinline__ float& r(int a) const { return re[a * tb]; }
-  __device__ __forceinline__ float& i(int a) const { return im[a * tb]; }
-};
-
 // i with a zero bit inserted at position b.
 __device__ __forceinline__ int insert0(int i, int b) {
   return ((i >> b) << (b + 1)) | (i & ((1 << b) - 1));
 }
 
-__device__ __forceinline__ void zero_state(Col s, int dim) {
-  for (int a = 0; a < dim; ++a) {
-    s.r(a) = a == 0 ? 1.f : 0.f;
-    s.i(a) = 0.f;
-  }
-}
-
-__device__ __forceinline__ void copy_state(Col dst, Col src, int dim) {
-  for (int a = 0; a < dim; ++a) {
-    dst.r(a) = src.r(a);
-    dst.i(a) = src.i(a);
-  }
-}
-
-// |<chi|phi>|^2, summed over amplitudes in order.
-__device__ __forceinline__ float inner_fidelity(Col chi, Col phi, int dim) {
-  float ip_re = 0.f, ip_im = 0.f;
-  for (int a = 0; a < dim; ++a) {
-    const float cr = chi.r(a), ci = chi.i(a), pr = phi.r(a), pi = phi.i(a);
-    ip_re += cr * pr + ci * pi;
-    ip_im += cr * pi - ci * pr;
-  }
-  return ip_re * ip_re + ip_im * ip_im;
-}
-
-// Gate arithmetic, shared by apply_op and warp_apply.  x0 * y0 + x1 * y1
+// Gate arithmetic of warp_apply and warp_apply_inner.  x0 * y0 + x1 * y1
 // with its rounding fixed (x1 * y1 rounded, then fused into x0 * y0), not
-// left to the compiler's contraction: a state reached through apply_op
-// (one thread per circuit) and one reached through warp_apply (one warp)
-// agree bit for bit, gate by gate, so a spilled sample's checkpoints do not
-// depend on where its depth tiles start.
+// left to the compiler's contraction: every kernel that inlines a gate,
+// in whichever library, gives it the same bits, so a spilled sample's
+// checkpoints (the forward kernel's boundary advanced by the tile kernel)
+// do not depend on where its depth tiles start, and the single sweep and
+// the spill pair agree bit for bit.
 __device__ __forceinline__ float dot2(float x0, float y0, float x1, float y1) {
   return fmaf(x0, y0, x1 * y1);
 }
@@ -112,86 +73,6 @@ __device__ __forceinline__ void rot2(int g, float c, float sn, float& r00, float
   r10 = n10; m10 = j10; r11 = n11; m11 = j11;
 }
 
-// Apply one table op to the state s of an n-qubit register.  The angle is
-// the op's source (theta / data row of this circuit, or the constant),
-// plus delta when delta != 0, negated when invert (g(t)^dagger = g(-t));
-// H and CSWAP are their own inverses.  The pair loops stay rolled
-// (#pragma unroll 1): unrolled, the callee's larger register set left
-// shift_forward_kernel, at its 64-register cap, spilling 24 B across the
-// calls.
-__device__ __noinline__ void apply_op(const int* op, float cval, Col s, int n,
-                                      const float* theta, const float* data,
-                                      float delta, bool invert) {
-  const int g = op[0];
-  if (g == kH) {
-    const int b = n - op[1] - 1, st = 1 << b;
-    const float inv = 0.7071067811865476f;
-#pragma unroll 1
-    for (int i = 0; i < (1 << (n - 1)); ++i) {
-      const int i0 = insert0(i, b), i1 = i0 | st;
-      const float r0 = s.r(i0), r1 = s.r(i1), m0 = s.i(i0), m1 = s.i(i1);
-      s.r(i0) = (r0 + r1) * inv;
-      s.r(i1) = (r0 - r1) * inv;
-      s.i(i0) = (m0 + m1) * inv;
-      s.i(i1) = (m0 - m1) * inv;
-    }
-    return;
-  }
-  if (g == kCSwap) {
-    // control qa < qb < qc, so bit positions ba > bb > bc; inside the
-    // control = 1 block swap the (qb, qc) pair (0,1) <-> (1,0).
-    const int ba = n - op[1] - 1, bb = n - op[2] - 1, bc = n - op[3] - 1;
-#pragma unroll 1
-    for (int i = 0; i < (1 << (n - 3)); ++i) {
-      const int base = insert0(insert0(insert0(i, bc), bb), ba) | (1 << ba);
-      const int a01 = base | (1 << bc), a10 = base | (1 << bb);
-      const float r = s.r(a01), m = s.i(a01);
-      s.r(a01) = s.r(a10);
-      s.i(a01) = s.i(a10);
-      s.r(a10) = r;
-      s.i(a10) = m;
-    }
-    return;
-  }
-  float ang = op[4] == kTheta ? theta[op[5]] : op[4] == kData ? data[op[5]] : cval;
-  if (delta != 0.f) ang = ang + delta;
-  if (invert) ang = -ang;
-  const float c = cosf(ang / 2.f), sn = sinf(ang / 2.f);
-
-  if (g == kRX || g == kRY || g == kRZ) {
-    const int b = n - op[1] - 1, st = 1 << b;
-#pragma unroll 1
-    for (int i = 0; i < (1 << (n - 1)); ++i) {
-      const int i0 = insert0(i, b), i1 = i0 | st;
-      float r0 = s.r(i0), r1 = s.r(i1), m0 = s.i(i0), m1 = s.i(i1);
-      rot1(g, c, sn, r0, m0, r1, m1);
-      s.r(i0) = r0; s.i(i0) = m0;
-      s.r(i1) = r1; s.i(i1) = m1;
-    }
-    return;
-  }
-
-  // two-qubit rotations on qa < qb (the table swaps descending ryy/rzz and
-  // rejects descending cry/crz): bit positions ba > bb.
-  const int ba = n - op[1] - 1, bb = n - op[2] - 1;
-#pragma unroll 1
-  for (int i = 0; i < (1 << (n - 2)); ++i) {
-    const int i00 = insert0(insert0(i, bb), ba);
-    const int i01 = i00 | (1 << bb), i10 = i00 | (1 << ba), i11 = i10 | (1 << bb);
-    float r10 = s.r(i10), r11 = s.r(i11), m10 = s.i(i10), m11 = s.i(i11);
-    if (g == kCRY || g == kCRZ) {  // RY / RZ on qb within the qa = 1 block
-      rot1(g, c, sn, r10, m10, r11, m11);
-    } else {
-      float r00 = s.r(i00), r01 = s.r(i01), m00 = s.i(i00), m01 = s.i(i01);
-      rot2(g, c, sn, r00, m00, r01, m01, r10, m10, r11, m11);
-      s.r(i00) = r00; s.i(i00) = m00;
-      s.r(i01) = r01; s.i(i01) = m01;
-    }
-    s.r(i10) = r10; s.i(i10) = m10;
-    s.r(i11) = r11; s.i(i11) = m11;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Warp-cooperative micro-ops: one warp owns one circuit's (or sample's)
 // state, a contiguous slice [re: dim][im: dim] of shared memory.  Lane l
@@ -201,7 +82,7 @@ __device__ __noinline__ void apply_op(const int* op, float cval, Col s, int n,
 // where two or four lanes share a bank.  Every op ends in __syncwarp(), the
 // barrier between one gate's writes and the next gate's reads; callers keep
 // every lane on every op (the tables are the same for the whole warp).
-// The gate arithmetic is apply_op's (rot1, rot2).  The lane loops run one
+// The gate arithmetic is rot1 / rot2.  The lane loops run one
 // or two times at the widths the training path uses and stay rolled
 // (#pragma unroll 1): unrolled, the inlined gate code of the spill tile
 // kernel grew 2.6-fold and ran slower.
@@ -218,8 +99,8 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// cos and sin of half the op's angle, as apply_op computes them (delta
-// added when nonzero; no inversion: the caller negates sn for g^dagger).
+// cos and sin of half the op's angle (delta added when nonzero; no
+// inversion: the caller negates sn for g^dagger).
 __device__ __forceinline__ void op_angle(const int* op, float cval, const float* theta,
                                          const float* data, float delta, float& c, float& sn) {
   float ang = op[4] == kTheta ? theta[op[5]] : op[4] == kData ? data[op[5]] : cval;
@@ -253,6 +134,19 @@ __device__ __forceinline__ void warp_load(WarpState s, const float* src, int dim
   for (int a = lane; a < dim; a += 32) {
     s.re[a] = src[a * n + b];
     s.im[a] = src[(dim + a) * n + b];
+  }
+  __syncwarp();
+}
+
+// warp_load's inverse: the warp's state into column b of a [re/im][amp]
+// [sample] array.  Lane l writes amplitudes l, l + 32, ..., n samples
+// apart.
+__device__ __forceinline__ void warp_store(float* dst, WarpState s, int dim, long n, long b,
+                                           int lane) {
+#pragma unroll 1
+  for (int a = lane; a < dim; a += 32) {
+    dst[a * n + b] = s.re[a];
+    dst[(dim + a) * n + b] = s.im[a];
   }
   __syncwarp();
 }
@@ -384,6 +278,219 @@ __device__ __forceinline__ float warp_apply_inner(const int* op, float c, float 
   __syncwarp();
   return ip_re * ip_re + ip_im * ip_im;
 }
+
+// Ops [0, n_ops) of a table applied to the warp's state s.  The op
+// angles are computed 32 at a time, lane k taking op k0 + k, and broadcast
+// with __shfl_sync; before(k) runs on every lane just before op k (a
+// checkpoint or boundary store; it ends in __syncwarp like every op).
+struct NoHook {
+  __device__ void operator()(int) const {}
+};
+
+template <typename Before = NoHook>
+__device__ __forceinline__ void warp_evolve(const int* ops, const float* consts, int n_ops,
+                                            const float* th, const float* dt, WarpState s, int n,
+                                            int lane, Before before = Before()) {
+  for (int k0 = 0; k0 < n_ops; k0 += 32) {
+    float my_c = 0.f, my_s = 0.f;
+    if (k0 + lane < n_ops) {
+      op_angle(ops + (k0 + lane) * kOpFields, consts[k0 + lane], th, dt, 0.f, my_c, my_s);
+    }
+    const int kn = min(32, n_ops - k0);
+    for (int j = 0; j < kn; ++j) {
+      const float cj = __shfl_sync(kFullMask, my_c, j), sj = __shfl_sync(kFullMask, my_s, j);
+      before(k0 + j);
+      warp_apply(ops + (k0 + j) * kOpFields, cj, sj, s, n, lane);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The prefix-reuse shift walk, shared by the single-sweep kernel
+// (vqc_shiftbank.cu) and the spill tile kernel (vqc_spill.cu).  The plan
+// arrives as tables (_WalkTable in vqc_statevector.py):
+//   ints:   data ops, train ops (kOpFields each); per train op the tile
+//           whose boundary is the state just before it (-1: none); per
+//           train op its checkpoint slot (-1: none); the variants as (row,
+//           param, first, last, anchor) in descending anchor order | the
+//           tiles deepest first as (lo, hi, last checkpoint, tile); the
+//           output rows that take the base fidelity;
+//   floats: data-op and train-op constant angles, one shift per variant.
+// Everything before the '|' and every float is staged in shared memory
+// once per block: every step of the walk reads the tables, and from
+// shared memory that is a shared-memory load on the step's path instead of
+// a round trip to L2.
+constexpr int kVarFields = 5;   // a variant row: output row, param, first, last, anchor
+constexpr int kTileFields = 4;  // a tile row: lo, hi, last checkpoint, tile index
+
+struct WalkTables {
+  const int* data_ops;
+  const int* train_ops;
+  const int* bnd_of;
+  const int* ckpt;
+  const int* var;
+  const float* data_consts;
+  const float* train_consts;
+  const float* shifts;
+
+  __device__ WalkTables(const int* itab, const float* ftab, int n_data_ops, int n_train_ops)
+      : data_ops(itab),
+        train_ops(itab + n_data_ops * kOpFields),
+        bnd_of(train_ops + n_train_ops * kOpFields),
+        ckpt(bnd_of + n_train_ops),
+        var(ckpt + n_train_ops),
+        data_consts(ftab),
+        train_consts(ftab + n_data_ops),
+        shifts(ftab + n_data_ops + n_train_ops) {}
+
+  __device__ static int staged_ints(int n_data_ops, int n_train_ops, int n_variants) {
+    return (n_data_ops + n_train_ops) * kOpFields + 2 * n_train_ops + n_variants * kVarFields;
+  }
+};
+
+// Stage the tables into the front of dynamic shared memory behind the
+// block's only barrier (so it comes before any warp leaves); returns the
+// staged tables and, through states, where the per-sample states begin
+// (rounded up to 32 words, so they start on bank 0: walk_table_bytes in
+// vqc_statevector.py).
+__device__ __forceinline__ WalkTables stage_tables(float* smem, const int* itab,
+                                                   const float* ftab, int n_data_ops,
+                                                   int n_train_ops, int n_variants,
+                                                   float*& states) {
+  const int n_ints = WalkTables::staged_ints(n_data_ops, n_train_ops, n_variants);
+  const int n_floats = n_data_ops + n_train_ops + n_variants;
+  int* itab_s = reinterpret_cast<int*>(smem);
+  float* ftab_s = smem + n_ints;
+  for (int i = threadIdx.x; i < n_ints; i += blockDim.x) itab_s[i] = itab[i];
+  for (int i = threadIdx.x; i < n_floats; i += blockDim.x) ftab_s[i] = ftab[i];
+  __syncthreads();
+  states = smem + ((n_ints + n_floats + 31) & ~31);
+  return WalkTables(itab_s, ftab_s, n_data_ops, n_train_ops);
+}
+
+// One sample's walk state: its warp's slots in shared memory (slot k of
+// warp w at (k * warps + w) * 2 * 2^m floats past the tables, so lane l
+// touches bank l; 0 the running state, 1 chi, 2 one variant, 3 + j
+// checkpoint j) and, in registers, the base cos/sin of train ops lane
+// and lane + 32 and the shifted cos/sin of variants lane and lane + 32
+// (theta[j] + shift: the angle of every gate of parameter j in that
+// variant's replay), broadcast with __shfl_sync where they apply; ops and
+// variants past the 64th compute theirs where they apply.  The walk is a
+// chain of dependent steps at a few warps a scheduler, so each step
+// reads only shared memory and registers.
+struct ShiftWalk {
+  WalkTables tab;
+  const float* th;
+  const float* dt;
+  float* states;
+  int warps, warp, lane, m, dim, n_variants;
+  float c_lo = 0.f, s_lo = 0.f, c_hi = 0.f, s_hi = 0.f;
+  float vc_lo = 0.f, vs_lo = 0.f, vc_hi = 0.f, vs_hi = 0.f;
+
+  __device__ ShiftWalk(const WalkTables& t, const float* theta, const float* data, float* st,
+                       int warps_, int warp_, int lane_, int m_, int n_train_ops, int n_var)
+      : tab(t), th(theta), dt(data), states(st), warps(warps_), warp(warp_), lane(lane_), m(m_),
+        dim(1 << m_), n_variants(n_var) {
+    if (lane < n_train_ops) {
+      op_angle(tab.train_ops + lane * kOpFields, tab.train_consts[lane], th, dt, 0.f, c_lo, s_lo);
+    }
+    if (lane + 32 < n_train_ops) {
+      op_angle(tab.train_ops + (lane + 32) * kOpFields, tab.train_consts[lane + 32], th, dt, 0.f,
+               c_hi, s_hi);
+    }
+    if (lane < n_variants) {
+      const float ang = th[tab.var[lane * kVarFields + 1]] + tab.shifts[lane];
+      vc_lo = cosf(ang / 2.f);
+      vs_lo = sinf(ang / 2.f);
+    }
+    if (lane + 32 < n_variants) {
+      const float ang = th[tab.var[(lane + 32) * kVarFields + 1]] + tab.shifts[lane + 32];
+      vc_hi = cosf(ang / 2.f);
+      vs_hi = sinf(ang / 2.f);
+    }
+  }
+
+  __device__ WarpState slot(int k) const {
+    float* base = states + (static_cast<long>(k) * warps + warp) * 2 * dim;
+    return WarpState{base, base + dim};
+  }
+
+  // k is the same on every lane
+  __device__ void base_angle(int k, float& c, float& sn) const {
+    if (k < 64) {
+      c = __shfl_sync(kFullMask, k < 32 ? c_lo : c_hi, k & 31);
+      sn = __shfl_sync(kFullMask, k < 32 ? s_lo : s_hi, k & 31);
+    } else {
+      op_angle(tab.train_ops + k * kOpFields, tab.train_consts[k], th, dt, 0.f, c, sn);
+    }
+  }
+
+  __device__ void shifted_angle(int vi, const int* op, float cval, float& c, float& sn) const {
+    if (vi < 64) {
+      c = __shfl_sync(kFullMask, vi < 32 ? vc_lo : vc_hi, vi & 31);
+      sn = __shfl_sync(kFullMask, vi < 32 ? vs_lo : vs_hi, vi & 31);
+    } else {
+      op_angle(op, cval, th, dt, tab.shifts[vi], c, sn);
+    }
+  }
+
+  // Train ops [lo, end) on run with base angles, each preceded by the
+  // copy into its checkpoint slot where it has one.
+  __device__ void advance(WarpState run, int lo, int end) const {
+    for (int k = lo; k < end; ++k) {
+      checkpoint(run, k);
+      float c, sn;
+      base_angle(k, c, sn);
+      warp_apply(tab.train_ops + k * kOpFields, c, sn, run, m, lane);
+    }
+  }
+
+  __device__ void checkpoint(WarpState run, int k) const {
+    if (tab.ckpt[k] >= 0) warp_copy(slot(3 + tab.ckpt[k]), run, dim, lane);
+  }
+
+  // chi walked from hi - 1 down to lo through the inverted train ops
+  // (g(t)^dagger = g(-t): cos even, sin odd); at each op every variant
+  // anchored there (from vi on) replays its parameter's [first, last] span
+  // from its checkpoint, the shift on that parameter's gates, and row
+  // |<chi|v>|^2 is written.  chi passes op lo only if further walks follow
+  // (past_lo).
+  __device__ void walk(int hi, int lo, bool past_lo, int& vi, float* out, long n, long b) const {
+    const WarpState chi = slot(1), v = slot(2);
+    for (int k = hi - 1; k >= lo; --k) {
+      for (; vi < n_variants && tab.var[vi * kVarFields + 4] == k; ++vi) {
+        const int* vr = tab.var + vi * kVarFields;
+        const int row = vr[0], j = vr[1], first = vr[2], vlast = vr[3];
+        float f;
+        if (first == vlast) {  // one gate, parameter j's: fused with the inner product
+          const int* op = tab.train_ops + first * kOpFields;
+          float c, sn;
+          shifted_angle(vi, op, tab.train_consts[first], c, sn);
+          f = warp_apply_inner(op, c, sn, slot(3 + tab.ckpt[first]), chi, m, lane);
+        } else {
+          warp_copy(v, slot(3 + tab.ckpt[first]), dim, lane);
+          for (int kk = first; kk <= vlast; ++kk) {
+            const int* op = tab.train_ops + kk * kOpFields;
+            float c, sn;
+            if (op[4] == kTheta && op[5] == j && tab.shifts[vi] != 0.f) {
+              shifted_angle(vi, op, tab.train_consts[kk], c, sn);
+            } else {
+              base_angle(kk, c, sn);
+            }
+            warp_apply(op, c, sn, v, m, lane);
+          }
+          f = warp_inner(chi, v, dim, lane);
+        }
+        if (lane == 0) out[row * n + b] = f;
+      }
+      if (k > lo || past_lo) {
+        float c, sn;
+        base_angle(k, c, sn);
+        warp_apply(tab.train_ops + k * kOpFields, c, -sn, chi, m, lane);
+      }
+    }
+  }
+};
 
 // Let a block use more than 48 KB of dynamic shared memory.
 template <typename Kernel>

@@ -25,13 +25,32 @@
 //   quarter of the SMs.  A warp per circuit makes the 4,176 circuits 4,176
 //   warps over every SM and cuts each gate's serial chain 32-fold.
 //
-// state_kernel replaces ::_state_kernel: the same evolution, one thread per
-// circuit with its state in a shared-memory column ([amp][circuit], blocks
-// from kernel_tb), writing the final (re, im) state.  It is off the
-// training path (tests and the smoke only).
+// state_kernel replaces ::_state_kernel: the same evolution on the same
+// geometry (fused_geometry), ending in a store of the final (re, im) state
+// instead of the P(0) reduction.  Lane l writes amplitudes l, l + 32, ...
+// of its circuit's row, so a warp's stores are coalesced.  Bound on an
+// H100: its 2 * 4 * 2^n bytes of output per circuit (bytes, where the
+// fidelity kernel is arithmetic-bound).  The one-thread kernel it replaced
+// needed a warp of 32 states a block and refused 10 qubits and more; this
+// one runs up to 14.  It is off the training path (tests and the smoke).
 #include "statevector.cuh"
 
 namespace vqc {
+
+// The circuit's evolution from |0...0>, shared by both kernels: the
+// warp's state in its slice of dynamic shared memory.
+__device__ __forceinline__ WarpState evolve_circuit(float* smem, const float* theta,
+                                                    const float* data, long c, int n_theta,
+                                                    int n_data, const int* ops,
+                                                    const float* consts, int n_ops,
+                                                    int n_qubits, int warp, int lane) {
+  const int dim = 1 << n_qubits;
+  const WarpState s{smem + static_cast<long>(warp) * 2 * dim,
+                    smem + static_cast<long>(warp) * 2 * dim + dim};
+  warp_zero(s, dim, lane);
+  warp_evolve(ops, consts, n_ops, theta + c * n_theta, data + c * n_data, s, n_qubits, lane);
+  return s;
+}
 
 __global__ void __launch_bounds__(1024)
 fidelity_kernel(const float* __restrict__ theta, const float* __restrict__ data,
@@ -45,23 +64,9 @@ fidelity_kernel(const float* __restrict__ theta, const float* __restrict__ data,
   // past the batch (the ragged last block) leaves before any shuffle, and
   // no block barrier follows.
   if (c >= n_circuits) return;
+  const WarpState s = evolve_circuit(smem, theta, data, c, n_theta, n_data, ops, consts, n_ops,
+                                     n_qubits, warp, lane);
   const int dim = 1 << n_qubits;
-  const WarpState s{smem + static_cast<long>(warp) * 2 * dim,
-                    smem + static_cast<long>(warp) * 2 * dim + dim};
-  warp_zero(s, dim, lane);
-  const float* th = theta + c * n_theta;
-  const float* dt = data + c * n_data;
-  for (int k0 = 0; k0 < n_ops; k0 += 32) {
-    float my_c = 0.f, my_s = 0.f;
-    if (k0 + lane < n_ops) {
-      op_angle(ops + (k0 + lane) * kOpFields, consts[k0 + lane], th, dt, 0.f, my_c, my_s);
-    }
-    const int kn = min(32, n_ops - k0);
-    for (int j = 0; j < kn; ++j) {
-      const float cj = __shfl_sync(kFullMask, my_c, j), sj = __shfl_sync(kFullMask, my_s, j);
-      warp_apply(ops + (k0 + j) * kOpFields, cj, sj, s, n_qubits, lane);
-    }
-  }
   float p0 = 0.f;  // ancilla = MSB: the first half of the amplitudes
   for (int a = lane; a < dim / 2; a += 32) p0 += s.re[a] * s.re[a] + s.im[a] * s.im[a];
   p0 = warp_sum(p0);
@@ -74,21 +79,16 @@ state_kernel(const float* __restrict__ theta, const float* __restrict__ data,
              const int* __restrict__ ops, const float* __restrict__ consts, int n_ops,
              int n_qubits, float* __restrict__ re_out, float* __restrict__ im_out) {
   extern __shared__ float smem[];
-  const int tb = blockDim.x;
-  const int lane = threadIdx.x;
-  const long c = static_cast<long>(blockIdx.x) * tb + lane;
-  if (c >= n_circuits) return;  // ragged last block; no barriers follow
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long c = static_cast<long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (c >= n_circuits) return;  // warp-uniform, as in fidelity_kernel
+  const WarpState s = evolve_circuit(smem, theta, data, c, n_theta, n_data, ops, consts, n_ops,
+                                     n_qubits, warp, lane);
   const int dim = 1 << n_qubits;
-  const Col s{smem + lane, smem + dim * tb + lane, tb};
-  zero_state(s, dim);
-  const float* th = theta + c * n_theta;
-  const float* dt = data + c * n_data;
-  for (int k = 0; k < n_ops; ++k) {
-    apply_op(ops + k * kOpFields, consts[k], s, n_qubits, th, dt, 0.f, false);
-  }
-  for (int a = 0; a < dim; ++a) {
-    re_out[c * dim + a] = s.r(a);
-    im_out[c * dim + a] = s.i(a);
+#pragma unroll 1
+  for (int a = lane; a < dim; a += 32) {
+    re_out[c * dim + a] = s.re[a];
+    im_out[c * dim + a] = s.im[a];
   }
 }
 
@@ -108,12 +108,12 @@ extern "C" int vqc_fidelity_launch(const float* theta, const float* data, int n_
 
 extern "C" int vqc_state_launch(const float* theta, const float* data, int n_circuits,
                                 int n_theta, int n_data, const int* ops, const float* consts,
-                                int n_ops, int n_qubits, float* re_out, float* im_out, int tb,
+                                int n_ops, int n_qubits, float* re_out, float* im_out, int warps,
                                 int smem_bytes, void* stream) {
   const cudaError_t err = vqc::allow_smem(vqc::state_kernel, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_circuits + tb - 1) / tb);
-  vqc::state_kernel<<<grid, tb, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((n_circuits + warps - 1) / warps);
+  vqc::state_kernel<<<grid, warps * 32, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       theta, data, n_circuits, n_theta, n_data, ops, consts, n_ops, n_qubits, re_out, im_out);
   return static_cast<int>(cudaGetLastError());
 }

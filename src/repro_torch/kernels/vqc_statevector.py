@@ -27,44 +27,42 @@ Design, shared by all five:
     table of ``(gate, q0, q1, q2, param_kind, param_idx)`` rows plus a
     float32 column of constant angles, cached on the device per spec, so
     one build serves every circuit.
-  * Kernels 2–4 (state, shift bank, spill forward): one thread owns one
-    circuit.  Its state is one column of a block-shared array laid out
-    ``[amp][circuit]`` — the TPU's sublane/lane layout — so neighbouring
-    threads touch neighbouring words (no bank conflicts) and no
-    ``__syncthreads`` is needed between gates.
-  * Kernels 1 and 5 (fidelity, spill tile): one warp owns one circuit (or
-    sample).  Its state is the warp's slice of shared memory; each gate is
-    one pass of the 32 lanes over its amplitude pairs, ended by
-    ``__syncwarp``, and inner products end in a warp reduction.
+  * One warp owns one circuit (or sample).  Its state is the warp's slice
+    of shared memory; each gate is one pass of the 32 lanes over its
+    amplitude pairs, ended by ``__syncwarp``, and inner products end in a
+    warp reduction.  Blocks hold a few warps, so a batch of hundreds of
+    circuits spreads over every SM.  The shift-walk kernels (shift bank,
+    spill forward and tile) stage the plan tables in shared memory once
+    per block and share the walk (``ShiftWalk`` in ``statevector.cuh``).
   * What bounds them on an H100: per circuit the kernels read (P + D)
-    angle floats and write one float per requested row, so device memory
-    is never the limit; the float32 arithmetic of the gate applications
-    is (``chip_smoke.py`` computes both bounds per launch).  In practice
-    each gate is a read-modify-write sweep of the state through shared
-    memory: the one-thread kernels walk it serially, 2**(n-1) dependent
-    steps a gate, in blocks that shared-memory capacity caps (128 circuits
-    of a 7-qubit state), so latency dominates them; the warp kernels cut
-    each gate to a pass or two of the lanes and spread the batch over
-    every SM.  The design keeps the state out of device memory and leaves
-    tensor-core formulations to later work.
+    angle floats and write one float per requested row (the state kernel
+    its 2**n amplitudes), so device memory is rarely the limit; the
+    float32 arithmetic of the gate applications is (``chip_smoke.py``
+    computes both bounds per launch).  In practice each gate is a
+    read-modify-write pass over the state in shared memory and a sample's
+    gates are a chain of dependent steps, so latency dominates.  The design
+    keeps the state out of device memory and leaves tensor-core
+    formulations to later work.
 
 Lane independence: each circuit's result depends only on its own angles,
 never on its position or the batch around it (the multibank per-lane bit
-identity depends on this).  Both layouts evaluate a gate with the same
+identity depends on this).  Every kernel evaluates a gate with the same
 arithmetic, rounding included (``rot1``/``rot2`` in ``statevector.cuh``),
-so a spilled sample's checkpoints, re-derived by the warp kernel from a
-boundary the one-thread forward kernel wrote, do not depend on where its
-depth tiles start.  On the CPU every wrapper takes the plain
-PyTorch version beside its kernel; on a CUDA tensor it launches the kernel
-or raises.
+so a spilled sample's checkpoints, re-derived by the tile kernel from a
+boundary the forward kernel wrote, do not depend on where its depth tiles
+start, and the single sweep and the spill pair give the same bits.  On the
+CPU every wrapper takes the plain PyTorch version beside its kernel; on a
+CUDA tensor it launches the kernel or raises.
 
 The host half (``ShiftPlan`` .. ``multibank_stats``) is the reference's,
 with the TPU tile policy (``LANES = 128``, ``kernel_tb``, a 14 MB VMEM
-budget) replaced by one Hopper memory model: ``kernel_tb`` picks circuits
-per block from a 227 KB shared-memory budget for the one-thread kernels,
-``fused_geometry`` the fidelity kernel's warps per block, ``spill_tiling``
-the spill tile kernel's block and depth tiles, and the kernel wrappers,
-``shift_execution_info`` and the launch observer all read those three.
+budget) replaced by one Hopper memory model of 227 KB a block: each kernel
+takes its launch geometry from one function (``fused_geometry`` for the
+fidelity and state kernels, ``shift_geometry`` for the single sweep,
+``forward_geometry`` and ``spill_tiling`` for the spill pair), and
+``_shift_route`` picks single sweep or spill pair from those launches'
+blocks (``SWEEP_MIN_WARPS``); the kernel wrappers, ``shift_execution_info``
+and the launch observer all read them.
 """
 from __future__ import annotations
 
@@ -80,36 +78,42 @@ from repro_torch.core.sim import CircuitSpec
 from repro_torch.kernels import _build
 
 # ------------------------------------------------------------ tile policy
-#: a warp: blocks hold a multiple of this many circuits, and multibank lane
-#: segments pad to it.
+#: a warp: multibank lane segments pad to it, and it is the reference's
+#: default block for ``plan_depth_tiles``.
 LANES = 32
-#: the most threads (= circuits) one block may hold.
-MAX_BLOCK_LANES = 1024
 #: dynamic shared memory one block may use on an H100 (227 KB of the SM's
 #: 256 KB; above 48 KB only after cudaFuncSetAttribute, done per launch).
 SMEM_BUDGET_BYTES = 227 * 1024
-#: live non-checkpoint states the single-sweep shift kernel holds (data
-#: state, running state, chi, one shifted variant); ``plan_depth_tiles``
-#: (the reference's) reserves this many out of the budget it is given.
+#: live non-checkpoint states the reference's single-sweep kernel holds;
+#: ``plan_depth_tiles`` (the reference's) reserves this many out of the
+#: budget it is given.
 _RESERVED_STATES = 4
-#: boundary buffers the spill tile kernel holds: one.  A tile's boundary
-#: prefix state is loaded into it from device memory and advanced in place
-#: through the tile's checkpoints, so it is also the running state; the
-#: next tile's boundary is loaded only when that tile starts (no prefetch).
-SPILL_BOUNDARY_BUFFERS = 1
-#: the spill tile kernel's other live non-checkpoint states: chi and one
-#: shifted variant.
-_TILE_LIVE_STATES = 2
+#: live non-checkpoint states a sample of the shift walk holds, in the
+#: single sweep and in the spill tile kernel alike: the running state (the
+#: tile kernel loads each tile's boundary into it, when the tile starts:
+#: no prefetch), chi (the single sweep computes the data state into it) and
+#: one shifted variant.
+_WALK_STATES = 3
 #: the spill forward kernel's states: the data state and the running state.
 _FORWARD_STATES = 2
-#: samples (warps) per block of the spill tile launch, where the footprint
-#: model's block holds more: 576 samples then make 144 blocks over the
-#: H100's 132 SMs instead of 18 blocks of 32 (``spill_tiling``).
-SPILL_LAUNCH_WARPS = 4
 
-#: warps (= circuits) per block of the fidelity kernel where the states fit
-#: and the batch fills a block (``fused_geometry``).
+#: warps (= circuits) per block of the fidelity and state kernels where the
+#: states fit and the batch fills a block (``fused_geometry``).
 FUSED_WARPS = 8
+#: samples (warps) per block of the single-sweep shift kernel where the
+#: checkpoints fit (``shift_geometry``).
+SHIFT_WARPS = 4
+#: samples (warps) per block of the spill forward and tile kernels where
+#: the states fit (``forward_geometry``, ``spill_tiling``).
+SPILL_LAUNCH_WARPS = 4
+#: the single sweep is taken when a block of at least this many samples
+#: holds its checkpoints, else the spill pair where it fits
+#: (``_shift_route``).  Timed on an H100 at B = 576 (PERF.md): where both
+#: block 4 samples the sweep wins by the forward launch (13q-3l, 15q-3l,
+#: 17q-1l); a sweep block of 2 against the pair's 4 lost at 17q-3l
+#: (0.337 / 0.294 ms) and tied at 19q-1l (0.226 / 0.232), one of 1 lost
+#: at 19q-3l (0.987 / 0.578).
+SWEEP_MIN_WARPS = 4
 
 #: kernel launches per wrapper; counted only where a CUDA kernel launches.
 LAUNCHES = {"fidelity": 0, "state": 0, "shiftbank": 0, "shift_forward": 0, "shift_tile": 0}
@@ -120,42 +124,28 @@ def _state_bytes(m: int, tb: int) -> int:
     return 2 * 4 * (2**m) * tb
 
 
-def kernel_tb(n_lanes: int, lane_bytes: int, smem_budget: int = SMEM_BUDGET_BYTES) -> int:
-    """Circuits per block for a launch over ``n_lanes`` circuits that each
-    need ``lane_bytes`` of shared memory: the largest power of two in
-    [LANES, MAX_BLOCK_LANES] whose states fit ``smem_budget``, shrunk to
-    the batch's power-of-two envelope but never below one warp.  Returns 0
-    when not even one warp of circuits fits.
-
-    Every launch of a one-thread-per-circuit kernel, and every model of a
-    launch's footprint (``shift_execution_info``), MUST take its block size
-    from here, or for the fidelity kernel from ``fused_geometry`` and for
-    the spill tile kernel from ``spill_tiling``: a divergent copy would
-    silently mis-predict the kernel's shared memory, and a launch asking
-    for more than the card has is refused."""
-    tb = MAX_BLOCK_LANES
-    while tb >= LANES and tb * lane_bytes > smem_budget:
-        tb //= 2
-    if tb < LANES:
-        return 0
-    return min(tb, max(LANES, 1 << (max(n_lanes, 1) - 1).bit_length()))
+def _warp_block(cap: int, sample_bytes: int, fixed_bytes: int, smem_budget: int):
+    """(warps, shared-memory bytes) of a one-warp-per-sample block: the
+    largest power of two up to ``cap`` whose ``sample_bytes`` each, plus
+    ``fixed_bytes``, fit ``smem_budget``; (0, 0) when not even one fits."""
+    w = cap
+    while w >= 1 and fixed_bytes + w * sample_bytes > smem_budget:
+        w //= 2
+    return (w, fixed_bytes + w * sample_bytes) if w else (0, 0)
 
 
 def fused_geometry(
     n: int, c: int, smem_budget: int = SMEM_BUDGET_BYTES
 ) -> tuple[int, int]:
-    """(warps per block, shared-memory bytes) of the fidelity kernel for a
-    batch of ``c`` circuits of ``n`` qubits: one warp per circuit, the
-    largest power of two up to FUSED_WARPS whose states fit ``smem_budget``,
-    shrunk to the batch's power-of-two envelope.  (0, 0) when not even one
-    circuit's state fits (from n = 15 at 227 KB).  The only source of that
-    kernel's launch geometry: ``_fidelity_cuda`` and the materialize branch
-    of ``shift_execution_info`` both read it."""
-    w = FUSED_WARPS
-    while w >= 1 and _state_bytes(n, w) > smem_budget:
-        w //= 2
-    if w == 0:
-        return 0, 0
+    """(warps per block, shared-memory bytes) of the fidelity and state
+    kernels for a batch of ``c`` circuits of ``n`` qubits: one warp per
+    circuit, the largest power of two up to FUSED_WARPS whose states fit
+    ``smem_budget``, shrunk to the batch's power-of-two envelope.  (0, 0)
+    when not even one circuit's state fits (from n = 15 at 227 KB).  The
+    only source of those kernels' launch geometry: ``_fidelity_cuda``,
+    ``_state_cuda`` and the materialize branch of ``shift_execution_info``
+    read it."""
+    w, _ = _warp_block(FUSED_WARPS, _state_bytes(n, 1), 0, smem_budget)
     w = min(w, 1 << (max(c, 1) - 1).bit_length())
     return w, _state_bytes(n, w)
 
@@ -399,7 +389,7 @@ def _lib(name: str):
         lib.vqc_state_launch.restype = i32
     elif name == "vqc_shiftbank":
         lib.vqc_shiftbank_launch.argtypes = (
-            [vp, vp, i32, i32, i32, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp, i32, i32, vp]
+            [vp, vp, i32, i32, i32, vp, vp, i32, i32, i32, i32, i32, i32, vp, i32, i32, vp]
         )
         lib.vqc_shiftbank_launch.restype = i32
     else:
@@ -484,10 +474,10 @@ def _fidelity_cuda(spec: CircuitSpec, theta, data):
 
 def _state_cuda(spec: CircuitSpec, theta, data):
     c, n = theta.shape[0], spec.n_qubits
-    tb = kernel_tb(c, _state_bytes(n, 1))
-    if tb == 0:
+    warps, smem = fused_geometry(n, c)
+    if warps == 0:
         raise NotImplementedError(
-            f"{LANES} circuits of {n} qubits exceed the {SMEM_BUDGET_BYTES}-byte "
+            f"one circuit's state of {n} qubits exceeds the {SMEM_BUDGET_BYTES}-byte "
             "shared-memory budget of one block"
         )
     dev = theta.device
@@ -500,7 +490,7 @@ def _state_cuda(spec: CircuitSpec, theta, data):
             rc = lib.vqc_state_launch(
                 _ptr(theta), _ptr(data), c, theta.shape[1], data.shape[1],
                 _ptr(ops_i), _ptr(ops_f), len(spec.ops), n, _ptr(re), _ptr(im),
-                tb, _state_bytes(n, tb), _stream(dev),
+                warps, smem, _stream(dev),
             )
         _check_launch(lib, rc, "state")
         LAUNCHES["state"] += 1
@@ -665,10 +655,11 @@ def _replay_variant(plan: ShiftPlan, j: int, s: float, state, theta_t, data_t):
     return re, im
 
 
-def checkpoint_smem_bytes(plan: ShiftPlan, n_positions: int, tb: int) -> int:
-    """Shared memory the single-sweep shift kernel holds: its checkpoints
-    and ``_RESERVED_STATES`` live states."""
-    return (n_positions + _RESERVED_STATES) * _state_bytes(plan.m, tb)
+def walk_smem_bytes(m: int, n_ckpt: int, tb: int) -> int:
+    """Shared memory of the states of ``tb`` samples of the shift walk
+    (the single sweep or the spill tile kernel) over an m-qubit register:
+    ``n_ckpt`` checkpoints and ``_WALK_STATES`` live states each."""
+    return (n_ckpt + _WALK_STATES) * _state_bytes(m, tb)
 
 
 def _merge_spans(plan: ShiftPlan, positions):
@@ -693,10 +684,11 @@ def plan_depth_tiles(
     """Cut variant anchor positions into depth tiles that fit the budget.
 
     Returns None when every checkpoint fits one sweep, else a tuple of
-    (lo, hi) train-op ranges.  ``tb`` defaults to the smallest block
-    ``kernel_tb`` can pick, so None here is exactly "a block of at least one
-    warp fits", the condition for the single-sweep kernel.  Multi-use replay
-    spans are atomic: a segment never straddles a tile boundary.
+    (lo, hi) train-op ranges; ``tb`` samples each hold the checkpoints and
+    ``_RESERVED_STATES`` live states.  The reference's, unchanged: the port
+    plans the spill tile kernel's tiles with it (``spill_tiling``).
+    Multi-use replay spans are atomic: a segment never straddles a tile
+    boundary.
     """
     positions = sorted(positions)
     if not positions:
@@ -778,123 +770,118 @@ def use_shift_plan(
     return shift_cost_info(spec, four_term, groups)["use_implicit"]
 
 
-def _n_checkpoints(plan: ShiftPlan, variants, positions) -> int:
-    return len({plan.theta_positions[j][0] for k in positions for (_, j, _) in variants[k]})
-
-
-def spill_tile_smem_bytes(m: int, n_ckpt: int, tb: int) -> int:
-    """Shared memory of the spill tile kernel for ``tb`` circuits: its
-    checkpoints, its live states and its boundary buffer(s)."""
-    return (n_ckpt + _TILE_LIVE_STATES + SPILL_BOUNDARY_BUFFERS) * _state_bytes(m, tb)
-
-
-def spill_table_bytes(plan: ShiftPlan, n_tiles: int, n_variants: int) -> int:
-    """Shared memory of the plan tables the spill tile kernel stages once
-    per block (``_SpillTable``'s ints up to the variants' end and every
+def walk_table_bytes(plan: ShiftPlan, n_variants: int) -> int:
+    """Shared memory of the plan tables the shift-walk kernels stage once
+    per block (``_WalkTable``'s ints up to the variants' end and every
     float), rounded up to 32 words so the states after them start on
     bank 0."""
     n_data, n_train = len(plan.data_ops), len(plan.train_ops)
-    ints = (n_data + n_train) * 6 + 2 * n_train + 4 * n_tiles + 5 * n_variants
+    ints = (n_data + n_train) * 6 + 2 * n_train + 5 * n_variants
     floats = n_data + n_train + n_variants
     return 4 * (-(-(ints + floats) // 32) * 32)
 
 
+def shift_geometry(
+    plan: ShiftPlan, n_ckpt: int, n_variants: int, smem_budget: int = SMEM_BUDGET_BYTES
+) -> tuple[int, int]:
+    """(samples per block, shared-memory bytes) of the single-sweep shift
+    kernel for a plan whose requested variants (``n_variants`` rows) need
+    ``n_ckpt`` checkpoints: one warp per sample, the largest power of two
+    up to SHIFT_WARPS whose states fit ``smem_budget`` beside the staged
+    tables; (0, 0) when not even one sample's fit.  The only source of that
+    kernel's geometry: ``_shiftbank_cuda``, ``_shift_route`` and the fused
+    branch of ``shift_execution_info`` read it (through ``_WalkTable``)."""
+    return _warp_block(SHIFT_WARPS, walk_smem_bytes(plan.m, n_ckpt, 1),
+                       walk_table_bytes(plan, n_variants), smem_budget)
+
+
+def forward_geometry(
+    plan: ShiftPlan, n_variants: int, smem_budget: int = SMEM_BUDGET_BYTES
+) -> tuple[int, int]:
+    """(samples per block, shared-memory bytes) of the spill forward
+    kernel: one warp per sample, up to SPILL_LAUNCH_WARPS, each holding the
+    data and running states beside the staged tables; (0, 0) when not even
+    one sample's fit (from m = 14 at 227 KB).  Its only geometry source."""
+    return _warp_block(SPILL_LAUNCH_WARPS, _FORWARD_STATES * _state_bytes(plan.m, 1),
+                       walk_table_bytes(plan, n_variants), smem_budget)
+
+
 @dataclasses.dataclass(frozen=True)
 class SpillTiling:
-    """Geometry of the spill tile kernel: the footprint model's samples
-    (warps) per block, the (lo, hi) train-op depth tiles in ascending
-    order, the checkpoints each tile holds, and that block's states'
-    shared memory; then what the launch asks for: ``launch_tb`` samples a
-    block and ``launch_smem_bytes`` (the plan tables and launch_tb
-    samples' states)."""
+    """Geometry of the spill tile kernel's launch: the (lo, hi) train-op
+    depth tiles in ascending order, the checkpoints each tile holds, the
+    samples (warps) a block and the shared memory a block asks for (the
+    staged tables and ``tb`` samples' states for the fullest tile)."""
 
-    tb: int
     tiles: tuple[tuple[int, int], ...]
     n_ckpt: tuple[int, ...]
+    tb: int
     smem_bytes: int
-    launch_tb: int
-    launch_smem_bytes: int
 
 
 def spill_tiling(
     plan: ShiftPlan, positions, n_variants: int, smem_budget: int = SMEM_BUDGET_BYTES
 ):
-    """The spill tile kernel's block and depth tiles for the variant anchor
-    ``positions`` (``n_variants`` variant rows): the largest block of at
-    most LANES samples (halving from LANES; one warp each) whose fullest
-    tile fits ``smem_budget``, or None when not even one sample's fits.
-    The launch takes blocks of at most SPILL_LAUNCH_WARPS of those samples
-    and the plan tables (None if they do not fit ``smem_budget``).  The
-    only source of the tile kernel's geometry.
+    """The spill tile kernel's launch block and depth tiles for the variant
+    anchor ``positions`` (``n_variants`` variant rows): blocks of
+    SPILL_LAUNCH_WARPS samples, halved until the fullest tile fits
+    ``smem_budget`` beside the staged tables; None when not even one
+    sample's does.  The only source of the tile kernel's geometry.
 
     ``plan_depth_tiles`` is the reference's, unchanged, and takes
     ``_RESERVED_STATES`` out of the budget it is given; it gets the budget
-    less what the tile kernel holds besides checkpoints (its boundary
-    buffer and live states), with that reserve added back, so its tiles
-    fill exactly what the launch asks for.  Where everything fits one tile
-    it returns None, and the one tile spans the shallowest checkpoint to
-    the end."""
+    less the tables and what the walk holds besides checkpoints, with that
+    reserve added back, so its tiles fill exactly what the launch asks for.
+    Where everything fits one tile it returns None, and the one tile spans
+    the shallowest checkpoint to the end."""
     positions = sorted(positions)
     if not positions:
         return None
+    table = walk_table_bytes(plan, n_variants)
     first_of = {ps[-1]: ps[0] for ps in plan.theta_positions if ps}
     firsts = [first_of.get(k, k) for k in positions]
-    tb = LANES
+    tb = SPILL_LAUNCH_WARPS
     while tb >= 1:
         s = _state_bytes(plan.m, tb)
-        budget = smem_budget - spill_tile_smem_bytes(plan.m, 0, tb) + _RESERVED_STATES * s
+        budget = smem_budget - table - walk_smem_bytes(plan.m, 0, tb) + _RESERVED_STATES * s
         tiles = plan_depth_tiles(plan, positions, tb, budget) or (
             (min(firsts), len(plan.train_ops)),
         )
         n_ckpt = tuple(
             len({f for k, f in zip(positions, firsts) if lo <= k < hi}) for lo, hi in tiles
         )
-        smem = spill_tile_smem_bytes(plan.m, max(n_ckpt), tb)
+        smem = table + walk_smem_bytes(plan.m, max(n_ckpt), tb)
         if smem <= smem_budget:
-            break
+            return SpillTiling(tiles, n_ckpt, tb, smem)
         tb //= 2
-    else:
-        return None
-    launch_tb = min(tb, SPILL_LAUNCH_WARPS)
-    launch_smem = spill_table_bytes(plan, len(tiles), n_variants) + spill_tile_smem_bytes(
-        plan.m, max(n_ckpt), launch_tb)
-    if launch_smem > smem_budget:
-        return None
-    return SpillTiling(tb, tiles, n_ckpt, smem, launch_tb, launch_smem)
-
-
-def _forward_tb(m: int, n_samples: int, smem_budget: int) -> int:
-    """Circuits per block of the spill forward kernel (0: a warp does not
-    fit, from m = 9 at 227 KB)."""
-    return kernel_tb(n_samples, _FORWARD_STATES * _state_bytes(m, 1), smem_budget)
+    return None
 
 
 @functools.lru_cache(maxsize=None)
 def _shift_route(
     spec: CircuitSpec, four_term: bool, groups: tuple[int, ...], smem_budget: int
-) -> SpillTiling | None:
-    """How an implicit shift bank runs: None for the single-sweep kernel
-    (every checkpoint of a warp of samples fits one block), else the spill
-    pair's ``SpillTiling``.  Raises, naming the limit, when no block of
-    either kernel can hold the plan.  The wrapper, ``shift_execution_info``
-    and through it the launch observer all read this."""
-    plan = build_shift_plan(spec)
-    variants = _collect_variants(plan, shift_values(four_term), groups, spec.n_theta)
-    positions = sorted(k for k in variants if k >= 0)
-    lane_bytes = checkpoint_smem_bytes(plan, _n_checkpoints(plan, variants, positions), 1)
-    if (
-        plan_depth_tiles(plan, positions, LANES, smem_budget) is None
-        and kernel_tb(1, lane_bytes, smem_budget) > 0
-    ):
-        return None
-    n_variants = len(_variant_table(plan, variants, groups)[1])
-    tiling = spill_tiling(plan, positions, n_variants, smem_budget)
-    if tiling is None or _forward_tb(plan.m, 1, smem_budget) == 0:
-        raise NotImplementedError(
-            f"not even one sample of this {plan.m}-qubit register plan fits the "
-            f"{smem_budget}-byte shared-memory budget of one block of the spill kernels"
-        )
-    return tiling
+) -> "_WalkTable":
+    """How an implicit shift bank runs, as the table of the kernel(s) that
+    run it: the single sweep (no tiles) when a block of at least
+    SWEEP_MIN_WARPS samples holds its checkpoints, else the spill pair
+    where its tile launch fits, else the single sweep where one sample's
+    block fits.  Raises, naming the budget, when no block of either route
+    holds the plan.  A function of the plan and the budget alone (not of
+    the batch), so per-bank and multibank launches take the same route;
+    the wrapper, ``shift_execution_info`` and through it the launch
+    observer all read this."""
+    sweep = _walk_table(spec, four_term, groups, smem_budget, False)
+    if sweep.tb >= SWEEP_MIN_WARPS:
+        return sweep
+    spill = _walk_table(spec, four_term, groups, smem_budget, True)
+    if spill.tb:
+        return spill
+    if sweep.tb:
+        return sweep
+    raise NotImplementedError(
+        f"not even one sample of this {sweep.m}-qubit register plan fits the "
+        f"{smem_budget}-byte shared-memory budget of one block of the shift kernels"
+    )
 
 
 def shift_execution_info(
@@ -906,14 +893,13 @@ def shift_execution_info(
     smem_budget: int = SMEM_BUDGET_BYTES,
 ) -> dict:
     """Static execution-mode report: which path a shift bank takes, the
-    block size it gets and the shared memory its launch asks for.  ``mode``
-    is "materialize", "fused" (single-sweep shift kernel) or "spill" (the
-    spill pair: one forward launch, then one tile launch over every depth
-    tile, deepest first; ``tb`` / ``smem_bytes`` are the tile kernel's
-    footprint model, ``launch_tb`` / ``launch_smem_bytes`` its launch,
-    ``forward_tb`` / ``forward_smem_bytes`` the forward kernel's).  ``tb``
-    counts circuits (samples) per block: threads for the one-thread
-    kernels, warps for the fidelity ("materialize") and tile kernels."""
+    block size its launch gets and the shared memory it asks for.  ``mode``
+    is "materialize" (the fidelity kernel over the n_samples x G rows),
+    "fused" (single-sweep shift kernel) or "spill" (the spill pair: one
+    forward launch, then one tile launch over every depth tile, deepest
+    first; ``tb`` / ``smem_bytes`` are the tile launch's, ``forward_tb`` /
+    ``forward_smem_bytes`` the forward launch's).  ``tb`` counts circuits
+    (samples) per block, one warp each."""
     plan = build_shift_plan(spec)
     n_shifts = 4 if four_term else 2
     if groups is None:
@@ -927,30 +913,23 @@ def shift_execution_info(
         "smem_budget": smem_budget,
     }
     if plan is None or not cost["use_implicit"]:
-        # one fidelity launch over the n_samples x G materialized rows
         warps, smem = fused_geometry(spec.n_qubits, n_samples * len(groups), smem_budget)
         return {"mode": "materialize", "launches": 1, "n_tiles": 0, "tb": warps,
                 "smem_bytes": smem, **base}
-    tiling = _shift_route(spec, four_term, groups, smem_budget)
-    if tiling is None:
-        variants = _collect_variants(plan, shift_values(four_term), groups, spec.n_theta)
-        n_ckpt = _n_checkpoints(plan, variants, [k for k in variants if k >= 0])
-        tb = kernel_tb(n_samples, checkpoint_smem_bytes(plan, n_ckpt, 1), smem_budget)
-        return {"mode": "fused", "launches": 1, "n_tiles": 0, "tb": tb,
-                "smem_bytes": checkpoint_smem_bytes(plan, n_ckpt, tb), **base}
-    fwd_tb = _forward_tb(plan.m, n_samples, smem_budget)
+    tab = _shift_route(spec, four_term, groups, smem_budget)
+    if not tab.tiles:
+        return {"mode": "fused", "launches": 1, "n_tiles": 0, "tb": tab.tb,
+                "smem_bytes": tab.smem_bytes, **base}
     return {
         "mode": "spill",
         "launches": 2,
-        "n_tiles": len(tiling.tiles),
-        "tiles": tiling.tiles,
-        "tb": tiling.tb,
-        "smem_bytes": tiling.smem_bytes,
-        "launch_tb": tiling.launch_tb,
-        "launch_smem_bytes": tiling.launch_smem_bytes,
-        "spill_buffer_bytes": SPILL_BOUNDARY_BUFFERS * _state_bytes(plan.m, tiling.tb),
-        "forward_tb": fwd_tb,
-        "forward_smem_bytes": _FORWARD_STATES * _state_bytes(plan.m, fwd_tb),
+        "n_tiles": len(tab.tiles),
+        "tiles": tab.tiles,
+        "tb": tab.tb,
+        "smem_bytes": tab.smem_bytes,
+        "spill_buffer_bytes": _state_bytes(plan.m, tab.tb),
+        "forward_tb": tab.forward_tb,
+        "forward_smem_bytes": tab.forward_smem_bytes,
         **base,
     }
 
@@ -1004,23 +983,45 @@ def _shiftbank_plain(plan: ShiftPlan, shifts, groups, n_params: int, theta, data
     return torch.stack([rows[g] for g in groups], dim=0)
 
 
-@dataclasses.dataclass(frozen=True)
-class _ShiftTable:
-    """The shift plan as kernel data.  ``ints`` holds, in order: data ops
-    and train ops (6 ints each), the checkpoint slot of each train op (-1
-    for none), the variants as (row, param, first, last, anchor) in the
-    order the backward walk meets them (anchor descending), and the output
-    rows that take the base fidelity.  ``floats`` holds the data-op and
-    train-op constant angles and one float32 shift per variant."""
+@dataclasses.dataclass(frozen=True, eq=False)
+class _WalkTable:
+    """The shift plan as kernel data, for one route, with that route's
+    launch geometry.  ``ints`` holds, in order: data ops and train ops (6
+    ints each); per train op the tile whose boundary is the state just
+    before it (-1 for none); per train op its checkpoint slot within its
+    tile (-1 for none); the variants as (row, param, first, last, anchor)
+    in the order the backward walk meets them (anchor descending); then,
+    left in device memory, the tiles deepest first as (lo, hi, last, tile),
+    ``last`` the tile's deepest checkpoint, and the output rows that take
+    the base fidelity.  ``floats`` holds the data-op and train-op constant
+    angles and one float32 shift per variant.  The single sweep's table
+    has no tiles and one checkpoint slot per checkpoint; ``tb`` /
+    ``smem_bytes`` are its launch (``shift_geometry``) or the tile
+    launch's (``spill_tiling``), 0 where no block fits.  Compared by
+    identity: ``_walk_table`` caches one per request, and the device copies
+    are keyed on it."""
 
     ints: np.ndarray
     floats: np.ndarray
+    m: int
     n_data_ops: int
     n_train_ops: int
-    n_ckpt: int
     n_variants: int
     n_f0_rows: int
+    n_rows: int
     lowest: int
+    variant_rows: tuple[int, ...]
+    tiles: tuple[tuple[int, int], ...]
+    n_ckpt: tuple[int, ...]
+    tb: int
+    smem_bytes: int
+    forward_tb: int
+    forward_smem_bytes: int
+    smem_budget: int
+
+    @property
+    def n_tiles(self) -> int:
+        return len(self.tiles)
 
 
 def _variant_table(plan: ShiftPlan, variants, groups):
@@ -1043,43 +1044,73 @@ def _variant_table(plan: ShiftPlan, variants, groups):
 
 
 @functools.lru_cache(maxsize=None)
-def _shift_table(spec: CircuitSpec, four_term: bool, groups: tuple[int, ...]) -> _ShiftTable:
+def _walk_table(
+    spec: CircuitSpec, four_term: bool, groups: tuple[int, ...], smem_budget: int, spill: bool
+) -> _WalkTable:
+    """The table and launch geometry of the single sweep, or with ``spill``
+    of the spill pair (tiles from ``spill_tiling``; none and ``tb`` 0 where
+    its tile launch does not fit).  ``_shift_route`` picks between them."""
     plan = build_shift_plan(spec)
     variants = _collect_variants(plan, shift_values(four_term), groups, spec.n_theta)
-    anchors = sorted(k for k in variants if k >= 0)
-    firsts = sorted({plan.theta_positions[j][0] for a in anchors for (_, j, _) in variants[a]})
-    slot = {k: i for i, k in enumerate(firsts)}
-    ckpt = [slot.get(k, -1) for k in range(len(plan.train_ops))]
+    positions = sorted(k for k in variants if k >= 0)
     var_ints, var_shifts, f0_rows = _variant_table(plan, variants, groups)
+    nt = len(plan.train_ops)
+    if spill:
+        tiling = spill_tiling(plan, positions, len(var_shifts), smem_budget)
+        tiles = tiling.tiles if tiling else ()
+        geometry = (tiling.tb, tiling.smem_bytes) if tiling else (0, 0)
+        fwd = forward_geometry(plan, len(var_shifts), smem_budget)
+    else:
+        tiles, fwd = (), (0, 0)
+    bnd_of, ckpt, tile_rows, n_ckpt = [-1] * nt, [-1] * nt, [], []
+    for t, (lo, hi) in enumerate(tiles or ((0, nt),)):  # the sweep: one span, no boundary
+        firsts = sorted({plan.theta_positions[j][0] for k in range(lo, hi)
+                         for (_, j, _) in variants.get(k, ())})
+        for i, f in enumerate(firsts):
+            ckpt[f] = i
+        n_ckpt.append(len(firsts))
+        if tiles:
+            bnd_of[lo] = t
+            tile_rows.append([lo, hi, firsts[-1], t])
+    if not spill:
+        geometry = shift_geometry(plan, n_ckpt[0], len(var_shifts), smem_budget)
     d_i, d_f = _ops_table(plan.data_ops)
     t_i, t_f = _ops_table(plan.train_ops)
+    tiles_flat = [x for row in reversed(tile_rows) for x in row]
     ints = np.concatenate(
-        [d_i.ravel(), t_i.ravel(), np.array(ckpt + var_ints + f0_rows, np.int32)]
+        [d_i.ravel(), t_i.ravel(),
+         np.array(bnd_of + ckpt + var_ints + tiles_flat + f0_rows, np.int32)]
     ).astype(np.int32)
     floats = np.concatenate([d_f, t_f, np.array(var_shifts, np.float32)]).astype(np.float32)
-    return _ShiftTable(
-        ints, floats, len(plan.data_ops), len(plan.train_ops), len(firsts),
-        len(var_shifts), len(f0_rows), anchors[0] if anchors else len(plan.train_ops),
+    return _WalkTable(
+        ints, floats, plan.m, len(plan.data_ops), nt, len(var_shifts), len(f0_rows),
+        len(groups), positions[0] if positions else nt, tuple(sorted(set(var_ints[0::5]))),
+        tiles, tuple(n_ckpt), *geometry, *fwd, smem_budget,
     )
 
 
-def _shiftbank_cuda(
-    spec: CircuitSpec, plan: ShiftPlan, four_term: bool, groups, theta, data, smem_budget: int
-):
-    tab = _shift_table(spec, four_term, groups)
-    b = theta.shape[0]
-    tb = kernel_tb(b, checkpoint_smem_bytes(plan, tab.n_ckpt, 1), smem_budget)
-    dev = theta.device
-    ints, floats = _on_device((spec, four_term, groups), (tab.ints, tab.floats), dev)
-    out = torch.empty((len(groups), b), dtype=torch.float32, device=dev)
+def _require_block(tab: _WalkTable, tb: int, kernel: str) -> None:
+    if tb == 0:
+        raise NotImplementedError(
+            f"not even one sample of this {tab.m}-qubit register plan fits the "
+            f"{tab.smem_budget}-byte shared-memory budget of one block of the {kernel}"
+        )
+
+
+def _shiftbank_cuda(tab: _WalkTable, theta, data):
+    """Launch ``shiftbank_kernel`` for the single sweep's table: -> (G, B)."""
+    _require_block(tab, tab.tb, "single-sweep shift kernel")
+    b, dev = theta.shape[0], theta.device
+    ints, floats = _on_device(tab, (tab.ints, tab.floats), dev)
+    out = torch.empty((tab.n_rows, b), dtype=torch.float32, device=dev)
     if b:
         lib = _lib("vqc_shiftbank")
         with torch.cuda.device(dev):
             rc = lib.vqc_shiftbank_launch(
                 _ptr(theta), _ptr(data), b, theta.shape[1], data.shape[1],
-                _ptr(ints), _ptr(floats), plan.m, tab.n_data_ops, tab.n_train_ops,
-                tab.n_ckpt, tab.n_variants, tab.n_f0_rows, tab.lowest,
-                _ptr(out), tb, checkpoint_smem_bytes(plan, tab.n_ckpt, tb), _stream(dev),
+                _ptr(ints), _ptr(floats), tab.m, tab.n_data_ops, tab.n_train_ops,
+                tab.n_variants, tab.n_f0_rows, tab.lowest,
+                _ptr(out), tab.tb, tab.smem_bytes, _stream(dev),
             )
         _check_launch(lib, rc, "shift-bank")
         LAUNCHES["shiftbank"] += 1
@@ -1088,9 +1119,10 @@ def _shiftbank_cuda(
 
 # ------------------------------------- kernels 4 and 5: spilled shift groups
 #
-# When a warp's checkpoints do not fit one block, the train-op sequence is
-# cut into depth tiles (``spill_tiling``).  The forward kernel runs the data
-# pass and the train forward pass once, writes f0, the data-register state
+# When the single sweep's checkpoints do not fit a block of SWEEP_MIN_WARPS
+# samples (``_shift_route``), the train-op sequence is cut into depth tiles
+# (``spill_tiling``).  The forward kernel runs the data pass and the train
+# forward pass once, writes f0, the data-register state
 # (the seed of chi) and each tile's boundary prefix state to device memory,
 # layout [tile][re/im][amp][sample].  The tile kernel then sweeps every
 # tile, deepest first: it loads the tile's boundary, re-derives the tile's
@@ -1187,90 +1219,40 @@ def _shift_spilled_plain(plan: ShiftPlan, shifts, groups, n_params: int, tiles, 
     return _spilled_rows(variants, groups, tile_plan, f0, rows)
 
 
-@dataclasses.dataclass(frozen=True, eq=False)
-class _SpillTable:
-    """The spill pair's plan as kernel data.  ``ints`` holds, in order: data
-    ops and train ops (6 ints each); per train op, the tile whose boundary
-    is the state just before it (-1 for none), then per train op its
-    checkpoint slot within its tile (-1 for none); the tiles deepest first
-    as (lo, hi, last, tile), ``last`` the tile's deepest checkpoint; the
-    variants and base-fidelity rows as in ``_ShiftTable``.  ``floats`` as in
-    ``_ShiftTable``.  Compared by identity: ``_spill_table`` caches one per
-    plan, and the device copies are keyed on it."""
-
-    ints: np.ndarray
-    floats: np.ndarray
-    m: int
-    n_data_ops: int
-    n_train_ops: int
-    n_tiles: int
-    n_variants: int
-    n_f0_rows: int
-    variant_rows: tuple[int, ...]
-    tiling: SpillTiling
-    smem_budget: int
-
-
-@functools.lru_cache(maxsize=None)
-def _spill_table(
-    spec: CircuitSpec, four_term: bool, groups: tuple[int, ...], smem_budget: int
-) -> _SpillTable:
-    plan = build_shift_plan(spec)
-    tiling = _shift_route(spec, four_term, groups, smem_budget)
-    variants = _collect_variants(plan, shift_values(four_term), groups, spec.n_theta)
-    nt = len(plan.train_ops)
-    bnd_of, ckpt, tile_rows = [-1] * nt, [-1] * nt, []
-    for t, (lo, hi) in enumerate(tiling.tiles):
-        bnd_of[lo] = t
-        firsts = sorted({plan.theta_positions[j][0] for k in range(lo, hi)
-                         for (_, j, _) in variants.get(k, ())})
-        for i, f in enumerate(firsts):
-            ckpt[f] = i
-        tile_rows.append([lo, hi, firsts[-1], t])
-    var_ints, var_shifts, f0_rows = _variant_table(plan, variants, groups)
-    d_i, d_f = _ops_table(plan.data_ops)
-    t_i, t_f = _ops_table(plan.train_ops)
-    tiles_flat = [x for row in reversed(tile_rows) for x in row]
-    ints = np.concatenate(
-        [d_i.ravel(), t_i.ravel(),
-         np.array(bnd_of + ckpt + tiles_flat + var_ints + f0_rows, np.int32)]
-    ).astype(np.int32)
-    floats = np.concatenate([d_f, t_f, np.array(var_shifts, np.float32)]).astype(np.float32)
-    return _SpillTable(
-        ints, floats, plan.m, len(plan.data_ops), nt, len(tiling.tiles), len(var_shifts),
-        len(f0_rows), tuple(sorted(set(var_ints[0::5]))), tiling, smem_budget,
-    )
-
-
-def _shift_forward_cuda(tab: _SpillTable, theta, data, out):
-    """Launch ``shift_forward_kernel``: f0 into the base-fidelity rows of
-    ``out`` (G, B); returns the data-register state (2*dim, B) and the tile
-    boundaries (2*n_tiles*dim, B), layout [tile][re/im][amp][sample]."""
+def _shift_forward_cuda(tab: _WalkTable, theta, data, out):
+    """Launch ``shift_forward_kernel`` for a spill table: f0 into the
+    base-fidelity rows of ``out`` (G, B); returns the data-register state
+    (2*dim, B) and the tile boundaries (2*n_tiles*dim, B), layout
+    [tile][re/im][amp][sample]."""
+    _require_block(tab, tab.forward_tb, "spill forward kernel")
     b, dim, dev = theta.shape[0], 2**tab.m, theta.device
+    n_tiles = tab.n_tiles
     d_state = torch.empty((2 * dim, b), dtype=torch.float32, device=dev)
-    boundaries = torch.empty((2 * tab.n_tiles * dim, b), dtype=torch.float32, device=dev)
+    boundaries = torch.empty((2 * n_tiles * dim, b), dtype=torch.float32, device=dev)
     if b:
-        tb = _forward_tb(tab.m, b, tab.smem_budget)
         ints, floats = _on_device(tab, (tab.ints, tab.floats), dev)
         lib = _lib("vqc_spill")
         with torch.cuda.device(dev):
             rc = lib.vqc_shift_forward_launch(
                 _ptr(theta), _ptr(data), b, theta.shape[1], data.shape[1],
                 _ptr(ints), _ptr(floats), tab.m, tab.n_data_ops, tab.n_train_ops,
-                tab.n_tiles, tab.n_variants, tab.n_f0_rows,
+                n_tiles, tab.n_variants, tab.n_f0_rows,
                 _ptr(out), _ptr(d_state), _ptr(boundaries),
-                tb, _FORWARD_STATES * _state_bytes(tab.m, tb), _stream(dev),
+                tab.forward_tb, tab.forward_smem_bytes, _stream(dev),
             )
         _check_launch(lib, rc, "spill forward")
         LAUNCHES["shift_forward"] += 1
     return d_state, boundaries
 
 
-def _shift_tile_cuda(tab: _SpillTable, theta, data, chi, boundaries, out):
-    """Launch ``shift_tile_kernel`` over every tile, deepest first, chi
-    seeded from ``chi`` (2*dim, B): writes the variant rows of ``out``."""
+def _shift_tile_cuda(tab: _WalkTable, theta, data, chi, boundaries, out):
+    """Launch ``shift_tile_kernel`` over every tile of a spill table,
+    deepest first, chi seeded from ``chi`` (2*dim, B): writes the variant
+    rows of ``out``."""
+    _require_block(tab, tab.tb, "spill tile kernel")
     b, dim, dev = theta.shape[0], 2**tab.m, theta.device
-    for name, t, rows in (("chi", chi, 2 * dim), ("boundaries", boundaries, 2 * tab.n_tiles * dim)):
+    n_tiles = tab.n_tiles
+    for name, t, rows in (("chi", chi, 2 * dim), ("boundaries", boundaries, 2 * n_tiles * dim)):
         if (t.shape != (rows, b) or t.dtype != torch.float32 or t.device != dev
                 or not t.is_contiguous()):
             raise ValueError(
@@ -1284,17 +1266,17 @@ def _shift_tile_cuda(tab: _SpillTable, theta, data, chi, boundaries, out):
             rc = lib.vqc_shift_tile_launch(
                 _ptr(theta), _ptr(data), b, theta.shape[1], data.shape[1],
                 _ptr(ints), _ptr(floats), tab.m, tab.n_data_ops, tab.n_train_ops,
-                tab.n_tiles, tab.n_variants, _ptr(chi), _ptr(boundaries), _ptr(out),
-                tab.tiling.launch_tb, tab.tiling.launch_smem_bytes, _stream(dev),
+                n_tiles, tab.n_variants, _ptr(chi), _ptr(boundaries), _ptr(out),
+                tab.tb, tab.smem_bytes, _stream(dev),
             )
         _check_launch(lib, rc, "spill tile")
         LAUNCHES["shift_tile"] += 1
     return out
 
 
-def _shift_spilled_cuda(spec: CircuitSpec, four_term: bool, groups, theta, data, smem_budget: int):
-    tab = _spill_table(spec, four_term, groups, smem_budget)
-    out = torch.empty((len(groups), theta.shape[0]), dtype=torch.float32, device=theta.device)
+def _shift_spilled_cuda(tab: _WalkTable, theta, data):
+    """The spill pair for a spill table: -> (G, B)."""
+    out = torch.empty((tab.n_rows, theta.shape[0]), dtype=torch.float32, device=theta.device)
     d_state, boundaries = _shift_forward_cuda(tab, theta, data, out)
     return _shift_tile_cuda(tab, theta, data, d_state, boundaries, out)
 
@@ -1312,10 +1294,11 @@ def vqc_shift_fidelity(
 
     Returns (G, B) where G = len(groups) (default: every group of the bank,
     1 + 2P or 1 + 4P rows); flattening in group-major order reproduces the
-    materialized bank's fidelity vector.  When a warp's checkpoints exceed
-    ``smem_budget`` (the counterpart of the reference's ``vmem_budget``)
-    the bank runs as depth tiles through the spill pair, on the CPU (plain
-    versions) as on the card.  Raises ValueError when the spec doesn't
+    materialized bank's fidelity vector.  When a block of SWEEP_MIN_WARPS
+    samples' checkpoints exceeds ``smem_budget`` (the counterpart of the
+    reference's ``vmem_budget``) the bank runs as depth tiles through the
+    spill pair (``_shift_route``), on the CPU (plain versions) as on the
+    card.  Raises ValueError when the spec doesn't
     match the SWAP-test product structure, and NotImplementedError when no
     block can hold the plan.
     """
@@ -1331,17 +1314,16 @@ def vqc_shift_fidelity(
     groups = tuple(int(g) for g in groups)
     if not groups or not all(0 <= g < n_groups for g in groups):
         raise ValueError(f"groups out of range for {n_groups}-group bank: {groups}")
-    _shift_table(spec, four_term, groups)  # rejects unsupported gates
-    tiling = _shift_route(spec, four_term, groups, smem_budget)
+    tab = _shift_route(spec, four_term, groups, smem_budget)  # rejects unsupported gates
     theta, data, kind = _prepare(spec, theta, data)
     if kind == "cpu":
         shifts = tuple(float(s) for s in shift_values(four_term))
-        if tiling is None:
+        if not tab.tiles:
             return _shiftbank_plain(plan, shifts, groups, spec.n_theta, theta, data)
-        return _shift_spilled_plain(plan, shifts, groups, spec.n_theta, tiling.tiles, theta, data)
-    if tiling is None:
-        return _shiftbank_cuda(spec, plan, four_term, groups, theta, data, smem_budget)
-    return _shift_spilled_cuda(spec, four_term, groups, theta, data, smem_budget)
+        return _shift_spilled_plain(plan, shifts, groups, spec.n_theta, tab.tiles, theta, data)
+    if not tab.tiles:
+        return _shiftbank_cuda(tab, theta, data)
+    return _shift_spilled_cuda(tab, theta, data)
 
 
 # ------------------------------------------------------- analytic counters

@@ -6,6 +6,8 @@ runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m requires_cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -48,6 +50,23 @@ def test_fused_kernels_match_plain(cuda, qc, nl, tied, c):
     assert K.LAUNCHES["fidelity"] == before["fidelity"] + 1
     assert K.LAUNCHES["state"] == before["state"] + 1
     torch.testing.assert_close(p0, K._fused_plain(spec, th, dt, False), rtol=0, atol=ATOL)
+    pre, pim = K._fused_plain(spec, th, dt, True)
+    torch.testing.assert_close(re, pre, rtol=0, atol=ATOL)
+    torch.testing.assert_close(im, pim, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("n", [10, 12, 14])
+def test_state_kernel_wide(cuda, n):
+    """The state kernel on the fidelity kernel's warp geometry, at widths
+    its one-thread predecessor refused (from 10 qubits): a QuClassi
+    circuit on n - 1 qubits with one idle least significant qubit."""
+    base = circuits.build_quclassi_circuit(n - 1, 1)
+    spec = dataclasses.replace(base, n_qubits=n)
+    assert K.fused_geometry(n, 33)[0] > 0
+    th, dt = _angles(spec, 33, cuda, seed=n)
+    before = K.LAUNCHES["state"]
+    re, im = K.vqc_state(spec, th, dt)
+    assert K.LAUNCHES["state"] == before + 1
     pre, pim = K._fused_plain(spec, th, dt, True)
     torch.testing.assert_close(re, pre, rtol=0, atol=ATOL)
     torch.testing.assert_close(im, pim, rtol=0, atol=ATOL)
@@ -100,72 +119,119 @@ def test_multibank_lane_identity_on_card(cuda):
         assert torch.equal(out, ops.vqc_fidelity_shiftgroups(spec, t, d, False, gs))
 
 
+def _spill_budget(spec, four, groups, n_ckpt):
+    """A budget under which the single sweep cannot hold one sample and the
+    spill pair must tile: the staged tables and, for one sample, n_ckpt
+    checkpoints and 4 live states."""
+    plan = K.build_shift_plan(spec)
+    n_variants = K._walk_table(spec, four, groups, K.SMEM_BUDGET_BYTES, False).n_variants
+    return K.walk_table_bytes(plan, n_variants) + (n_ckpt + 4) * K._state_bytes(plan.m, 1)
+
+
 @pytest.mark.parametrize("qc,nl,tied,budget_ckpts", [
-    (13, 3, False, None),   # m = 6: the checkpoints need tiles at 227 KB
-    (17, 1, False, None),   # m = 8: blocks of 16 samples
-    (17, 3, False, None),
+    (13, 3, False, None),   # m = 6: one tile of 4 samples at 227 KB
+    (17, 1, False, None),   # m = 8
+    (17, 3, False, None),   # 2 tiles
+    (19, 1, False, None),   # m = 9: refused by the one-thread forward kernel
     (7, 3, True, 3),        # forced budget: multi-use replay spans tile
-    (5, 3, True, 3),
+    (5, 3, True, 2),
 ])
 @pytest.mark.parametrize("four", [False, True])
 def test_spill_kernels_match_plain(cuda, qc, nl, tied, budget_ckpts, four):
+    """The spill pair launched directly (whichever route the request would
+    take), against the plain pair over the same tiles."""
     build = circuits.build_tied_quclassi_circuit if tied else circuits.build_quclassi_circuit
     spec = build(qc, nl)
     plan = K.build_shift_plan(spec)
-    budget = (K.SMEM_BUDGET_BYTES if budget_ckpts is None
-              else K.checkpoint_smem_bytes(plan, budget_ckpts, K.LANES))
     shifts = K.shift_values(four)
     n_groups = 1 + len(shifts) * spec.n_theta
     th, dt = _angles(spec, 100, cuda, seed=qc + nl)
     for groups in (tuple(range(n_groups)), tuple(range(1, n_groups, 2))):
-        info = K.shift_execution_info(spec, 100, four_term=four, groups=groups,
-                                      smem_budget=budget)
-        assert info["mode"] == "spill" and info["smem_bytes"] <= K.SMEM_BUDGET_BYTES
+        budget = (K.SMEM_BUDGET_BYTES if budget_ckpts is None
+                  else _spill_budget(spec, four, groups, budget_ckpts))
+        tab = K._walk_table(spec, four, groups, budget, True)
+        assert tab.tb > 0 and tab.smem_bytes <= K.SMEM_BUDGET_BYTES
+        if budget_ckpts is not None:
+            info = K.shift_execution_info(spec, 100, four_term=four, groups=groups,
+                                          smem_budget=budget)
+            assert info["mode"] == "spill" and info["n_tiles"] >= 2
         before = dict(K.LAUNCHES)
-        got = K.vqc_shift_fidelity(spec, th, dt, four_term=four, groups=groups,
-                                   smem_budget=budget)
+        got = K._shift_spilled_cuda(tab, th, dt)
         assert K.LAUNCHES["shift_forward"] == before["shift_forward"] + 1
         assert K.LAUNCHES["shift_tile"] == before["shift_tile"] + 1
-        want = K._shift_spilled_plain(plan, shifts, groups, spec.n_theta, info["tiles"], th, dt)
+        want = K._shift_spilled_plain(plan, shifts, groups, spec.n_theta, tab.tiles, th, dt)
         torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
 
 
-def test_spilled_multibank_bit_identical_on_card(cuda):
-    """13q-3l spills: banks in one launch equal per-bank launches bit for
-    bit (a sample's result never depends on its warp's place in the
-    launch).  The banks ask for different groups, so the union launch cuts
-    other depth tiles than some per-bank launches: a checkpoint reached
-    through another tile start has the same bits."""
+@pytest.mark.parametrize("four", [False, True])
+def test_shift_routes_match_plain_at_13q(cuda, four):
+    """13q-3l, both workers' groups of 2 and all groups: the single sweep
+    (the route the plan takes) and the spill pair, each against its plain
+    version; the two routes apply the same gates with the same arithmetic,
+    so they agree bit for bit."""
+    spec = circuits.build_quclassi_circuit(13, 3)
+    plan = K.build_shift_plan(spec)
+    shifts = K.shift_values(four)
+    n_groups = 1 + len(shifts) * spec.n_theta
+    th, dt = _angles(spec, 576, cuda, seed=13)
+    for groups in (tuple(range(0, n_groups, 2)), tuple(range(1, n_groups, 2)),
+                   tuple(range(n_groups))):
+        sweep = K._walk_table(spec, four, groups, K.SMEM_BUDGET_BYTES, False)
+        spill = K._walk_table(spec, four, groups, K.SMEM_BUDGET_BYTES, True)
+        assert K._shift_route(spec, four, groups, K.SMEM_BUDGET_BYTES) is sweep
+        before = dict(K.LAUNCHES)
+        got_sweep = K._shiftbank_cuda(sweep, th, dt)
+        got_spill = K._shift_spilled_cuda(spill, th, dt)
+        assert K.LAUNCHES["shiftbank"] == before["shiftbank"] + 1
+        assert K.LAUNCHES["shift_tile"] == before["shift_tile"] + 1
+        want = K._shiftbank_plain(plan, shifts, groups, spec.n_theta, th, dt)
+        torch.testing.assert_close(got_sweep, want, rtol=0, atol=ATOL)
+        torch.testing.assert_close(got_spill, want, rtol=0, atol=ATOL)
+        assert torch.equal(got_sweep, got_spill)
+
+
+@pytest.mark.parametrize("route", ["fused", "spill"])
+def test_spilled_multibank_bit_identical_on_card(cuda, route):
+    """13q-3l on each route: banks packed into one launch equal per-bank
+    launches bit for bit (a sample's result never depends on its warp's
+    place in the launch).  The banks ask for different groups, so the
+    union launch holds other checkpoints (and, spilled under a forced
+    budget, cuts other depth tiles) than some per-bank launches: a
+    checkpoint reached through another tile start has the same bits."""
     spec = circuits.build_quclassi_circuit(13, 3)
     n_groups = 1 + 2 * spec.n_theta
     group_sets = (tuple(range(0, n_groups, 2)), tuple(range(1, n_groups, 2)),
                   tuple(range(0, n_groups, 3)))
     sizes = (5, 100, 333)
     union = tuple(sorted(set().union(*group_sets)))
-    tiles = K.shift_execution_info(spec, 512, groups=union)["tiles"]
-    infos = [K.shift_execution_info(spec, b, groups=gs) for b, gs in zip(sizes, group_sets)]
-    assert all(i["mode"] == "spill" for i in infos)
-    assert any(i["tiles"] != tiles for i in infos)
+    budget = (K.SMEM_BUDGET_BYTES if route == "fused"
+              else _spill_budget(spec, False, union, 8))
+    infos = [K.shift_execution_info(spec, b, groups=gs, smem_budget=budget)
+             for b, gs in zip(sizes, (*group_sets, union))]
+    assert all(i["mode"] == route for i in infos)
+    if route == "spill":
+        assert any(i["tiles"] != infos[-1]["tiles"] for i in infos[:-1])
     banks = [_angles(spec, b, cuda, seed=b) for b in sizes]
-    outs = ops.vqc_fidelity_shiftgroups_multibank(
-        spec, tuple(t for t, _ in banks), tuple(d for _, d in banks), False, group_sets)
-    for (t, d), gs, out in zip(banks, group_sets, outs):
-        assert torch.equal(out, ops.vqc_fidelity_shiftgroups(spec, t, d, False, gs))
+    theta, data, segments = ops._pack_banks(tuple(t for t, _ in banks),
+                                            tuple(d for _, d in banks))
+    out = K.vqc_shift_fidelity(spec, theta, data, groups=union, smem_budget=budget)
+    row = {g: i for i, g in enumerate(union)}
+    for (t, d), gs, (off, b) in zip(banks, group_sets, segments):
+        per_bank = K.vqc_shift_fidelity(spec, t, d, groups=gs, smem_budget=budget)
+        assert torch.equal(out[[row[g] for g in gs], off : off + b], per_bank)
 
 
 def test_unfit_shapes_raise_instead_of_running(cuda):
-    wide = circuits.build_quclassi_circuit(13, 3)  # m = 6: runs as depth tiles
+    wide = circuits.build_quclassi_circuit(13, 3)  # m = 6
     th, dt = _angles(wide, 8, cuda)
     with pytest.raises(NotImplementedError, match="shared-memory budget"):
         K.vqc_shift_fidelity(wide, th, dt, smem_budget=2 * K._state_bytes(6, 1))
-    big = circuits.build_quclassi_circuit(11, 1)  # 2**11 amplitudes: 16 KB a circuit
-    th, dt = _angles(big, 8, cuda)
-    with pytest.raises(NotImplementedError, match="shared-memory budget"):
-        K.vqc_state(big, th, dt)  # one thread per circuit: a warp of 16 KB states
     widest = circuits.build_quclassi_circuit(15, 1)  # 256 KB: not one state fits
     th, dt = _angles(widest, 8, cuda)
     with pytest.raises(NotImplementedError, match="shared-memory budget"):
         K.vqc_p0(widest, th, dt)
+    with pytest.raises(NotImplementedError, match="shared-memory budget"):
+        K.vqc_state(widest, th, dt)  # one warp per circuit, as vqc_p0
 
 
 def test_training_step_on_card(cuda):

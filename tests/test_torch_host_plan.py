@@ -74,15 +74,25 @@ def test_multibank_stats_equal_reference(sizes, four):
 
 
 def test_hopper_spill_threshold():
-    """One warp of the single-sweep shift kernel fits 227 KB while
-    (n_ckpt + 4) * 2**m <= 908: every register the paper uses (m <= 3)
-    stays in one sweep; m = 8 never fits."""
+    """The single sweep is planned from its launch's block (one warp per
+    sample, SHIFT_WARPS a block, beside the staged tables): every register
+    the paper uses (m <= 3) and 13q-3l with all 65 groups (m = 6, 32
+    checkpoints, 4 x 35 x 512 B) stay in one sweep; 21q-3l (m = 10) fits no
+    single-sweep sample and spills.  ``plan_depth_tiles`` itself is the
+    reference's: a warp of 32 samples holds 10 of 13q-3l's checkpoints,
+    not 11."""
     _, ts = _specs(7, 3, False)
+    plan = TK.build_shift_plan(ts)
     info = TK.shift_execution_info(ts, 576)
-    assert info["mode"] == "fused" and info["tb"] == 128
-    assert info["smem_bytes"] == (14 + 4) * 2 * 4 * 8 * 128
+    assert info["mode"] == "fused" and info["tb"] == TK.SHIFT_WARPS
+    n_variants = 2 * ts.n_theta
+    assert info["smem_bytes"] == (TK.walk_table_bytes(plan, n_variants)
+                                  + (14 + 3) * 2 * 4 * 8 * TK.SHIFT_WARPS)
     wide = tcircuits.build_quclassi_circuit(13, 3)  # m = 6, 32 parameters
-    assert TK.shift_execution_info(wide, 576)["mode"] == "spill"
+    info = TK.shift_execution_info(wide, 576)
+    assert info["mode"] == "fused" and info["tb"] == TK.SHIFT_WARPS
+    assert info["smem_bytes"] <= TK.SMEM_BUDGET_BYTES
+    assert TK.shift_execution_info(tcircuits.build_quclassi_circuit(21, 3), 576)["mode"] == "spill"
     plan = TK.build_shift_plan(wide)
     anchors = sorted({ps[-1] for ps in plan.theta_positions if ps})
     assert TK.plan_depth_tiles(plan, anchors[:10]) is None

@@ -136,12 +136,3 @@ def test_kernel_executor_matches_dense_oracle():
     tt, td = torch.from_numpy(theta), torch.from_numpy(data)
     _close(run(tt, td), tref.vqc_fidelity_ref(ts, tt, td))
 
-
-def test_kernel_tb_policy():
-    state7 = K._state_bytes(7, 1)
-    assert K.kernel_tb(4176, state7) == 128          # 128 KB of 227 KB
-    assert K.kernel_tb(20, state7) == K.LANES        # never below a warp
-    assert K.kernel_tb(100, state7) == 128           # batch envelope
-    assert K.kernel_tb(10**6, K._state_bytes(3, 1)) == K.MAX_BLOCK_LANES
-    assert K.kernel_tb(64, K._state_bytes(10, 1)) == 0  # a warp does not fit
-    assert K.kernel_tb(4176, state7) * state7 <= K.SMEM_BUDGET_BYTES

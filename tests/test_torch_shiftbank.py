@@ -46,6 +46,7 @@ def _angles(spec, batch, seed):
         (7, 3, 7, False, (0, 3, 8, 14, 28), False),   # a partial group set
         (5, 3, 7, False, None, True),                  # tied: multi-use replay
         (5, 2, 33, True, (0, 2, 7, 19, 24), True),
+        (13, 3, 3, False, tuple(range(0, 65, 2)), False),  # worker 0 of 2: a 4-sample sweep
     ],
 )
 def test_shift_rows_match_reference(qc, nl, batch, four, groups, tied):
@@ -162,6 +163,10 @@ def test_launch_observer_reports_execution_mode():
         tops.set_launch_observer(prev)
     (info,) = seen
     assert info["mode"] == "fused" and info["launches"] == 1 and info["lanes"] == 33
-    # 14 checkpoints + 4 reserved states of 64 floats... at 64 circuits/block
-    assert info["tb"] == 64
-    assert info["smem_bytes"] == K.checkpoint_smem_bytes(K.build_shift_plan(ts), 14, 64)
+    # the staged tables, then 14 checkpoints + 3 live states of 64 floats
+    # for each of SHIFT_WARPS samples a block
+    plan = K.build_shift_plan(ts)
+    assert (info["tb"], info["smem_bytes"]) == K.shift_geometry(plan, 14, 2 * ts.n_theta)
+    assert info["tb"] == K.SHIFT_WARPS
+    assert info["smem_bytes"] == (K.walk_table_bytes(plan, 28)
+                                  + K.walk_smem_bytes(3, 14, K.SHIFT_WARPS))

@@ -1,6 +1,6 @@
 """The spilled shift path: the port's plain spill pair (the plain versions of
-``vqc_spill.cu``), its shared-memory model, and the 13-qubit training step
-that takes it, on the CPU.
+``vqc_spill.cu``), the shared-memory model and route of both shift paths,
+and the 13-qubit training step, on the CPU.
 
 Inputs are seeded numpy arrays handed to both packages.  The spilled pair
 applies each lane's gates in the single sweep's order, so it equals the
@@ -63,9 +63,14 @@ CASES = [
 
 
 def _forced(ts, four, groups, n_ckpt):
-    """A budget that holds ``n_ckpt`` checkpoints of a warp in one sweep,
-    and the execution report under it (which must spill into >= 2 tiles)."""
-    budget = K.checkpoint_smem_bytes(K.build_shift_plan(ts), n_ckpt, K.LANES)
+    """A budget that holds the staged tables and, for one sample, ``n_ckpt``
+    checkpoints and the reference's 4 live states (so a single sweep of
+    ``n_ckpt + 1`` checkpoints), and the execution report under it (which
+    must spill into >= 2 tiles)."""
+    plan = K.build_shift_plan(ts)
+    gs = groups or tuple(range(1 + len(K.shift_values(four)) * ts.n_theta))
+    n_variants = K._walk_table(ts, four, gs, K.SMEM_BUDGET_BYTES, False).n_variants
+    budget = K.walk_table_bytes(plan, n_variants) + (n_ckpt + 4) * K._state_bytes(plan.m, 1)
     info = K.shift_execution_info(ts, 5, four_term=four, groups=groups, smem_budget=budget)
     assert info["mode"] == "spill" and info["n_tiles"] >= 2
     return budget
@@ -131,44 +136,67 @@ def test_forward_plain_writes_boundaries_in_kernel_layout():
 WORKERS = (1, 2, 4)
 
 
-@pytest.mark.parametrize("qc", [5, 7, 9, 11, 13, 15, 17])
+@pytest.mark.parametrize("qc", [5, 7, 9, 11, 13, 15, 17, 19, 21])
 @pytest.mark.parametrize("nl", [1, 3])
 @pytest.mark.parametrize("n_workers", WORKERS)
 def test_footprint_fits_shared_memory(qc, nl, n_workers):
-    """Every worker subset's reported footprint fits 227 KB, and a spilled
-    launch asks for exactly the reported amount."""
+    """Every worker subset's launch fits 227 KB, and reports exactly what
+    its table asks for: the single sweep's ``shift_geometry``, or the spill
+    tile launch's ``spill_tiling`` and the forward launch's
+    ``forward_geometry``."""
     _, ts = _specs(qc, nl)
+    plan = K.build_shift_plan(ts)
     n_groups = 1 + 2 * ts.n_theta
     assignment = tdp.round_robin_assignment(n_groups, n_workers)
     for w in range(n_workers):
         groups = tuple(g for g in range(n_groups) if assignment[g] == w)
         info = K.shift_execution_info(ts, 576, groups=groups)
-        assert info["smem_bytes"] <= K.SMEM_BUDGET_BYTES
-        if info["mode"] != "spill":
+        tab = K._shift_route(ts, False, groups, K.SMEM_BUDGET_BYTES)
+        assert 0 < info["smem_bytes"] <= K.SMEM_BUDGET_BYTES
+        assert (info["tb"], info["smem_bytes"]) == (tab.tb, tab.smem_bytes)
+        if info["mode"] == "fused":
+            assert (tab.tb, tab.smem_bytes) == K.shift_geometry(
+                plan, tab.n_ckpt[0], tab.n_variants)
             continue
-        tab = K._spill_table(ts, False, groups, K.SMEM_BUDGET_BYTES)
-        assert tab.tiling.smem_bytes == info["smem_bytes"]
-        assert tab.tiling.tiles == info["tiles"] and tab.n_tiles == info["n_tiles"]
-        plan = K.build_shift_plan(ts)
-        assert info["smem_bytes"] == K.spill_tile_smem_bytes(
-            plan.m, max(tab.tiling.n_ckpt), info["tb"])
-        assert info["forward_smem_bytes"] <= K.SMEM_BUDGET_BYTES
+        variants = K._collect_variants(plan, K.shift_values(False), groups, ts.n_theta)
+        tiling = K.spill_tiling(plan, [k for k in variants if k >= 0], tab.n_variants)
+        assert (tiling.tiles, tiling.tb, tiling.smem_bytes) == (tab.tiles, tab.tb, tab.smem_bytes)
+        assert info["smem_bytes"] == K.walk_table_bytes(plan, tab.n_variants) + K.walk_smem_bytes(
+            plan.m, max(tab.n_ckpt), info["tb"])
+        assert (info["forward_tb"], info["forward_smem_bytes"]) == K.forward_geometry(
+            plan, tab.n_variants)
+        assert tab.tiles == info["tiles"] and tab.n_tiles == info["n_tiles"]
         assert info["tiles"][-1][1] == len(plan.train_ops)
         assert all(a[1] == b[0] for a, b in zip(info["tiles"], info["tiles"][1:]))
 
 
-def test_13q_two_workers_spill_and_four_fit_one_sweep():
+def test_route_follows_the_launch_block():
+    """The route is decided from the launch's own block: 13q-3l fits a
+    single-sweep block of SHIFT_WARPS samples on any number of workers
+    (before the warp kernel it spilled on 1 and 2); 17q-3l on one worker
+    fits 2; 21q-3l on 1 or 2 workers fits no single-sweep sample and spills;
+    the spill pair runs up to m = 12 (25q-1l) and raises, naming the budget,
+    from m = 13, where not one sample's tile states fit."""
     _, ts = _specs(13, 3)
     n_groups = 1 + 2 * ts.n_theta
-    for n_workers, mode in ((2, "spill"), (4, "fused")):
+    for n_workers in WORKERS:
         assignment = tdp.round_robin_assignment(n_groups, n_workers)
         groups = tuple(g for g in range(n_groups) if assignment[g] == 0)
-        assert K.shift_execution_info(ts, 576, groups=groups)["mode"] == mode
-    # m = 8: one warp's block cannot hold even one tile; the model halves it
+        info = K.shift_execution_info(ts, 576, groups=groups)
+        assert info["mode"] == "fused" and info["tb"] == K.SHIFT_WARPS
     _, wide = _specs(17, 3)
     info = K.shift_execution_info(wide, 100)
-    assert info["mode"] == "spill" and info["tb"] == K.LANES // 2
-    assert info["smem_bytes"] <= K.SMEM_BUDGET_BYTES < K.spill_tile_smem_bytes(8, 1, K.LANES)
+    want = "fused" if K.SWEEP_MIN_WARPS <= 2 else "spill"
+    assert info["mode"] == want and info["tb"] == (2 if want == "fused" else K.SPILL_LAUNCH_WARPS)
+    _, widest = _specs(21, 3)
+    for groups in (None, tuple(range(0, 1 + 2 * widest.n_theta, 2))):
+        info = K.shift_execution_info(widest, 100, groups=groups)
+        assert info["mode"] == "spill" and info["n_tiles"] >= 5
+    _, m12 = _specs(25, 1)
+    assert K.shift_execution_info(m12, 8)["mode"] == "spill"
+    _, m13 = _specs(27, 1)
+    with pytest.raises(NotImplementedError, match="shared-memory budget"):
+        K.shift_execution_info(m13, 8)
 
 
 def test_no_block_holds_the_plan_raises():
@@ -180,7 +208,7 @@ def test_no_block_holds_the_plan_raises():
 
 
 def test_launch_observer_reports_spill_tiles():
-    _, ts = _specs(13, 3)
+    _, ts = _specs(21, 3)  # m = 10: no single-sweep sample fits
     groups = tuple(range(0, 1 + 2 * ts.n_theta, 2))  # worker 0 of 2
     theta, data = (torch.from_numpy(a) for a in _angles(ts, 3, seed=4))
     seen = []
@@ -198,7 +226,7 @@ def test_launch_observer_reports_spill_tiles():
 
 
 def test_multibank_spilled_bit_identical_to_per_bank():
-    _, ts = _specs(13, 3)
+    _, ts = _specs(21, 3)
     groups = tuple(range(1, 1 + 2 * ts.n_theta, 2))  # worker 1 of 2: spills
     banks = []
     for i, b in enumerate((3, 5)):
@@ -221,7 +249,9 @@ def _recording(run, declare, seen):
 
 def test_13q_grad_shift_step_matches_reference():
     """One gradient step of 13-qubit, 3-layer QuClassi through the 2-worker
-    implicit executor, port (spilled plain pair) against reference.
+    implicit executor, port (the single sweep's plain version: each
+    worker's checkpoints fit a block of SHIFT_WARPS samples) against
+    reference.
 
     Fidelity rows agree to 1e-5.  Gradients carry the BCE chain factor
     1/(f(1-f)) (ROADMAP Queue 3, R2), so their tolerance is 1e-5 scaled by
@@ -247,7 +277,7 @@ def test_13q_grad_shift_step_matches_reference():
                                           executor=trun, implicit=True)
     finally:
         tops.set_launch_observer(prev)
-    assert modes.count("spill") == 2 * tcfg.n_classes  # both workers, every class
+    assert modes.count("fused") == 2 * tcfg.n_classes  # both workers, every class
     assert len(trows) == len(jrows) == tcfg.n_classes
     for t, j in zip(trows, jrows):
         assert t.shape == j.shape == (n_groups * 2 * tcfg.n_patches,)
