@@ -15,7 +15,10 @@ Phases, in order; any failure exits non-zero before the result line:
                it (CUDA events around back-to-back wrapper calls, and the
                kernel's own device time from torch.profiler), beside the
                plain version and the analytic bound.  The state kernel
-               is checked at 7 and 10-14 qubits; the spill pair, launched
+               is checked at 7 and 10-14 qubits, and both on their
+               device-memory route (one block per circuit, the state in
+               device memory) at 15 and 17 qubits (QuClassi 15q-1l and
+               17q-1l rows, C = 256); the spill pair, launched
                directly, at 13 qubits (m = 6), 17 (m = 8), 19 (m = 9) and
                on tied 5q/7q circuits under a forced shared-memory budget;
                multibank launches must equal per-bank launches bit for bit
@@ -52,7 +55,23 @@ Phases, in order; any failure exits non-zero before the result line:
                greedy tokens each, through ``make_serve_step``'s cache; (c)
                in float32, TF32 off, the cached decode's logits at every
                prompt position within 1e-3 of the flash prefill's (the
-               float32 route), and the first generated token equal.
+               float32 route), and the first generated token equal;
+  6. gateway — the multi-tenant serving port (``repro_torch.serve``):
+               (a) the paper's Fig-6 mix, 4 clients (5Q/1L, 5Q/2L, 7Q/1L,
+               7Q/2L) each submitting a materialized shift-rule bank of 64
+               samples to 4 workers of 5/10/15/20 qubits, through a sync
+               and then an async runtime: async equal to sync bit for bit
+               and within 1e-5 of direct kernel calls, with circuits/s,
+               batches, lane fill, per-tenant p50/p99 and the async run's
+               device idle share; (b) 2 tenants training quclassi-7q-3l,
+               batch 64, implicit banks, 3 steps each, from two threads on
+               one async runtime, free-running: finite losses, a batch
+               holding both tenants, first-step losses within 1e-5 of solo
+               runs; (c) mesh spill: a 7q batch on a fleet of 5-qubit
+               workers and 17q rows over the per-block model, through
+               ``MeshSpillExecutor`` (the device-memory route), within 1e-5
+               of the plain version.  Counts are zeroed before each of
+               (a), (b) and (c) and read after.
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Needs CUDA; without it, or without the
 repository around it, it exits non-zero and prints no result.
@@ -65,6 +84,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -83,6 +103,8 @@ PEAK_BYTES_PER_S = 3.35e12
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: float32 decode logits against the float32 flash prefill's
 SERVE_TOL = 1e-3
+#: rows of the device-memory route's checks and timing (15q-1l, 17q-1l)
+DMEM_ROWS = 256
 #: float32 operations per amplitude of one gate application: a rotation
 #: updates each amplitude with 2 products and 1 sum for re and for im; a
 #: controlled rotation touches half the amplitudes; H is 1 sum and 1
@@ -160,7 +182,8 @@ def ptxas_spills(log: str) -> dict[str, tuple[int, int]]:
 
 
 #: per library, the kernels whose ptxas report must show no spill stores
-NO_SPILL_KERNELS = {"vqc_fused": ("fidelity_kernel", "state_kernel"),
+NO_SPILL_KERNELS = {"vqc_fused": ("fidelity_kernel", "state_kernel", "fidelity_dmem_kernel",
+                                  "state_dmem_kernel"),
                     "vqc_shiftbank": ("shiftbank_kernel",),
                     "vqc_spill": ("shift_forward_kernel", "shift_tile_kernel")}
 
@@ -273,6 +296,33 @@ def check_flash(dev, card: str) -> tuple[float, dict]:
 
 def ops_flops(ops, n: int) -> int:
     return sum(FLOPS_PER_AMP[op.gate] for op in ops) * 2**n
+
+
+def dmem_pass_bytes(spec, want_state: bool) -> int:
+    """Bytes of state one circuit of the device-memory route moves through
+    device memory: the |0..0> write, then each gate's read and write of the
+    32-byte sectors of re and im that hold an amplitude it changes (all of
+    them for H, one-qubit and two-qubit rotations; those with the control
+    set for CRY / CRZ; those with the ancilla set and the swapped bits
+    unequal for CSWAP), then, for P0, the read of the first half."""
+    n = spec.n_qubits
+    idx = np.arange(2**n)
+
+    def bit(q):
+        return (idx >> (n - 1 - q)) & 1
+
+    total = 8 * 2**n
+    for op in spec.ops:
+        if op.gate in ("cry", "crz"):
+            touched = bit(op.qubits[0]) == 1
+        elif op.gate == "cswap":
+            a, b, c = op.qubits
+            touched = (bit(a) == 1) & (bit(b) != bit(c))
+        else:
+            touched = np.ones(2**n, dtype=bool)
+        sectors = int(touched.reshape(-1, 8).any(1).sum())
+        total += 2 * 2 * 32 * sectors  # re and im, read and written
+    return total + (0 if want_state else 8 * 2 ** (n - 1))
 
 
 def shift_flops(K, plan, groups, n_params: int) -> int:
@@ -439,6 +489,216 @@ def serve_smollm(dev, card: str) -> tuple[int, int]:
     return launches, simt
 
 
+def zero_counts(K) -> None:
+    for key in K.LAUNCHES:
+        K.LAUNCHES[key] = 0
+
+
+def train_tenants(dev, workers, cfg, batch, test_set, inits, seeds, kw):
+    """Each tenant of ``seeds`` trains ``cfg`` from its own host thread,
+    free-running, through one async ``GatewayRuntime`` on ``workers`` (2
+    admissions pending a tenant); -> (runtime, reports, seconds).  Fails if a
+    tenant or the runtime failed."""
+    from repro_torch.core.trainer import train
+    from repro_torch.serve import GatewayRuntime
+
+    rt = GatewayRuntime(workers, deadline=0.05, mode="async", max_pending=2)
+    reps, errors = {}, []
+
+    def tenant(cid):
+        try:
+            reps[cid] = train(cfg, batch, test_set, gateway=rt, client_id=cid,
+                              seed=seeds[cid], init_params=inits[cid], **kw)
+        except BaseException as exc:  # reported below, on the main thread
+            errors.append(exc)
+
+    try:
+        threads = [threading.Thread(target=tenant, args=(cid,)) for cid in seeds]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if errors or rt.dispatcher.errors:
+            raise AssertionError(f"training through the gateway failed: {errors} "
+                                 f"{rt.dispatcher.errors}")
+    finally:
+        rt.close()
+    return rt, reps, seconds
+
+
+def serve_gateway(dev, card: str) -> dict:
+    """Phase 6: the multi-tenant serving port on the card, (a) the Fig-6
+    mix through a sync and an async runtime, (b) two tenants training
+    quclassi-7q-3l through one async runtime, (c) mesh spill.  Counts are
+    zeroed just before each path and read just after; returns their sum."""
+    from repro_torch.comanager import dataplane
+    from repro_torch.comanager.worker import WorkerConfig
+    from repro_torch.configs.quclassi_paper import get_quclassi
+    from repro_torch.core import circuits, quclassi, shift_rule
+    from repro_torch.core.trainer import train
+    from repro_torch.data.mnist import make_pair_dataset, train_test_split
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vqc_statevector as K
+    from repro_torch.serve import GatewayRuntime
+
+    counts = {key: 0 for key in K.LAUNCHES}
+
+    def read(label: str, wanted) -> None:
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+        log(f"  {label}: launches {got} [{card}]")
+        for key in wanted:
+            if got[key] <= 0:
+                raise AssertionError(f"{label}: the {key} kernel was never launched")
+        for key, n in got.items():
+            counts[key] += n
+
+    def fig6_workers(max_qubits=(5, 10, 15, 20)):
+        return [WorkerConfig(f"w{i + 1}", q) for i, q in enumerate(max_qubits)]
+
+    # (a) the Fig-6 client mix: each client's materialized shift-rule bank
+    rng = np.random.default_rng(6)
+    clients = []
+    for cid, qc, nl in (("5q1l", 5, 1), ("5q2l", 5, 2), ("7q1l", 7, 1), ("7q2l", 7, 2)):
+        spec = circuits.build_quclassi_circuit(qc, nl)
+        theta = torch.tensor(rng.uniform(0, np.pi, spec.n_theta), dtype=torch.float32, device=dev)
+        data = torch.tensor(rng.uniform(0, np.pi, (64, spec.n_data)), dtype=torch.float32,
+                            device=dev)
+        bank = shift_rule.build_bank(theta, data)
+        clients.append((cid, spec, bank.theta, bank.data))
+    n_rows = sum(t.shape[0] for _, _, t, _ in clients)
+
+    def fig6(mode: str):
+        """The clients' rows interleaved (row i of every client, then row
+        i + 1), drained; -> per client fidelities, seconds, runtime."""
+        rt = GatewayRuntime(fig6_workers(), target=128, deadline=0.05, mode=mode,
+                            slots_per_worker=2)
+        try:
+            for cid, _, _, _ in clients:
+                rt.gateway.register_client(cid, slo_ms=4000.0)
+            rows = {cid: list(zip(t.unbind(0), d.unbind(0))) for cid, _, t, d in clients}
+            futs = {cid: [] for cid in rows}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(max(len(r) for r in rows.values())):
+                for cid, spec, _, _ in clients:
+                    if i < len(rows[cid]):
+                        futs[cid].append(rt.gateway.submit(
+                            cid, spec, rows[cid][i], now=rt.dispatcher.clock()))
+                rt.dispatcher.kick()
+            rt.dispatcher.drain()
+            got = {cid: torch.stack([f.value for f in fs]) for cid, fs in futs.items()}
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if getattr(rt.dispatcher, "errors", []):
+                raise AssertionError(f"{mode} runtime errors: {rt.dispatcher.errors}")
+        finally:
+            rt.close()
+        return got, seconds, rt
+
+    log("gateway (a): the Fig-6 mix, 4 clients x a materialized bank of 64 samples "
+        f"({n_rows} rows), workers of 5/10/15/20 qubits")
+    for mode in ("sync", "async"):
+        fig6(mode)  # warm-up: device tables, streams, first launches
+    zero_counts(K)
+    out = {}
+    for mode in ("sync", "async"):
+        got, seconds, rt = fig6(mode)
+        out[mode] = got
+        summ = rt.telemetry.summary()
+        tenants = {t["client"]: (t["p50_latency_s"], t["p99_latency_s"]) for t in summ["tenants"]}
+        log(f"  {mode}: {n_rows} circuits in {seconds:.4f} s = {n_rows / seconds:.1f} circuits/s, "
+            f"{summ['batches']} batches, lane fill {summ['lane_fill']}, per-tenant "
+            f"(p50 s, p99 s) {tenants} [{card}]")
+    read("gateway (a) launches, sync + async", ("fidelity",))
+    worst = 0.0
+    for cid, spec, theta, data in clients:
+        if not torch.equal(out["sync"][cid], out["async"][cid]):
+            raise AssertionError(f"{cid}: async differs from sync")
+        diff = float((out["async"][cid] - ops.vqc_fidelity(spec, theta, data)).abs().max())
+        worst = max(worst, diff)
+    log(f"  async == sync bit for bit; max|diff| to direct ops.vqc_fidelity = {worst:.3e}")
+    if not worst <= TOL:
+        raise AssertionError(f"Fig-6 fidelities differ from direct launches by {worst}")
+    wall_ms, kern, busy_ms = profile_window(lambda: fig6("async"))
+    log(f"  async run profiled: {wall_ms:.3f} ms host clock, device busy {busy_ms:.3f} ms, "
+        f"idle share {1 - busy_ms / wall_ms:.4f}, {sum(e.count for e in kern)} kernel "
+        f"launches [{card}]")
+    zero_counts(K)  # the profiled run is not counted
+
+    # (b) two tenants training quclassi-7q-3l on one async runtime
+    cfg = get_quclassi("quclassi-7q-3l")
+    x, y = make_pair_dataset(1, 5, n_per_class=128, seed=0)
+    (xtr, ytr), test_set = train_test_split(x, y)
+    one_batch = (xtr[:64], ytr[:64])  # 3 epochs of one batch: 3 steps, a loss each
+    kw = dict(epochs=3, batch_size=64, lr=1e-3, bank_mode="implicit", device=dev)
+    seeds = {"tenant-a": 0, "tenant-b": 1}
+    inits = {cid: quclassi.init_params(cfg, torch.Generator().manual_seed(s), dev)
+             for cid, s in seeds.items()}
+    n_groups = 1 + 2 * cfg.n_theta
+    solo = {}
+    for cid, s in seeds.items():  # solo: the data plane alone, 4 workers
+        run = dataplane.worker_batched_executor(
+            cfg.spec, dataplane.round_robin_assignment(n_groups, 4), 4)
+        solo[cid] = train(cfg, one_batch, test_set, executor=run, seed=s,
+                          init_params=inits[cid], **kw)
+    # a short admission queue a tenant (backpressure after 2 pending
+    # subtasks): the weighted-fair scheduler then interleaves the two
+    # free-running tenants' group subtasks into the shared buffers.
+    zero_counts(K)
+    rt, reps, seconds = train_tenants(dev, fig6_workers(), cfg, one_batch, test_set, inits,
+                                      seeds, kw)
+    read("gateway (b) launches", ("shiftbank",))
+    mixed = [b for b in rt.dispatcher.batch_log if len(b[2]) > 1]
+    log(f"gateway (b): 2 tenants x 3 steps of quclassi-7q-3l in {seconds:.4f} s = "
+        f"{2 * 3 / seconds:.3f} steps/s, {len(rt.dispatcher.batch_log)} batches, "
+        f"{len(mixed)} holding both tenants, fused launches {rt.telemetry.fused_launches} "
+        f"({rt.telemetry.multibank_launches} multi-bank) [{card}]")
+    for cid, rep in reps.items():
+        losses = [e.loss for e in rep.epochs]
+        diff = abs(losses[0] - solo[cid].epochs[0].loss)
+        log(f"  {cid}: losses {losses}, first step vs solo run: |diff| = {diff:.3e}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{cid}: a loss is not finite: {losses}")
+        if not diff <= TOL:
+            raise AssertionError(f"{cid}: first-step loss differs from a solo run by {diff}")
+    if not mixed:
+        raise AssertionError("no batch held both tenants")
+
+    # (c) mesh spill: over-width 7q rows on 5-qubit workers, 17q rows over
+    # the per-block memory model (the device-memory route)
+    log("gateway (c): mesh spill")
+    zero_counts(K)
+    for label, workers, qc, n in (("7q rows on 5-qubit workers", (5, 5), 7, 2),
+                                  ("17q-1l rows over the per-block model", (5, 10, 15, 20),
+                                   17, DMEM_ROWS)):
+        spec = circuits.build_quclassi_circuit(qc, 1)
+        th = torch.tensor(rng.uniform(0, np.pi, (n, spec.n_theta)), dtype=torch.float32,
+                          device=dev)
+        dt = torch.tensor(rng.uniform(0, np.pi, (n, spec.n_data)), dtype=torch.float32,
+                          device=dev)
+        rt = GatewayRuntime(fig6_workers(workers), deadline=0.01, mode="async")
+        try:
+            t0 = time.perf_counter()
+            got = rt.executor(spec, "wide")(th, dt)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            rt.close()
+        diff = float((got - torch.clamp(2 * K._fused_plain(spec, th, dt, False) - 1, 0, 1))
+                     .abs().max())
+        log(f"  {label}: {n} rows in {seconds:.4f} s, mesh spills {rt.telemetry.mesh_spills}, "
+            f"batch log {rt.dispatcher.batch_log}, max|diff| to the plain version {diff:.3e} "
+            f"[{card}]")
+        if rt.telemetry.mesh_spills < 1 or not diff <= TOL:
+            raise AssertionError(f"{label}: no mesh spill, or max|diff| {diff} > {TOL}")
+    read("gateway (c) launches", ("fidelity", "fidelity_dmem"))
+    return counts
+
+
 def quclassi13():
     """The spill slice: 13-qubit, 3-layer QuClassi (m = 6, P = 32) trained
     on 2 workers, the paper's segmentation on 8x8 images (9 patches).
@@ -527,8 +787,8 @@ def main() -> int:
         return (torch.tensor(th, dtype=torch.float32, device=dev),
                 torch.tensor(dt, dtype=torch.float32, device=dev))
 
-    errs = {"fidelity": 0.0, "state": 0.0, "shiftbank": 0.0,
-            "shift_forward": 0.0, "shift_tile": 0.0}  # against plain only
+    errs = {"fidelity": 0.0, "state": 0.0, "shiftbank": 0.0, "shift_forward": 0.0,
+            "shift_tile": 0.0, "fidelity_dmem": 0.0, "state_dmem": 0.0}  # against plain only
 
     def check(kernel: str, label: str, got, want, tol: float = TOL, plain: bool = True):
         torch.cuda.synchronize()
@@ -561,6 +821,24 @@ def main() -> int:
         warps = K.fused_geometry(n, 100)[0]
         check("state", f"{n} qubits C=100 ({warps} a block) re", re, pre)
         check("state", f"{n} qubits C=100 ({warps} a block) im", im, pim)
+    log("checks: the device-memory route (no block holds one state)")
+    wide = {qc: circuits.build_quclassi_circuit(qc, 1) for qc in (15, 17)}
+    for qc, spec in wide.items():
+        if K.fused_geometry(qc, DMEM_ROWS) != (0, 0):
+            raise AssertionError(f"{qc} qubits: a block holds the state")
+        th, dt = angles(spec, DMEM_ROWS)
+        before = dict(K.LAUNCHES)
+        p0 = K.vqc_p0(spec, th, dt)
+        re, im = K.vqc_state(spec, th, dt)
+        if (K.LAUNCHES["fidelity_dmem"], K.LAUNCHES["state_dmem"]) != (
+                before["fidelity_dmem"] + 1, before["state_dmem"] + 1):
+            raise AssertionError(f"{qc} qubits: not one launch of each device-memory kernel")
+        check("fidelity_dmem", f"{qc}q-1l C={DMEM_ROWS}", p0,
+              K._fused_plain(spec, th, dt, want_state=False))
+        pre, pim = K._fused_plain(spec, th, dt, want_state=True)
+        check("state_dmem", f"{qc}q-1l C={DMEM_ROWS} re", re, pre)
+        check("state_dmem", f"{qc}q-1l C={DMEM_ROWS} im", im, pim)
+        del re, im, pre, pim
 
     for name in ("7q-3l", "tied-7q-3l"):
         spec = specs[name]
@@ -742,14 +1020,39 @@ def main() -> int:
             f"{tab13.n_tiles} tiles, {tab13.tb} samples a block",
         ),
     }
+    # the device-memory route at 17q-1l, C = 256.  Its bound is the
+    # function's (angles in, P0 or the state out, against its flops); the
+    # state's traffic over device memory, one pass a gate (``pass_bytes``),
+    # is logged beside it as that scheme's own bound
+    spec17 = wide[17]
+    th17, dt17 = angles(spec17, DMEM_ROWS)
+    p17, d17, ops17 = spec17.n_theta, spec17.n_data, len(spec17.ops)
+    pass_bytes = {}
+    for kname, want_state in (("fidelity_dmem", False), ("state_dmem", True)):
+        kern = K.vqc_state if want_state else K.vqc_p0
+        timed[kname] = (
+            lambda kern=kern: kern(spec17, th17, dt17),
+            lambda want_state=want_state: K._fused_plain(spec17, th17, dt17, want_state),
+            DMEM_ROWS * (ops_flops(spec17.ops, 17) + (0 if want_state else 2 * 2**17)),
+            DMEM_ROWS * (4 * (p17 + d17) + (8 * 2**17 if want_state else 4)),
+            f"17q-1l C={DMEM_ROWS} circuits ({ops17} gates a circuit)",
+        )
+        pass_bytes[kname] = DMEM_ROWS * dmem_pass_bytes(spec17, want_state)
     records = {}
     for kname, (kern, plain, flops, nbytes, shape) in timed.items():
-        ms = time_ms(kern)
-        dev_ms = device_ms(kern, f"{kname}_kernel")
-        plain_ms = time_ms(plain, iters=5, warmup=1)
+        slow = kname.endswith("_dmem")
+        ms = time_ms(kern, iters=5 if slow else 20)
+        dev_ms = device_ms(kern, f"{kname}_kernel", iters=5 if slow else 20)
+        plain_ms = time_ms(plain, iters=2 if slow else 5, warmup=1)
         bound_ms, bound_by = bound(flops, nbytes)
         records[kname] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by}
+        if kname in pass_bytes:
+            records[kname]["pass_bound_ms"] = pass_bytes[kname] / PEAK_BYTES_PER_S * 1e3
+            log(f"  {kname}: one pass a gate moves {pass_bytes[kname]} bytes of state "
+                f"({pass_bytes[kname] / (DMEM_ROWS * 16 * 2**17):.3f} full read-and-write "
+                f"passes a circuit): {records[kname]['pass_bound_ms']:.6f} ms at "
+                f"{PEAK_BYTES_PER_S / 1e12} TB/s [{card}]")
         shown = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         log(f"  time {kname:13s} {shape}: kernel {ms:.4f} ms (events; device time "
             f"{shown}), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
@@ -799,10 +1102,12 @@ def main() -> int:
             f"device {spill_dev} (forward {fwd_dev}, tile {tile_dev}); the plan takes "
             f"{routes[label]['taken']} [{card}]")
     log("routes: " + json.dumps(routes))
+    dmem_records = {k: records.pop(k) for k in ("fidelity_dmem", "state_dmem")}
     log("checks: the flash-attention kernel")
     errs["flash"], records["flash"] = check_flash(dev, card)
     log("kernels: " + json.dumps(
-        [{"name": k, "max_abs_err": errs[k], **records[k]} for k in records]))
+        [{"name": k, "max_abs_err": errs[k], **records[k]} for k in records]
+        + [{"name": k, "max_abs_err": errs[k], **dmem_records[k]} for k in dmem_records]))
 
     # ------------------------------------------------------------- 4. train
     x, y = make_pair_dataset(1, 5, n_per_class=128, seed=0)
@@ -930,6 +1235,12 @@ def main() -> int:
     launches["flash"], simt_launches = serve_smollm(dev, card)
     records["flash"]["simt"]["launches"] = simt_launches  # float32 prefill of phase 5c
 
+    # ----------------------------------------------------------- 6. gateway
+    t0 = time.perf_counter()
+    for key, n in serve_gateway(dev, card).items():
+        launches[key] += n
+    log(f"gateway: phase 6 took {time.perf_counter() - t0:.2f} s wall")
+
     kernels = [
         {"name": "fidelity", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/vqc_fused.cu",
@@ -953,6 +1264,10 @@ def main() -> int:
     for k in kernels:
         n = k["name"]
         k.update(launches=launches[n], max_abs_err=errs[n], **{"library_ms": None, **records[n]})
+        if f"{n}_dmem" in dmem_records:  # the device-memory route, as flash carries "simt"
+            k["dmem"] = {"route": "cuda", "source": k["source"], "replaces": k["replaces"],
+                         "launches": launches[f"{n}_dmem"], "max_abs_err": errs[f"{n}_dmem"],
+                         "library_ms": None, **dmem_records[f"{n}_dmem"]}
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -60,7 +60,12 @@ def train(
     grad_mode: str = "shift",
     executor=None,
     optimizer: str = "sgd",
+    gateway=None,
+    client_id: str = "trainer",
     bank_mode: str = "auto",
+    priority: int = 1,
+    slo_ms: Optional[float] = None,
+    policy=None,
     seed: int = 0,
     init_params: Optional[dict] = None,
     device="cuda",
@@ -72,10 +77,28 @@ def train(
     ``grad_mode``: 'shift' (paper-faithful circuit-bank path, optionally
     distributed via ``executor``) or 'autodiff' (exact local path).
 
+    ``gateway``: a ``repro_torch.serve.GatewayRuntime``; the shift-rule
+    circuit banks are then streamed through the online serving gateway as
+    client ``client_id`` — coalesced (possibly with other tenants sharing
+    the runtime) into shared kernel launches, placed by the co-Manager, and
+    executed by the statevector kernels.  Fidelities come back in
+    submission order, so gradient assembly is unchanged.  A runtime
+    constructed with ``mode="async"`` rides the async path transparently:
+    submissions stream into the pump loop while earlier batches execute on
+    the worker pool (one CUDA stream per slot), and the per-bank gather
+    blocks on out-of-order futures.
+
+    ``priority`` / ``slo_ms`` (gateway mode): this client's strict
+    scheduling tier (lower = served first) and end-to-end latency SLO,
+    forwarded to ``Gateway.register_client``.  ``policy``: an object with
+    ``priority``, ``slo_ms`` and ``weight`` (the reference's
+    ``api.TenantPolicy``); when given it supersedes the loose kwargs.
+
     ``bank_mode``: 'materialized' (explicit (C, P) circuit banks),
     'implicit' (``ShiftBank``s, run by shift-aware executors through the
-    prefix-reuse kernel), or 'auto' (implicit exactly when the executor
-    declares the ``shiftbank`` capability).
+    prefix-reuse kernel; a gateway then carries per-(param, shift) group
+    subtasks instead of per-row circuits), or 'auto' (implicit exactly when
+    the executor declares the ``shiftbank`` capability).
 
     ``init_params``: starting weights as tensors (e.g. from
     ``quclassi.params_from_numpy``); by default they are drawn from a
@@ -87,10 +110,23 @@ def train(
     """
     if bank_mode not in ("auto", "implicit", "materialized"):
         raise ValueError(f"unknown bank_mode {bank_mode!r}")
+    if policy is not None:
+        priority, slo_ms = policy.priority, policy.slo_ms
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     implicit = {"auto": None, "implicit": True, "materialized": False}[bank_mode]
+    if gateway is not None:
+        if executor is not None:
+            raise ValueError("pass either executor or gateway, not both")
+        gw_opts = dict(priority=priority, slo_ms=slo_ms)
+        if policy is not None:
+            gw_opts["weight"] = policy.weight
+        executor = (
+            gateway.shift_executor(cfg.spec, client_id, **gw_opts)
+            if bank_mode == "implicit"
+            else gateway.executor(cfg.spec, client_id, **gw_opts)
+        )
     (xtr, ytr), (xte, yte) = train_set, test_set
     xtr, xte = pipeline.clean(xtr), pipeline.clean(xte)
     if init_params is None:

@@ -2,7 +2,9 @@
 // per circuit (or sample): see the note above WarpState.  Every kernel of
 // the port (fidelity, state, shift bank, spill forward, spill tile) runs
 // its gates through warp_apply and, for the prefix-reuse shift walk,
-// ShiftWalk below.
+// ShiftWalk below; the device-memory route of the fidelity and state
+// kernels (vqc_fused.cu) runs the same gate passes, strided_apply, over a
+// block's state in device memory.
 //
 // Qubit q is the q-th MOST significant bit of the amplitude index: its pair
 // stride is 2^(n-q-1).  Rotation matrices, sign conventions and the
@@ -19,9 +21,11 @@ enum : int { kNoParam = 0, kTheta = 1, kData = 2, kConst = 3 };
 // An op-table row: gate, q0, q1, q2, param kind, param index.
 constexpr int kOpFields = 6;
 
-// i with a zero bit inserted at position b.
-__device__ __forceinline__ int insert0(int i, int b) {
-  return ((i >> b) << (b + 1)) | (i & ((1 << b) - 1));
+// i with a zero bit inserted at position b (Idx: int for a state in shared
+// memory, long long for one in device memory).
+template <typename Idx>
+__device__ __forceinline__ Idx insert0(Idx i, int b) {
+  return ((i >> b) << (b + 1)) | (i & ((Idx(1) << b) - 1));
 }
 
 // Gate arithmetic of warp_apply and warp_apply_inner.  x0 * y0 + x1 * y1
@@ -168,18 +172,21 @@ __device__ __forceinline__ float warp_inner(WarpState chi, WarpState phi, int di
 }
 
 // Apply one table op with the given cos / sin of its half angle (ignored by
-// H and CSWAP) to the warp's state of an n-qubit register.
-__device__ __forceinline__ void warp_apply(const int* op, float c, float sn, WarpState s, int n,
-                                           int lane) {
+// H and CSWAP) to the state (re, im) of an n-qubit register: this thread's
+// amplitude pairs (quads, cswap pairs) first, first + step, ...  No barrier:
+// warp_apply (a warp's state in shared memory) ends it with __syncwarp and
+// block_apply (a block's state in device memory) with __syncthreads.
+template <typename Idx>
+__device__ __forceinline__ void strided_apply(const int* op, float c, float sn, float* re,
+                                              float* im, int n, Idx first, Idx step) {
   const int g = op[0];
-  float* re = s.re;
-  float* im = s.im;
   if (g == kH) {
-    const int b = n - op[1] - 1, st = 1 << b;
+    const int b = n - op[1] - 1;
+    const Idx st = Idx(1) << b;
     const float inv = 0.7071067811865476f;
 #pragma unroll 1
-    for (int i = lane; i < (1 << (n - 1)); i += 32) {
-      const int i0 = insert0(i, b), i1 = i0 | st;
+    for (Idx i = first; i < (Idx(1) << (n - 1)); i += step) {
+      const Idx i0 = insert0(i, b), i1 = i0 | st;
       const float r0 = re[i0], r1 = re[i1], m0 = im[i0], m1 = im[i1];
       re[i0] = (r0 + r1) * inv;
       re[i1] = (r0 - r1) * inv;
@@ -189,9 +196,9 @@ __device__ __forceinline__ void warp_apply(const int* op, float c, float sn, War
   } else if (g == kCSwap) {
     const int ba = n - op[1] - 1, bb = n - op[2] - 1, bc = n - op[3] - 1;
 #pragma unroll 1
-    for (int i = lane; i < (1 << (n - 3)); i += 32) {
-      const int base = insert0(insert0(insert0(i, bc), bb), ba) | (1 << ba);
-      const int a01 = base | (1 << bc), a10 = base | (1 << bb);
+    for (Idx i = first; i < (Idx(1) << (n - 3)); i += step) {
+      const Idx base = insert0(insert0(insert0(i, bc), bb), ba) | (Idx(1) << ba);
+      const Idx a01 = base | (Idx(1) << bc), a10 = base | (Idx(1) << bb);
       const float r = re[a01], m = im[a01];
       re[a01] = re[a10];
       im[a01] = im[a10];
@@ -199,10 +206,11 @@ __device__ __forceinline__ void warp_apply(const int* op, float c, float sn, War
       im[a10] = m;
     }
   } else if (g == kRX || g == kRY || g == kRZ) {
-    const int b = n - op[1] - 1, st = 1 << b;
+    const int b = n - op[1] - 1;
+    const Idx st = Idx(1) << b;
 #pragma unroll 1
-    for (int i = lane; i < (1 << (n - 1)); i += 32) {
-      const int i0 = insert0(i, b), i1 = i0 | st;
+    for (Idx i = first; i < (Idx(1) << (n - 1)); i += step) {
+      const Idx i0 = insert0(i, b), i1 = i0 | st;
       float r0 = re[i0], r1 = re[i1], m0 = im[i0], m1 = im[i1];
       rot1(g, c, sn, r0, m0, r1, m1);
       re[i0] = r0; im[i0] = m0;
@@ -211,9 +219,9 @@ __device__ __forceinline__ void warp_apply(const int* op, float c, float sn, War
   } else {
     const int ba = n - op[1] - 1, bb = n - op[2] - 1;
 #pragma unroll 1
-    for (int i = lane; i < (1 << (n - 2)); i += 32) {
-      const int i00 = insert0(insert0(i, bb), ba);
-      const int i01 = i00 | (1 << bb), i10 = i00 | (1 << ba), i11 = i10 | (1 << bb);
+    for (Idx i = first; i < (Idx(1) << (n - 2)); i += step) {
+      const Idx i00 = insert0(insert0(i, bb), ba);
+      const Idx i01 = i00 | (Idx(1) << bb), i10 = i00 | (Idx(1) << ba), i11 = i10 | (Idx(1) << bb);
       float r10 = re[i10], r11 = re[i11], m10 = im[i10], m11 = im[i11];
       if (g == kCRY || g == kCRZ) {
         rot1(g, c, sn, r10, m10, r11, m11);
@@ -227,6 +235,12 @@ __device__ __forceinline__ void warp_apply(const int* op, float c, float sn, War
       re[i11] = r11; im[i11] = m11;
     }
   }
+}
+
+// The warp's state in shared memory: lane l takes pairs l, l + 32, ...
+__device__ __forceinline__ void warp_apply(const int* op, float c, float sn, WarpState s, int n,
+                                           int lane) {
+  strided_apply<int>(op, c, sn, s.re, s.im, n, lane, 32);
   __syncwarp();
 }
 

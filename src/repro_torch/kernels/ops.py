@@ -6,6 +6,8 @@ the GPU, their plain PyTorch versions on the CPU.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.api.capabilities import declare
@@ -38,14 +40,19 @@ def kernel_executor(spec: CircuitSpec):
 #: (mode fused/spill/materialize, launches, block size, shared memory) plus
 #: the lane/bank shape.  None (default) costs one global read per launch.
 _launch_observer = None
+_observer_lock = threading.Lock()
 
 
 def set_launch_observer(fn):
     """Install ``fn(info: dict)`` as the shift-launch observer (None
-    disables).  Returns the previous observer so callers can restore it."""
+    disables).  Returns the previous observer so callers can restore it.
+    The swap is atomic under a lock; launches read the observer once, so a
+    launch from another thread reports to the old or the new one, never to
+    none.  The observer itself must be thread-safe (``TraceRecorder`` is)."""
     global _launch_observer
-    prev = _launch_observer
-    _launch_observer = fn
+    with _observer_lock:
+        prev = _launch_observer
+        _launch_observer = fn
     return prev
 
 

@@ -2,8 +2,8 @@
 
 The data plane executes millions of small circuits (5–7 qubits, 10–30
 gates): the parameter-shift circuit banks.  Each circuit is simulated whole
-inside one kernel, from |0...0> to the ancilla readout; the statevector
-never touches device memory.  Five CUDA kernels (``csrc/``) replace the
+inside one kernel, from |0...0> to the ancilla readout; up to 14 qubits
+the statevector never touches device memory.  Five CUDA kernels (``csrc/``) replace the
 five Pallas kernels of ``repro/kernels/vqc_statevector.py`` that the
 training path reaches:
 
@@ -12,6 +12,11 @@ training path reaches:
     ancilla P(0).  Materialized banks and per-worker row batches.
   * ``vqc_fused.cu`` ``state_kernel`` replaces ``_state_kernel``: the
     same evolution, writes the final (re, im) state.
+  * ``vqc_fused.cu`` ``fidelity_dmem_kernel`` and ``state_dmem_kernel``
+    are the same two functions' device-memory route, for rows of 15 or
+    more qubits, whose state no block's shared memory holds: one block per
+    circuit, the state in device memory (``_fidelity_dmem_cuda``,
+    ``_state_dmem_cuda``).
   * ``vqc_shiftbank.cu`` ``shiftbank_kernel`` replaces ``_shiftbank_kernel``
     (the single-sweep branch of ``vqc_shift_fidelity``): prefix reuse on
     the two m-qubit registers of the SWAP-test product structure.
@@ -69,6 +74,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -115,8 +121,31 @@ SPILL_LAUNCH_WARPS = 4
 #: at 19q-3l (0.987 / 0.578).
 SWEEP_MIN_WARPS = 4
 
-#: kernel launches per wrapper; counted only where a CUDA kernel launches.
-LAUNCHES = {"fidelity": 0, "state": 0, "shiftbank": 0, "shift_forward": 0, "shift_tile": 0}
+#: threads a block of the device-memory route (one block per circuit).
+#: Timed on an H100 (PERF.md), 1-layer QuClassi, P0: 1,024 against 512 took
+#: 0.74 / 1.66 ms at 15q (C = 256), 7.87 / 7.72 ms at 17q (C = 256) and
+#: 10.6 / 15.1 ms at 19q (C = 64); 256 was slower everywhere.
+DMEM_THREADS = 1024
+#: device memory the fidelity kernel's device-memory route holds for its
+#: circuits' states at once: a batch runs in chunks of at most this many
+#: bytes of states (a chunk of one circuit where one state is larger).
+#: Chunks small enough for the 50 MB L2 were slower on an H100 (PERF.md:
+#: 32 states of 17q, 1.9x the time of one launch of 256), since a chunk
+#: of k circuits keeps only k SMs busy.
+DMEM_WORKSPACE_BYTES = 1 << 30
+
+#: kernel launches per wrapper; counted only where a CUDA kernel launches
+#: (``fidelity_dmem`` / ``state_dmem``: the device-memory route of the
+#: fidelity and state kernels).  The async dispatcher launches from several
+#: threads, so every increment goes through ``_count`` under a lock.
+LAUNCHES = {"fidelity": 0, "state": 0, "shiftbank": 0, "shift_forward": 0, "shift_tile": 0,
+            "fidelity_dmem": 0, "state_dmem": 0}
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _state_bytes(m: int, tb: int) -> int:
@@ -141,10 +170,12 @@ def fused_geometry(
     kernels for a batch of ``c`` circuits of ``n`` qubits: one warp per
     circuit, the largest power of two up to FUSED_WARPS whose states fit
     ``smem_budget``, shrunk to the batch's power-of-two envelope.  (0, 0)
-    when not even one circuit's state fits (from n = 15 at 227 KB).  The
-    only source of those kernels' launch geometry: ``_fidelity_cuda``,
-    ``_state_cuda`` and the materialize branch of ``shift_execution_info``
-    read it."""
+    when not even one circuit's state fits (from n = 15 at 227 KB): such
+    batches take the device-memory route (``_fidelity_dmem_cuda``,
+    ``_state_dmem_cuda``).  The only source of those kernels' launch
+    geometry and route: ``_fidelity_cuda``, ``_state_cuda``, the
+    materialize branch of ``shift_execution_info`` and the serving layer's
+    per-block memory model read it."""
     w, _ = _warp_block(FUSED_WARPS, _state_bytes(n, 1), 0, smem_budget)
     w = min(w, 1 << (max(c, 1) - 1).bit_length())
     return w, _state_bytes(n, w)
@@ -359,24 +390,47 @@ def _spec_table(spec: CircuitSpec):
 
 
 _DEVICE_TABLES: dict = {}
+_TABLES_LOCK = threading.Lock()
 
 
 def _on_device(key, arrays, device) -> tuple[torch.Tensor, ...]:
-    """Host tables copied to ``device`` once per (key, device)."""
+    """Host tables copied to ``device`` once per (key, device).  The copy
+    is made under a lock and waited for before the tables are shared, so a
+    kernel launched from another thread, on another stream, never reads a
+    table whose copy is still in flight."""
     k = (key, device)
     got = _DEVICE_TABLES.get(k)
     if got is None:
-        got = _DEVICE_TABLES[k] = tuple(torch.from_numpy(a).to(device) for a in arrays)
+        with _TABLES_LOCK:
+            got = _DEVICE_TABLES.get(k)
+            if got is None:
+                got = tuple(torch.from_numpy(a).to(device) for a in arrays)
+                if device.type == "cuda":
+                    torch.cuda.current_stream(device).synchronize()
+                _DEVICE_TABLES[k] = got
     return got
 
 
 _ptr, _stream = _build.ptr, _build.stream
 
 
-@functools.cache
+_LIBS: dict = {}
+_LIBS_LOCK = threading.Lock()
+
+
 def _lib(name: str):
-    """The built kernel library with its C entry points declared."""
-    lib = _build.load(name)
+    """The built kernel library with its C entry points declared: built and
+    declared once, under a lock, however many threads ask for it first."""
+    got = _LIBS.get(name)
+    if got is None:
+        with _LIBS_LOCK:
+            got = _LIBS.get(name)
+            if got is None:
+                got = _LIBS[name] = _declare(name, _build.load(name))
+    return got
+
+
+def _declare(name: str, lib):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "vqc_fused":
         lib.vqc_fidelity_launch.argtypes = (
@@ -387,6 +441,14 @@ def _lib(name: str):
             [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, vp]
         )
         lib.vqc_state_launch.restype = i32
+        lib.vqc_fidelity_dmem_launch.argtypes = (
+            [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, vp]
+        )
+        lib.vqc_fidelity_dmem_launch.restype = i32
+        lib.vqc_state_dmem_launch.argtypes = (
+            [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, vp]
+        )
+        lib.vqc_state_dmem_launch.restype = i32
     elif name == "vqc_shiftbank":
         lib.vqc_shiftbank_launch.argtypes = (
             [vp, vp, i32, i32, i32, vp, vp, i32, i32, i32, i32, i32, i32, vp, i32, i32, vp]
@@ -445,17 +507,25 @@ def _fused_plain(spec: CircuitSpec, theta, data, want_state: bool):
     if want_state:
         return re.T.contiguous(), im.T.contiguous()
     half = 2 ** (n - 1)
-    return _rowsum(re[:half] * re[:half] + im[:half] * im[:half])
+    probs = re[:half] * re[:half] + im[:half] * im[:half]
+    if fused_geometry(n, 1)[0]:
+        return _rowsum(probs)
+    # from 15 qubits (the device-memory route) one sequential float32 sum
+    # over 2**14 or more amplitudes drifts by up to 1.6e-5, so sum in
+    # float64 by halves (elementwise, so no lane depends on the batch) and
+    # round once: the value the kernel's reduction is held to.
+    acc = probs.double()
+    while acc.shape[0] > 1:
+        h = acc.shape[0] // 2
+        acc = acc[:h] + acc[h:]
+    return acc[0].float()
 
 
 def _fidelity_cuda(spec: CircuitSpec, theta, data):
     c, n = theta.shape[0], spec.n_qubits
     warps, smem = fused_geometry(n, c)
     if warps == 0:
-        raise NotImplementedError(
-            f"one circuit's state of {n} qubits exceeds the {SMEM_BUDGET_BYTES}-byte "
-            "shared-memory budget of one block"
-        )
+        return _fidelity_dmem_cuda(spec, theta, data)
     dev = theta.device
     ops_i, ops_f = _on_device(spec, _spec_table(spec), dev)
     p0 = torch.empty((c,), dtype=torch.float32, device=dev)
@@ -468,7 +538,7 @@ def _fidelity_cuda(spec: CircuitSpec, theta, data):
                 warps, smem, _stream(dev),
             )
         _check_launch(lib, rc, "fidelity")
-        LAUNCHES["fidelity"] += 1
+        _count("fidelity")
     return p0
 
 
@@ -476,10 +546,7 @@ def _state_cuda(spec: CircuitSpec, theta, data):
     c, n = theta.shape[0], spec.n_qubits
     warps, smem = fused_geometry(n, c)
     if warps == 0:
-        raise NotImplementedError(
-            f"one circuit's state of {n} qubits exceeds the {SMEM_BUDGET_BYTES}-byte "
-            "shared-memory budget of one block"
-        )
+        return _state_dmem_cuda(spec, theta, data)
     dev = theta.device
     ops_i, ops_f = _on_device(spec, _spec_table(spec), dev)
     re = torch.empty((c, 2**n), dtype=torch.float32, device=dev)
@@ -493,12 +560,89 @@ def _state_cuda(spec: CircuitSpec, theta, data):
                 warps, smem, _stream(dev),
             )
         _check_launch(lib, rc, "state")
-        LAUNCHES["state"] += 1
+        _count("state")
+    return re, im
+
+
+# ------------------------------------ kernels 1 and 2: device-memory route
+def dmem_max_qubits(device) -> int:
+    """The widest circuit whose (re, im) float32 state fits the device
+    memory of ``device``'s card: the device-memory route's limit."""
+    total = torch.cuda.get_device_properties(device).total_memory
+    return (total // _state_bytes(0, 1)).bit_length() - 1
+
+
+def _require_card(n: int, device) -> None:
+    limit = dmem_max_qubits(device)
+    if n > limit:
+        raise NotImplementedError(
+            f"one circuit's state of {n} qubits ({_state_bytes(n, 1)} bytes) exceeds the "
+            f"device memory of {torch.cuda.get_device_name(device)}: the device-memory "
+            f"route runs up to {limit} qubits there"
+        )
+
+
+def _dmem_smem(spec: CircuitSpec) -> int:
+    """Shared memory of a device-memory block: every op's cos and sin, and
+    one partial sum a warp for the P(0) reduction."""
+    return 4 * (2 * len(spec.ops) + DMEM_THREADS // 32)
+
+
+def _fidelity_dmem_cuda(spec: CircuitSpec, theta, data):
+    """Launch ``fidelity_dmem_kernel`` (one block per circuit, its state in
+    a device-memory workspace) over the batch in chunks whose states take at
+    most DMEM_WORKSPACE_BYTES (one circuit a chunk where one state is
+    larger): -> P0 (C,)."""
+    c, n, dev = theta.shape[0], spec.n_qubits, theta.device
+    _require_card(n, dev)
+    ops_i, ops_f = _on_device(spec, _spec_table(spec), dev)
+    p0 = torch.empty((c,), dtype=torch.float32, device=dev)
+    if c:
+        chunk = max(1, DMEM_WORKSPACE_BYTES // _state_bytes(n, 1))
+        work = torch.empty((min(chunk, c), 2, 2**n), dtype=torch.float32, device=dev)
+        lib = _lib("vqc_fused")
+        for c0 in range(0, c, chunk):
+            k = min(chunk, c - c0)
+            with torch.cuda.device(dev):
+                rc = lib.vqc_fidelity_dmem_launch(
+                    _ptr(theta[c0:]), _ptr(data[c0:]), k, theta.shape[1], data.shape[1],
+                    _ptr(ops_i), _ptr(ops_f), len(spec.ops), n, _ptr(work), _ptr(p0[c0:]),
+                    DMEM_THREADS, _dmem_smem(spec), _stream(dev),
+                )
+            _check_launch(lib, rc, "device-memory fidelity")
+            _count("fidelity_dmem")
+    return p0
+
+
+def _state_dmem_cuda(spec: CircuitSpec, theta, data):
+    """Launch ``state_dmem_kernel``: one block per circuit, each evolving
+    its state in its own rows of the output (re, im), each (C, 2**n)."""
+    c, n, dev = theta.shape[0], spec.n_qubits, theta.device
+    _require_card(n, dev)
+    ops_i, ops_f = _on_device(spec, _spec_table(spec), dev)
+    re = torch.empty((c, 2**n), dtype=torch.float32, device=dev)
+    im = torch.empty((c, 2**n), dtype=torch.float32, device=dev)
+    if c:
+        lib = _lib("vqc_fused")
+        with torch.cuda.device(dev):
+            rc = lib.vqc_state_dmem_launch(
+                _ptr(theta), _ptr(data), c, theta.shape[1], data.shape[1],
+                _ptr(ops_i), _ptr(ops_f), len(spec.ops), n, _ptr(re), _ptr(im),
+                DMEM_THREADS, _dmem_smem(spec), _stream(dev),
+            )
+        _check_launch(lib, rc, "device-memory state")
+        _count("state_dmem")
     return re, im
 
 
 def vqc_p0(spec: CircuitSpec, theta: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """Batched ancilla-P0 for a circuit bank. theta: (C,P), data: (C,D) -> (C,)."""
+    """Batched ancilla-P0 for a circuit bank. theta: (C,P), data: (C,D) -> (C,).
+
+    On the card, circuits whose state fits a block's shared memory (up to 14
+    qubits, ``fused_geometry``) run one warp each; wider ones run one block
+    each with the state in device memory, at most DMEM_WORKSPACE_BYTES (1
+    GiB) of states at a time, up to the widest state the card holds
+    (``dmem_max_qubits``: 33 qubits on an 80 GB card)."""
     _spec_table(spec)  # rejects unsupported gates on every device
     theta, data, kind = _prepare(spec, theta, data)
     if kind == "cpu":
@@ -507,7 +651,9 @@ def vqc_p0(spec: CircuitSpec, theta: torch.Tensor, data: torch.Tensor) -> torch.
 
 
 def vqc_state(spec: CircuitSpec, theta: torch.Tensor, data: torch.Tensor):
-    """Batched final statevector (re, im), each (C, 2**n)."""
+    """Batched final statevector (re, im), each (C, 2**n).  Routes as
+    ``vqc_p0``; on the device-memory route each circuit evolves in its own
+    output rows, so the output is the whole workspace."""
     _spec_table(spec)
     theta, data, kind = _prepare(spec, theta, data)
     if kind == "cpu":
@@ -884,6 +1030,26 @@ def _shift_route(
     )
 
 
+def shift_plan_fits(
+    spec: CircuitSpec,
+    four_term: bool = False,
+    groups: tuple[int, ...] | None = None,
+    smem_budget: int = SMEM_BUDGET_BYTES,
+) -> bool:
+    """True unless the bank's shift plan has no route: neither a block of
+    the single sweep nor one of the spill tile kernel holds one sample (a
+    register of m = 13 or more qubits at 227 KB, where one checkpoint and
+    the walk's three states take 256 KB).  ``_shift_route`` raises for
+    exactly these plans; the serving layer refuses them at admission."""
+    if groups is None:
+        groups = tuple(range(1 + (4 if four_term else 2) * spec.n_theta))
+    groups = tuple(groups)
+    if build_shift_plan(spec) is None or not use_shift_plan(spec, four_term, groups):
+        return True  # the materialized rows run on the fidelity kernel's routes
+    return bool(_walk_table(spec, four_term, groups, smem_budget, False).tb
+                or _walk_table(spec, four_term, groups, smem_budget, True).tb)
+
+
 def shift_execution_info(
     spec: CircuitSpec,
     n_samples: int,
@@ -1113,7 +1279,7 @@ def _shiftbank_cuda(tab: _WalkTable, theta, data):
                 _ptr(out), tab.tb, tab.smem_bytes, _stream(dev),
             )
         _check_launch(lib, rc, "shift-bank")
-        LAUNCHES["shiftbank"] += 1
+        _count("shiftbank")
     return out
 
 
@@ -1241,7 +1407,7 @@ def _shift_forward_cuda(tab: _WalkTable, theta, data, out):
                 tab.forward_tb, tab.forward_smem_bytes, _stream(dev),
             )
         _check_launch(lib, rc, "spill forward")
-        LAUNCHES["shift_forward"] += 1
+        _count("shift_forward")
     return d_state, boundaries
 
 
@@ -1270,7 +1436,7 @@ def _shift_tile_cuda(tab: _WalkTable, theta, data, chi, boundaries, out):
                 tab.tb, tab.smem_bytes, _stream(dev),
             )
         _check_launch(lib, rc, "spill tile")
-        LAUNCHES["shift_tile"] += 1
+        _count("shift_tile")
     return out
 
 

@@ -226,12 +226,112 @@ def test_unfit_shapes_raise_instead_of_running(cuda):
     th, dt = _angles(wide, 8, cuda)
     with pytest.raises(NotImplementedError, match="shared-memory budget"):
         K.vqc_shift_fidelity(wide, th, dt, smem_budget=2 * K._state_bytes(6, 1))
-    widest = circuits.build_quclassi_circuit(15, 1)  # 256 KB: not one state fits
-    th, dt = _angles(widest, 8, cuda)
-    with pytest.raises(NotImplementedError, match="shared-memory budget"):
+    # rows of 15 or more qubits run on the device-memory route, up to the
+    # widest state the card holds; one qubit more raises, naming that width
+    limit = K.dmem_max_qubits(cuda)
+    widest = dataclasses.replace(circuits.build_quclassi_circuit(5, 1), n_qubits=limit + 1)
+    th, dt = _angles(widest, 2, cuda)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(NotImplementedError, match=f"up to {limit} qubits"):
         K.vqc_p0(widest, th, dt)
-    with pytest.raises(NotImplementedError, match="shared-memory budget"):
-        K.vqc_state(widest, th, dt)  # one warp per circuit, as vqc_p0
+    with pytest.raises(NotImplementedError, match=f"up to {limit} qubits"):
+        K.vqc_state(widest, th, dt)
+    assert K.LAUNCHES == before
+
+
+@pytest.mark.parametrize("qc,c", [(15, 256), (17, 64)])
+def test_device_memory_route_matches_plain(cuda, qc, c):
+    """Rows of 15 and 17 qubits (no block holds one state) on the
+    device-memory kernels, one launch each, against the plain version."""
+    spec = circuits.build_quclassi_circuit(qc, 1)
+    assert K.fused_geometry(qc, c) == (0, 0)
+    th, dt = _angles(spec, c, cuda, seed=qc)
+    before = dict(K.LAUNCHES)
+    p0 = K.vqc_p0(spec, th, dt)
+    re, im = K.vqc_state(spec, th, dt)
+    assert K.LAUNCHES["fidelity_dmem"] == before["fidelity_dmem"] + 1
+    assert K.LAUNCHES["state_dmem"] == before["state_dmem"] + 1
+    assert K.LAUNCHES["fidelity"] == before["fidelity"]
+    torch.testing.assert_close(p0, K._fused_plain(spec, th, dt, False), rtol=0, atol=ATOL)
+    pre, pim = K._fused_plain(spec, th, dt, True)
+    torch.testing.assert_close(re, pre, rtol=0, atol=ATOL)
+    torch.testing.assert_close(im, pim, rtol=0, atol=ATOL)
+
+
+def test_device_memory_route_chunks_its_workspace(cuda, monkeypatch):
+    """A workspace of three 15-qubit states: 8 circuits run in 3 launches
+    and give the bits of one launch."""
+    spec = circuits.build_quclassi_circuit(15, 1)
+    th, dt = _angles(spec, 8, cuda, seed=3)
+    whole = K.vqc_p0(spec, th, dt)
+    monkeypatch.setattr(K, "DMEM_WORKSPACE_BYTES", 3 * K._state_bytes(15, 1))
+    before = K.LAUNCHES["fidelity_dmem"]
+    chunked = K.vqc_p0(spec, th, dt)
+    assert K.LAUNCHES["fidelity_dmem"] == before + 3
+    assert torch.equal(chunked, whole)
+
+
+def test_async_runtime_matches_sync_on_card(cuda):
+    """The Fig-6 client mix through the sync and the async runtime (one
+    CUDA stream per slot): bit-identical, and equal to direct launches."""
+    from repro_torch.serve import GatewayRuntime
+
+    banks = []
+    for qc, nl in ((5, 1), (5, 2), (7, 1), (7, 2)):
+        spec = circuits.build_quclassi_circuit(qc, nl)
+        banks.append((spec, *_angles(spec, 300, cuda, seed=qc * nl)))
+    got = {}
+    for mode in ("sync", "async"):
+        rt = GatewayRuntime(target=128, deadline=0.05, mode=mode, slots_per_worker=2)
+        try:
+            got[mode] = [rt.executor(spec, f"c{i}")(th, dt)
+                         for i, (spec, th, dt) in enumerate(banks)]
+            assert not getattr(rt.dispatcher, "errors", [])
+        finally:
+            rt.close()
+    for (spec, th, dt), fs, fa in zip(banks, got["sync"], got["async"]):
+        assert fa.is_cuda and torch.equal(fs, fa)
+        assert torch.equal(fs, ops.vqc_fidelity(spec, th, dt))
+
+
+def test_worker_pool_streams_on_card(cuda):
+    """One thread and one CUDA stream per worker: the same bits as the
+    sequential per-worker executor, for rows and an implicit bank."""
+    from repro_torch.comanager import dataplane
+    from repro_torch.core import shift_rule
+
+    spec = circuits.build_quclassi_circuit(7, 2)
+    th, dt = _angles(spec, 999, cuda, seed=4)
+    rows = dataplane.round_robin_assignment(999, 4)
+    pool = dataplane.worker_pool_executor(spec, rows, 4)
+    try:
+        assert torch.equal(pool(th, dt), dataplane.worker_batched_executor(spec, rows, 4)(th, dt))
+    finally:
+        pool.close()
+    bank = shift_rule.build_shift_bank(th[0], dt[:300])
+    groups = dataplane.round_robin_assignment(bank.n_groups, 4)
+    pool = dataplane.worker_pool_executor(spec, groups, 4)
+    try:
+        assert torch.equal(pool(bank), dataplane.worker_batched_executor(spec, groups, 4)(bank))
+    finally:
+        pool.close()
+
+
+def test_one_device_mesh_on_card(cuda):
+    from repro_torch.comanager import dataplane
+    from repro_torch.core import shift_rule
+    from repro_torch.launch.mesh import make_data_mesh, make_host_mesh
+
+    mesh = make_data_mesh(1)
+    assert mesh.devices == (torch.device("cuda", 0),) and make_host_mesh() == mesh
+    spec = circuits.build_quclassi_circuit(5, 1)
+    th, dt = _angles(spec, 70, cuda)
+    ex = dataplane.sharded_executor(spec, mesh)
+    assert torch.equal(ex(th, dt), ops.vqc_fidelity(spec, th, dt))
+    bank = shift_rule.build_shift_bank(th[0], dt[:9])
+    mat = bank.materialize()
+    torch.testing.assert_close(ex(bank), ops.vqc_fidelity(spec, mat.theta, mat.data),
+                               rtol=0, atol=ATOL)
 
 
 def test_training_step_on_card(cuda):

@@ -83,6 +83,22 @@ def test_p0_matches_reference():
            jops.vqc_p0(js, jnp.asarray(theta), jnp.asarray(data)))
 
 
+def test_wide_p0_matches_reference():
+    """From 15 qubits the plain P0 (the device-memory route's plain version)
+    sums in float64: it is held to the reference's P0 at 1e-5, and to a
+    float64 sum of its own state's probabilities far inside that."""
+    js, ts = _specs(15, 1)
+    theta, data = _angles(ts, 3, seed=15)
+    tt, td = torch.from_numpy(theta), torch.from_numpy(data)
+    got = tops.vqc_p0(ts, tt, td)
+    _close(got, jops.vqc_p0(js, jnp.asarray(theta), jnp.asarray(data)))
+    re, im = tops.vqc_state(ts, tt, td)
+    half = 2 ** (ts.n_qubits - 1)
+    exact = (re[:, :half].double() ** 2 + im[:, :half].double() ** 2).sum(1)
+    np.testing.assert_allclose(got.numpy(), exact.numpy(), rtol=0, atol=1e-7)
+    assert torch.equal(tops.vqc_p0(ts, tt[1:2], td[1:2]), got[1:2])
+
+
 def test_state_norm_preserved_and_float64_downcast():
     _, ts = _specs(7, 3)
     theta, data = _angles(ts, 3, seed=4)

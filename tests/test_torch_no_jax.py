@@ -20,7 +20,12 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = list(_modules())
     for sentinel in ("repro_torch.core.trainer", "repro_torch.kernels.ops",
-                     "repro_torch.models.transformer", "repro_torch.launch.serve"):
+                     "repro_torch.models.transformer", "repro_torch.launch.serve",
+                     "repro_torch.launch.mesh", "repro_torch.obs", "repro_torch.obs.trace",
+                     "repro_torch.serve", "repro_torch.serve.async_dispatcher",
+                     "repro_torch.serve.dispatcher", "repro_torch.serve.gateway",
+                     "repro_torch.comanager.manager", "repro_torch.comanager.faults",
+                     "repro_torch.comanager.tenancy", "repro_torch.comanager.worker"):
         assert sentinel in mods
     code = (
         "import sys\n"
