@@ -72,6 +72,32 @@ Phases, in order; any failure exits non-zero before the result line:
                ``MeshSpillExecutor`` (the device-memory route), within 1e-5
                of the plain version.  Counts are zeroed before each of
                (a), (b) and (c) and read after.
+  7. cluster — the tenant-facing facade (``repro_torch.api``) on one async
+               ``QuantumCluster`` (2 slots a worker, the 5/10/15/20-qubit
+               fleet): (a) tenants alice (priority 0, SLO 500 ms, weight 2)
+               and bob (priority 1) each submit 48 ``quclassi-7q-3l``
+               circuits, interleaved, through ``Session.submit``/``drain``:
+               every future within 1e-5 of a direct ``ops.vqc_fidelity``;
+               (b) ``grad_shift`` through a materialized session's executor
+               equal bit for bit to the runtime's executor, the implicit
+               session's fidelities within 1e-5 (gradients within 1e-5
+               scaled by the BCE chain factor); (c) ``Session.train``, 3
+               steps of 64 images, implicit banks, first-step loss equal to
+               ``trainer.train(gateway=cluster.runtime)``; (d) one shift
+               bank of 64 samples through ``cluster.backend`` for all five
+               kinds: batched, pooled and multibank equal to the direct
+               implicit route bit for bit, sharded and mesh-spill (a
+               one-device CUDA mesh) within 1e-5 of the materialized rows;
+               (e) ``cluster.simulate`` of the Fig-6 clients, multi- and
+               single-circuit tenancy, with and without the gateway (the
+               virtual clock), whose placement then drives
+               ``worker_batched_executor`` for a 7q-1l bank on the card
+               (within 1e-5), and a federated session of 4 tenants, 3
+               rounds, run twice: equal summaries and parameters; (f)
+               ``scale.replay_real`` of the 300-tenant storm of
+               ``examples/scale_storm.py``: completed + rejected ==
+               submitted.  Counts are zeroed before each part that launches
+               kernels and read after, before any comparison launch.
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Needs CUDA; without it, or without the
 repository around it, it exits non-zero and prints no result.
@@ -699,6 +725,271 @@ def serve_gateway(dev, card: str) -> dict:
     return counts
 
 
+#: seconds a circuit spends being dispatched by the manager in the Fig-6
+#: runs (``benchmarks/paper_data.py`` ``ASSIGN_LATENCY``; the smoke imports
+#: nothing of the benchmarks)
+FIG6_ASSIGN_LATENCY = 0.005
+#: the Fig-6 workers' co-residency slowdown (``benchmarks/multitenant.py``)
+FIG6_CONTENTION = 0.5
+
+
+def cluster_phase(dev, card: str) -> dict:
+    """Phase 7: the tenant-facing facade on the card, (a) sessions submit
+    and drain, (b) session and runtime executors, (c) ``Session.train``, (d)
+    the five backends, (e) the virtual-clock simulation driving real
+    execution and a federated session, (f) a tenant storm replayed through
+    real kernels.  Counts are zeroed just before each part that launches
+    kernels and read just after; returns their sum."""
+    from repro_torch import api, scale
+    from repro_torch.comanager import dataplane, tenancy
+    from repro_torch.comanager.worker import PAPER_RATES_GCP, WorkerConfig
+    from repro_torch.configs.quclassi_paper import get_quclassi
+    from repro_torch.core import fidelity, quclassi, shift_rule
+    from repro_torch.core.trainer import train
+    from repro_torch.data.mnist import make_pair_dataset, train_test_split
+    from repro_torch.federated import FederatedConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vqc_statevector as K
+
+    counts = {key: 0 for key in K.LAUNCHES}
+
+    def read(label: str, wanted) -> None:
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+        log(f"  {label}: launches {got} [{card}]")
+        for key in wanted:
+            if got[key] <= 0:
+                raise AssertionError(f"{label}: the {key} kernel was never launched")
+        for key, n in got.items():
+            counts[key] += n
+
+    cfg = get_quclassi("quclassi-7q-3l")
+    spec = cfg.spec
+    rng = np.random.default_rng(7)
+    serving = api.ServingConfig(mode="async", slots_per_worker=2)
+    cluster = api.QuantumCluster(api.ClusterConfig(serving=serving), device=dev)
+    try:
+        alice = cluster.session("alice", api.TenantPolicy(priority=0, slo_ms=500.0, weight=2.0))
+        bob = cluster.session("bob", api.TenantPolicy(priority=1))
+
+        # (a) two tenants' sessions submit 48 circuits each, interleaved
+        th = torch.tensor(rng.uniform(0, np.pi, (96, spec.n_theta)), dtype=torch.float32,
+                          device=dev)
+        dt = torch.tensor(rng.uniform(0, np.pi, (96, spec.n_data)), dtype=torch.float32,
+                          device=dev)
+
+        def submit_all():
+            futs = []
+            for i in range(0, 96, 2):
+                futs.append(alice.submit(spec, th[i], dt[i]))
+                futs.append(bob.submit(spec, th[i + 1], dt[i + 1]))
+            alice.drain()
+            return futs
+
+        submit_all()  # warm-up: the slots' streams, device tables
+        zero_counts(K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futs = submit_all()
+        got = torch.stack([f.result(timeout=60.0) for f in futs])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        read("cluster (a) launches", ("fidelity",))
+        if not all(f.done for f in futs):
+            raise AssertionError("cluster (a): a future did not resolve")
+        summ = cluster.telemetry.summary()
+        tel = {s.tenant: (s.telemetry()["p50_latency_s"], s.telemetry()["p99_latency_s"])
+               for s in (alice, bob)}
+        diff = float((got - ops.vqc_fidelity(spec, th, dt)).abs().max())
+        log(f"cluster (a): 2 sessions x 48 quclassi-7q-3l circuits in {seconds:.4f} s = "
+            f"{96 / seconds:.1f} circuits/s; since the cluster opened {summ['batches']} "
+            f"batches, lane fill {summ['lane_fill']}, per-tenant (p50 s, p99 s) {tel}; "
+            f"max|diff| to direct ops.vqc_fidelity {diff:.3e} [{card}]")
+        if not diff <= TOL:
+            raise AssertionError(f"cluster (a): results differ from direct launches by {diff}")
+
+        # (b) grad_shift through a session's executor and the runtime's own
+        x, y = make_pair_dataset(1, 5, n_per_class=4, seed=1)
+        xb, yb = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+        params = quclassi.init_params(cfg, torch.Generator().manual_seed(3), dev)
+        zero_counts(K)
+        mat = cluster.session("trainer-m", bank_mode="materialized")
+        l_s, g_s, f_s = quclassi.grad_shift(cfg, params, xb, yb, executor=mat.executor(spec))
+        l_r, g_r, _ = quclassi.grad_shift(cfg, params, xb, yb,
+                                          executor=cluster.runtime.executor(spec, "legacy"))
+        imp = cluster.session("trainer-i", bank_mode="implicit")
+        l_i, g_i, f_i = quclassi.grad_shift(cfg, params, xb, yb, executor=imp.executor(spec))
+        read("cluster (b) launches", ("fidelity", "shiftbank"))
+        onehot = torch.nn.functional.one_hot(yb.long(), cfg.n_classes).to(torch.float32)
+        chain = fidelity.bce_grad_wrt_fidelity(f_s, onehot)
+        gtol = TOL * max(1.0, float(chain.abs().max()))
+        fdiff = float((f_i - f_s).abs().max())
+        gdiff = max(float((g_i[k] - g_s[k]).abs().max()) for k in g_s)
+        log(f"cluster (b): grad_shift on {len(y)} images, session vs runtime executor equal "
+            f"{float(l_s) == float(l_r) and all(torch.equal(g_s[k], g_r[k]) for k in g_s)}; "
+            f"implicit session: max|diff| fidelities {fdiff:.3e}, gradients {gdiff:.3e} "
+            f"(tolerance {gtol:.3e}) [{card}]")
+        if float(l_s) != float(l_r) or not all(torch.equal(g_s[k], g_r[k]) for k in g_s):
+            raise AssertionError("cluster (b): session and runtime executors differ")
+        if not (fdiff <= TOL and gdiff <= gtol):
+            raise AssertionError(f"cluster (b): implicit session differs: {fdiff}, {gdiff}")
+
+        # (c) Session.train: 3 steps of 64 images, implicit banks
+        x, y = make_pair_dataset(1, 5, n_per_class=128, seed=0)
+        (xtr, ytr), test_set = train_test_split(x, y)
+        one_batch = (xtr[:64], ytr[:64])
+        init = quclassi.init_params(cfg, torch.Generator().manual_seed(0), dev)
+        kw = dict(batch_size=64, lr=1e-3, init_params=init)
+        sess = cluster.session("carol", bank_mode="implicit")
+        zero_counts(K)
+        t0 = time.perf_counter()
+        rep = sess.train(cfg, one_batch, test_set, epochs=3, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        read("cluster (c) launches", ("shiftbank",))
+        direct = train(cfg, one_batch, test_set, epochs=1, gateway=cluster.runtime,
+                       client_id="carol-direct", bank_mode="implicit", device=dev, **kw)
+        losses = [e.loss for e in rep.epochs]
+        diff = abs(losses[0] - direct.epochs[0].loss)
+        log(f"cluster (c): Session.train 3 steps of quclassi-7q-3l in {seconds:.4f} s = "
+            f"{3 / seconds:.3f} steps/s, losses {losses}; first step vs "
+            f"trainer.train(gateway=cluster.runtime): |diff| = {diff:.3e} [{card}]")
+        if diff != 0.0 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"cluster (c): first-step loss differs by {diff}: {losses}")
+
+        # (d) one shift bank of 64 samples through the five backends
+        theta = torch.tensor(rng.uniform(0, np.pi, spec.n_theta), dtype=torch.float32, device=dev)
+        data = torch.tensor(rng.uniform(0, np.pi, (64, spec.n_data)), dtype=torch.float32,
+                            device=dev)
+        bank = shift_rule.build_shift_bank(theta, data)
+        outs, costs = {}, {}
+        zero_counts(K)
+        for kind in sorted(api.BACKEND_KINDS):
+            be = cluster.backend(kind, spec)
+            try:
+                outs[kind] = be.run_bank(bank)
+            finally:
+                be.close()
+            cm = be.cost_model()
+            costs[kind] = (cm.bank_cost_units(spec, bank), cm.bank_smem_bytes(spec, bank))
+        read("cluster (d) launches", ("shiftbank",))
+        direct = ops.vqc_fidelity_shiftgroups(spec, bank.theta, bank.data, False).reshape(-1)
+        rows = bank.materialize()
+        plain_rows = ops.vqc_fidelity(spec, rows.theta, rows.data)
+        log(f"cluster (d): one ShiftBank of 64 samples ({bank.n_groups} groups); "
+            f"CostModel (bank_cost_units, bank_smem_bytes) {costs} [{card}]")
+        for kind, out in outs.items():
+            if kind in ("batched", "pooled", "multibank"):
+                ok = torch.equal(out, direct)
+                log(f"  {kind}: equal to the direct implicit route bit for bit: {ok}")
+                if not ok:
+                    raise AssertionError(f"cluster (d): {kind} differs from the implicit route")
+            else:
+                diff = float((out - plain_rows).abs().max())
+                log(f"  {kind}: max|diff| to the materialized rows {diff:.3e}")
+                if not diff <= TOL:
+                    raise AssertionError(f"cluster (d): {kind} differs by {diff}")
+    finally:
+        cluster.close()
+
+    # (e) the virtual-clock simulation of the Fig-6 clients (the paper's
+    # circuit counts cut to 10%: Algorithm 2's queue scan is quadratic on
+    # the host), its placement driving real execution, and a federated
+    # session
+    clients = (("5q1l", 5, 1), ("5q2l", 5, 2), ("7q1l", 7, 1), ("7q2l", 7, 2))
+    jobs = [dataclasses.replace(tenancy.paper_job(cid, qc, nl, scale=0.1),
+                                service_override=1.0 / PAPER_RATES_GCP[(qc, nl)])
+            for cid, qc, nl in clients]
+    fleet = tuple(WorkerConfig(f"w{i + 1}", q, contention=FIG6_CONTENTION)
+                  for i, q in enumerate((5, 10, 15, 20)))
+    sim_cluster = api.QuantumCluster(api.ClusterConfig(workers=fleet), device=dev)
+    reports = {}
+    t0 = time.perf_counter()
+    for gateway in (False, True):
+        for ten in ("multi", "single_circuit"):
+            sim = api.SimulationConfig(tenancy=ten, classical_overhead=0.01, fair_queue=True,
+                                       assign_latency=FIG6_ASSIGN_LATENCY, gateway=gateway)
+            reports[(gateway, ten)] = r = sim_cluster.simulate(jobs, simulation=sim)
+            log(f"cluster (e): simulate Fig-6, tenancy {ten}, gateway {gateway}: "
+                f"{r.total_circuits} circuits, makespan {r.makespan:.3f} s virtual, "
+                f"{r.circuits_per_second:.3f} circuits/s virtual, per client circuits/s "
+                f"{ {c: round(j.circuits_per_second, 3) for c, j in r.jobs.items()} }")
+        ratio = (reports[(gateway, "multi")].makespan
+                 / reports[(gateway, "single_circuit")].makespan)
+        gains = {c: round(reports[(gateway, "multi")].jobs[c].circuits_per_second
+                          / reports[(gateway, "single_circuit")].jobs[c].circuits_per_second, 3)
+                 for c, _, _ in clients}
+        log(f"  gateway {gateway}: multi / single makespan {ratio:.4f}, per client "
+            f"circuits/s gain {gains}")
+    log(f"  4 simulations in {time.perf_counter() - t0:.3f} s host clock")
+    rep = reports[(False, "multi")]
+    spec71 = quclassi.QuClassiConfig(qc=7, n_layers=1).spec
+    base = sum(j.n_circuits for j in jobs[:2])  # task ids are allocated job by job
+    n71 = jobs[2].n_circuits
+    order = {w.worker_id: i for i, w in enumerate(fleet)}
+    placed = {tid - base: order[wid] for _, tid, wid in rep.assignments
+              if base <= tid < base + n71}
+    if len(placed) != n71:
+        raise AssertionError(f"cluster (e): {len(placed)} of the 7q1l job's {n71} circuits placed")
+    theta = torch.tensor(rng.uniform(0, np.pi, spec71.n_theta), dtype=torch.float32, device=dev)
+    data = torch.tensor(rng.uniform(0, np.pi, (15, spec71.n_data)), dtype=torch.float32,
+                        device=dev)
+    bank = shift_rule.build_bank(theta, data)  # 13 x 15 rows of the job's 201 circuits
+    assignment = [placed[i] for i in range(bank.n_circuits)]
+    zero_counts(K)
+    run = dataplane.worker_batched_executor(spec71, assignment, len(fleet))
+    got = run(bank.theta, bank.data)
+    read("cluster (e) launches", ("fidelity",))
+    diff = float((got - ops.vqc_fidelity(spec71, bank.theta, bank.data)).abs().max())
+    log(f"cluster (e): the simulation's placement of the 7q1l job drives "
+        f"worker_batched_executor over {bank.n_circuits} rows of a 7q-1l bank, workers used "
+        f"{sorted(set(assignment))}: max|diff| to direct ops.vqc_fidelity {diff:.3e} [{card}]")
+    if not diff <= TOL:
+        raise AssertionError(f"cluster (e): schedule-driven execution differs by {diff}")
+
+    fed_cfg = get_quclassi("quclassi-5q-1l")
+    fx, fy = make_pair_dataset(3, 9, n_per_class=16, seed=2)
+    ex, ey = make_pair_dataset(3, 9, n_per_class=8, seed=3)
+    fed_runs = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        fed = sim_cluster.federated_session(
+            ["t0", "t1", "t2", "t3"], FederatedConfig(n_rounds=3, quorum=0.75, seed=5),
+            qcfg=fed_cfg, dataset=(fx, fy), eval_set=(ex, ey))
+        fed_runs.append(fed.run())
+    seconds = time.perf_counter() - t0
+    s1, s2 = (json.dumps(r.summary(), sort_keys=True, default=float) for r in fed_runs)
+    same_params = all(fed_runs[0].params[k].tobytes() == fed_runs[1].params[k].tobytes()
+                      for k in fed_runs[0].params)
+    summ = fed_runs[0].summary()
+    log(f"cluster (e): federated quclassi-5q-1l, 4 tenants x 3 rounds, twice in "
+        f"{seconds:.3f} s: summaries equal {s1 == s2}, parameters equal {same_params}; "
+        f"rounds/s {summ['rounds_per_second']} virtual, accuracy by round "
+        f"{summ.get('accuracy_by_round')} [{card}]")
+    if s1 != s2 or not same_params:
+        raise AssertionError("cluster (e): the federated double run is not bit-identical")
+
+    # (f) the 300-tenant storm of examples/scale_storm.py through real kernels
+    storm = scale.WorkloadSpec(
+        populations=scale.standard_populations(300, rate_per_tenant=0.4, slo_scale=2.0),
+        duration_s=10.0, seed=11).generate()
+    zero_counts(K)
+    res = scale.replay_real(storm, device=dev)
+    read("cluster (f) launches", ("fidelity",))
+    log(f"cluster (f): replay_real of {res.n_tenants} tenants: submitted {res.submitted}, "
+        f"completed {res.completed}, rejected {res.rejected}, {res.achieved_cps:.1f} "
+        f"circuits/s achieved in {res.makespan_s:.4f} s, p50 {res.p50_latency_s:.4f} s, "
+        f"p99 {res.p99_latency_s:.4f} s [{card}]")
+    if res.completed + res.rejected != res.submitted or res.submitted != storm.n_circuits:
+        raise AssertionError(f"cluster (f): {res.completed} + {res.rejected} != {res.submitted}")
+    wall_ms, kern, busy_ms = profile_window(lambda: scale.replay_real(storm, device=dev))
+    log(f"  storm replay profiled: {wall_ms:.3f} ms host clock, device busy {busy_ms:.3f} ms, "
+        f"idle share {1 - busy_ms / wall_ms:.4f}, {sum(e.count for e in kern)} kernel "
+        f"launches [{card}]")
+    zero_counts(K)  # the profiled run is not counted
+    return counts
+
+
 def quclassi13():
     """The spill slice: 13-qubit, 3-layer QuClassi (m = 6, P = 32) trained
     on 2 workers, the paper's segmentation on 8x8 images (9 patches).
@@ -1240,6 +1531,12 @@ def main() -> int:
     for key, n in serve_gateway(dev, card).items():
         launches[key] += n
     log(f"gateway: phase 6 took {time.perf_counter() - t0:.2f} s wall")
+
+    # ----------------------------------------------------------- 7. cluster
+    t0 = time.perf_counter()
+    for key, n in cluster_phase(dev, card).items():
+        launches[key] += n
+    log(f"cluster: phase 7 took {time.perf_counter() - t0:.2f} s wall")
 
     kernels = [
         {"name": "fidelity", "route": "cuda",

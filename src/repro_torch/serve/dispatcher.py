@@ -20,8 +20,8 @@ inline on the chosen worker's mesh slice (here: the local device) and
 capacity is released immediately after.  The non-blocking counterpart with
 a pump loop and per-worker execution slots is
 ``repro_torch.serve.async_dispatcher.AsyncDispatcher``; the virtual-clock
-counterpart lives in the reference's ``comanager.simulation``
-(``gateway=True``; not ported yet).
+counterpart lives in ``repro_torch.comanager.simulation``
+(``gateway=True``).
 
 What differs from the reference on the card:
 

@@ -453,3 +453,81 @@ def test_flash_prefill_on_card_matches_naive_bf16(cuda):
     assert flash.dtype == torch.bfloat16 and torch.isfinite(flash.float()).all()
     step = 2.0 ** (torch.floor(torch.log2(naive.float().abs().max())).item() - 7)
     torch.testing.assert_close(flash.float(), naive.float(), rtol=0, atol=4 * step)
+
+
+# ------------------------------------------------ the public facade on card
+def _facade():
+    from repro_torch import api
+
+    return api
+
+
+def test_cluster_submit_drain_on_card(cuda):
+    """Two tenants' sessions on one async cluster: every future resolves to
+    a direct ``ops.vqc_fidelity`` of the same rows (chip_smoke phase 7a)."""
+    api = _facade()
+    spec = circuits.build_quclassi_circuit(7, 3)
+    th, dt = _angles(spec, 24, cuda, seed=7)
+    cfg = api.ClusterConfig(serving=api.ServingConfig(mode="async", slots_per_worker=2))
+    with api.QuantumCluster(cfg, device="cuda") as cluster:
+        alice = cluster.session("alice", api.TenantPolicy(priority=0, slo_ms=500.0, weight=2.0))
+        bob = cluster.session("bob", api.TenantPolicy(priority=1))
+        before = K.LAUNCHES["fidelity"]
+        futs = []
+        for i in range(0, 24, 2):
+            futs.append(alice.submit(spec, th[i], dt[i]))
+            futs.append(bob.submit(spec, th[i + 1], dt[i + 1]))
+        alice.drain()
+        got = torch.stack([f.result(timeout=60.0) for f in futs])
+        assert K.LAUNCHES["fidelity"] > before
+        assert alice.telemetry()["completed"] == bob.telemetry()["completed"] == 12
+    torch.testing.assert_close(got, ops.vqc_fidelity(spec, th, dt), rtol=0, atol=ATOL)
+
+
+def test_cluster_executors_on_card(cuda):
+    """A materialized session's executor is the runtime's executor: equal
+    bit for bit; the implicit session runs the shiftbank kernel and agrees
+    within 1e-5 on fidelities (chip_smoke phase 7b)."""
+    api = _facade()
+    qcfg = quclassi.QuClassiConfig(qc=5, n_layers=1)
+    params = quclassi.init_params(qcfg, torch.Generator().manual_seed(0), device=cuda)
+    x, y = mnist.make_pair_dataset(3, 9, n_per_class=2, seed=0)
+    x, y = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    with api.QuantumCluster(device="cuda") as cluster:
+        mat = cluster.session("m", bank_mode="materialized")
+        l_s, g_s, f_s = quclassi.grad_shift(qcfg, params, x, y, executor=mat.executor(qcfg.spec))
+        l_r, g_r, _ = quclassi.grad_shift(qcfg, params, x, y,
+                                          executor=cluster.runtime.executor(qcfg.spec, "legacy"))
+        assert float(l_s) == float(l_r) and torch.equal(g_s["theta"], g_r["theta"])
+        before = K.LAUNCHES["shiftbank"]
+        imp = cluster.session("i", bank_mode="implicit")
+        _, _, f_i = quclassi.grad_shift(qcfg, params, x, y, executor=imp.executor(qcfg.spec))
+        assert K.LAUNCHES["shiftbank"] > before
+    torch.testing.assert_close(f_i, f_s, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("kind", ["batched", "pooled", "multibank", "sharded", "mesh_spill"])
+def test_cluster_backends_on_card(cuda, kind):
+    """``cluster.backend(kind)``: the worker backends equal the direct
+    implicit route bit for bit; the one-device CUDA mesh backends agree
+    with the materialized rows within 1e-5 (chip_smoke phase 7d)."""
+    from repro_torch.core import shift_rule
+
+    api = _facade()
+    spec = circuits.build_quclassi_circuit(7, 3)
+    th, dt = _angles(spec, 16, cuda, seed=11)
+    bank = shift_rule.build_shift_bank(th[0], dt)
+    cluster = api.QuantumCluster(device="cuda")
+    be = cluster.backend(kind, spec)
+    try:
+        got = be.run_bank(bank)
+    finally:
+        be.close()
+    assert got.device.type == "cuda"
+    if kind in ("batched", "pooled", "multibank"):
+        direct = ops.vqc_fidelity_shiftgroups(spec, bank.theta, bank.data, False).reshape(-1)
+        assert torch.equal(got, direct)
+    else:
+        rows = bank.materialize()
+        torch.testing.assert_close(got, ops.vqc_fidelity(spec, rows.theta, rows.data),
+                                   rtol=0, atol=ATOL)

@@ -25,7 +25,10 @@ def test_every_module_imports_with_jax_blocked():
                      "repro_torch.serve", "repro_torch.serve.async_dispatcher",
                      "repro_torch.serve.dispatcher", "repro_torch.serve.gateway",
                      "repro_torch.comanager.manager", "repro_torch.comanager.faults",
-                     "repro_torch.comanager.tenancy", "repro_torch.comanager.worker"):
+                     "repro_torch.comanager.tenancy", "repro_torch.comanager.worker",
+                     "repro_torch.api", "repro_torch.api.cluster",
+                     "repro_torch.comanager.simulation", "repro_torch.federated",
+                     "repro_torch.scale"):
         assert sentinel in mods
     code = (
         "import sys\n"
