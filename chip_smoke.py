@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero before the result line:
   2. build   — every CUDA kernel compiled from ``src/repro_torch/kernels/csrc``
                (one nvcc per source, all at once); ptxas (its report
                kept beside a reused library) must show no spill stores
-               for the five statevector kernels;
+               for any statevector or flash kernel;
   3. kernels — each kernel against its plain PyTorch version on the card
                (max |diff| <= 1e-5) and against the dense simulator on a
                small input, then timed at the shape the training path gives
@@ -31,11 +31,13 @@ Phases, in order; any failure exits non-zero before the result line:
                flash_attn_sm90.cu; float32: the SIMT kernel of
                flash_attn.cu), at the SmolLM-360M prefill shape (BH 60,
                S 2048, hd 64, g 3) in bf16 and f32, at Qwen3-4B's (BH 32,
-               hd 128, g 4) in bf16, with window 64 and non-causal at S 256,
-               at S 100 (the last tile part full), S 1 and S 192, within
-               2e-5 (f32) and 2e-2 (bf16), then both routes are timed at the
-               prefill shape beside ``scaled_dot_product_attention`` (timed
-               only);
+               hd 128, g 4) in bf16, Granite-34B's MQA (BH 192, hd 128,
+               g 48) and Nemotron-4-340B's (BH 384, hd 192, g 12) in both,
+               with window 64 and non-causal at S 256, at S 100 (the last
+               tile part full), S 1 and S 192, within 2e-5 (f32) and 2e-2
+               (bf16), then both routes are timed at the smollm, granite-34b
+               and nemotron prefill shapes (4 x 2048) beside
+               ``scaled_dot_product_attention`` (timed only);
   4. train   — QuClassi Algorithm 1 through the data plane's
                ``worker_batched_executor``, 3 steps of 64 images after one
                warm-up step each: ``quclassi-7q-3l`` on 4 workers with
@@ -98,6 +100,27 @@ Phases, in order; any failure exits non-zero before the result line:
                ``examples/scale_storm.py``: completed + rejected ==
                submitted.  Counts are zeroed before each part that launches
                kernels and read after, before any comparison launch.
+  8. zoo     — the MoE, MLA, MQA and squared-ReLU models, seeded, counts
+               zeroed before each prefill and read after: (a)
+               ``granite-moe-3b-a800m`` at full width and depth (bf16, 40
+               experts top-8) through the flash kernel, a 4 x 2048 prefill
+               (32 flash_wgmma launches, capacity and dropped pairs, tokens/s,
+               a profiled idle share and top device ops, the MoE layer's and
+               its expert bank's share of busy time) and 4 x (64 + 16) cached
+               decode; (b) ``deepseek-v3-671b`` at full width, 2 layers (MLA,
+               256 + 1 experts top-8, about 50 GB), a 4 x 512 prefill and 4 x
+               (16 + 8) decode, then float32, 1 layer, dropless: absorbed-MLA
+               decode logits within 1e-3 of the decompressed prefill's and the
+               first token equal; (c) ``granite-34b`` at full width, 2 layers,
+               float32: naive, chunked (chunk 1024) and flash (SIMT)
+               prefills of 4 x 2048 within 1e-4, then the bf16 prefill on the
+               wgmma route, its attention timed against
+               ``scaled_dot_product_attention``; (d) ``nemotron-4-340b`` at
+               full width, 1 layer, bf16: the flash attention layer within
+               2e-2 of the naive one, relative to max(1, |naive|) (the
+               logits' difference logged in bf16 steps); (e) checkpoints: the 7q-3l parameters trained in phase
+               4, and ``granite-moe-3b-a800m`` at 1 layer in float32 restored
+               into a fresh model, equal bit for bit.
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Needs CUDA; without it, or without the
 repository around it, it exits non-zero and prints no result.
@@ -211,7 +234,9 @@ def ptxas_spills(log: str) -> dict[str, tuple[int, int]]:
 NO_SPILL_KERNELS = {"vqc_fused": ("fidelity_kernel", "state_kernel", "fidelity_dmem_kernel",
                                   "state_dmem_kernel"),
                     "vqc_shiftbank": ("shiftbank_kernel",),
-                    "vqc_spill": ("shift_forward_kernel", "shift_tile_kernel")}
+                    "vqc_spill": ("shift_forward_kernel", "shift_tile_kernel"),
+                    "flash_attn": ("flash_fwd_kernel",),
+                    "flash_attn_sm90": ("flash_wgmma_kernel",)}
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
@@ -248,9 +273,10 @@ def flash_inputs(bh: int, s: int, hd: int, dtype, groups: int, dev, seed: int):
 
 def check_flash(dev, card: str) -> tuple[float, dict]:
     """The flash kernels against their plain version on the card at the
-    serving path's shapes and the edge cases, each on its dtype's route,
-    then timed at the SmolLM-360M prefill shape.  Returns (max |diff| of
-    the bf16 route, timing record with the float32 route's under "simt")."""
+    serving paths' shapes and the edge cases, each on its dtype's route,
+    then timed at the prefill shapes of ``FLASH_SHAPES``.  Returns (max
+    |diff| of the bf16 route, timing record of the first shape with the
+    float32 route's under "simt" and every shape's under "shapes")."""
     from repro_torch.kernels import flash_attention as FA
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -258,6 +284,12 @@ def check_flash(dev, card: str) -> tuple[float, dict]:
         ("smollm-360m prefill", 60, 2048, 64, bf16, 3, True, 0),
         ("smollm-360m prefill", 60, 2048, 64, f32, 3, True, 0),
         ("qwen3-4b prefill", 32, 2048, 128, bf16, 4, True, 0),
+        ("granite-34b prefill (MQA)", 192, 2048, 128, bf16, 48, True, 0),
+        ("granite-34b prefill (MQA)", 192, 2048, 128, f32, 48, True, 0),
+        ("nemotron-4-340b prefill", 384, 2048, 192, bf16, 12, True, 0),
+        ("nemotron-4-340b prefill", 384, 2048, 192, f32, 12, True, 0),
+        ("part-full tile", 6, 100, 192, bf16, 3, True, 64),
+        ("part-full tile", 6, 100, 192, f32, 3, False, 0),
         ("window 64", 8, 256, 64, bf16, 1, True, 64),
         ("window 64", 8, 256, 64, f32, 1, True, 64),
         ("non-causal", 8, 256, 64, bf16, 2, False, 0),
@@ -288,36 +320,60 @@ def check_flash(dev, card: str) -> tuple[float, dict]:
         if not (got.dtype == dtype and torch.isfinite(got.float()).all() and err <= tol):
             raise AssertionError(f"flash {label}: max|diff| {err} > {tol} or not finite")
 
-    # timing at the prefill's shape: 4 requests x 2048 tokens, 15 heads over
-    # 5 kv heads (BH 60, g 3), bf16 (the wgmma route) and float32 (SIMT)
-    b, h, kv, s, hd = 4, 15, 5, 2048, 64
-    q, k, v = flash_inputs(b * h, s, hd, bf16, h // kv, dev, seed=99)
-    ms = time_ms(lambda: FA.flash_attention(q, k, v, groups=h // kv), iters=50)
-    plain_ms = time_ms(lambda: FA._flash_plain(q, k, v, groups=h // kv), iters=3, warmup=1)
+    # timing at the serving paths' shapes, 4 requests x 2048 tokens, bf16 on
+    # the wgmma route and float32 on the SIMT route: smollm-360m (the row's
+    # main shape, phase 5), granite-34b's MQA and nemotron-4-340b's hd 192
+    # (phase 8)
+    timed = [time_flash(dev, card, *shape) for shape in FLASH_SHAPES]
+    main = dict(timed[0])
+    simt = {"source": "src/repro_torch/kernels/csrc/flash_attn.cu", "dtype": "float32",
+            "max_abs_err": worst[f32], **main.pop("simt")}
+    return worst[bf16], {**main, "simt": simt, "shapes": timed}
+
+
+#: flash timing shapes: label, batch, heads, kv heads, S, hd
+FLASH_SHAPES = (("smollm-360m prefill", 4, 15, 5, 2048, 64),
+                ("granite-34b prefill", 4, 48, 1, 2048, 128),
+                ("nemotron-4-340b prefill", 4, 96, 8, 2048, 192))
+
+
+def time_flash(dev, card: str, label: str, b: int, h: int, kv: int, s: int, hd: int) -> dict:
+    """Both flash routes at one causal prefill shape: CUDA events around
+    back-to-back calls (``ms``), the kernel's profiled device time, the
+    plain version, ``scaled_dot_product_attention`` and the bound."""
+    from repro_torch.kernels import flash_attention as FA
+
+    g = h // kv
+    q, k, v = flash_inputs(b * h, s, hd, torch.bfloat16, g, dev, seed=99)
+    call = lambda: FA.flash_attention(q, k, v, groups=g)  # noqa: E731
+    ms = time_ms(call, iters=50)
+    dev_ms = device_ms(call, "flash_wgmma_kernel")
+    plain_ms = time_ms(lambda: FA._flash_plain(q, k, v, groups=g), iters=3, warmup=1)
     q4, k4, v4 = q.view(b, h, s, hd), k.view(b, kv, s, hd), v.view(b, kv, s, hd)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library = lambda: sdpa(q4, k4, v4, is_causal=True, scale=1.0, enable_gqa=True)  # noqa: E731
     library_ms = time_ms(library, iters=50)
-    lib_diff = float((library().reshape(b * h, s, hd).float()
-                      - FA.flash_attention(q, k, v, groups=h // kv).float()).abs().max())
+    lib_diff = float((library().reshape(b * h, s, hd).float() - call().float()).abs().max())
     q32, k32, v32 = (t.float() for t in (q, k, v))
-    simt_ms = time_ms(lambda: FA.flash_attention(q32, k32, v32, groups=h // kv), iters=10)
+    simt_call = lambda: FA.flash_attention(q32, k32, v32, groups=g)  # noqa: E731
+    simt_ms = time_ms(simt_call, iters=10)
+    simt_dev = device_ms(simt_call, "flash_fwd_kernel", iters=5)
     flops = 4 * b * h * hd * s * (s + 1) // 2          # visible (query, key) pairs
-    nbytes = 2 * (2 * b * h + 2 * b * kv) * s * hd     # q, o at 60 heads; k, v at 20
+    nbytes = 2 * (2 * b * h + 2 * b * kv) * s * hd     # q and o at h heads, k and v at kv
     bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     simt_bound_ms, simt_bound_by = bound(flops, 2 * nbytes, PEAK_F32_FLOPS)
-    log(f"  time flash_wgmma   BH={b * h} S={s} hd={hd} g={h // kv} bf16 causal: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
-        f"(max|diff| to the kernel {lib_diff:.3e}), bound {bound_ms:.6f} ms ({bound_by}; "
-        f"{flops} flops, {nbytes} bytes) [{card}]")
-    log(f"  time flash_simt    the same inputs in float32: kernel {simt_ms:.4f} ms, bound "
-        f"{simt_bound_ms:.6f} ms ({simt_bound_by} at float32's {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), "
-        f"wgmma route {simt_ms / ms:.1f}x faster [{card}]")
-    simt = {"source": "src/repro_torch/kernels/csrc/flash_attn.cu", "dtype": "float32",
-            "max_abs_err": worst[f32], "ms": simt_ms, "bound_ms": simt_bound_ms,
-            "bound_by": simt_bound_by}
-    return worst[bf16], {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": library_ms, "simt": simt}
+    log(f"  time flash_wgmma   {label}: BH={b * h} S={s} hd={hd} g={g} bf16 causal: kernel "
+        f"{ms:.4f} ms (device {dev_ms}), plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"{library_ms:.4f} ms (max|diff| to the kernel {lib_diff:.3e}), bound {bound_ms:.6f} ms "
+        f"({bound_by}; {flops} flops, {nbytes} bytes) [{card}]")
+    log(f"  time flash_simt    {label}: the same inputs in float32: kernel {simt_ms:.4f} ms "
+        f"(device {simt_dev}), bound {simt_bound_ms:.6f} ms ({simt_bound_by} at float32's "
+        f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), wgmma route {simt_ms / ms:.1f}x faster [{card}]")
+    return {"shape": label, "bh": b * h, "s": s, "hd": hd, "groups": g, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_max_abs_diff": lib_diff,
+            "simt": {"ms": simt_ms, "device_ms": simt_dev, "bound_ms": simt_bound_ms,
+                     "bound_by": simt_bound_by}}
 
 
 def ops_flops(ops, n: int) -> int:
@@ -466,7 +522,7 @@ def serve_smollm(dev, card: str) -> tuple[int, int]:
 
     # (b) requests as run_reduced serves them: one seeded token repeated as
     # the prompt, greedy tokens through the cache
-    serve_step, _ = steps.make_serve_step(cfg, model=model)
+    serve_step = steps.make_serve_step(cfg, model=model)[0]
     prompt = multimodal.decode_batch_for(cfg, b)
     prompt = {"tokens": prompt["tokens"].repeat(1, plen)}
     serve.generate(serve_step, model, {"tokens": prompt["tokens"][:, :4]}, 2)  # warm-up
@@ -493,7 +549,7 @@ def serve_smollm(dev, card: str) -> tuple[int, int]:
     # (c) float32 at full width: cached decode against the flash prefill
     cfg32 = cfg.with_(dtype="float32")
     prefill32, model32 = steps.make_prefill_step(cfg32, device=dev)
-    serve32, _ = steps.make_serve_step(cfg32, model=model32)
+    serve32 = steps.make_serve_step(cfg32, model=model32)[0]
     prompt = multimodal.text_batch(cfg32, b, plen, seed=0)
     zero_flash_counts()
     full = prefill32(prompt).float()
@@ -513,6 +569,368 @@ def serve_smollm(dev, card: str) -> tuple[int, int]:
     del model32, prefill32, serve32
     torch.cuda.empty_cache()
     return launches, simt
+
+
+class MoESpy:
+    """Records the routing of every ``moe_ffn`` call while active (the
+    smoke's own view; the model does not return it)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.orig, self.calls = moe, moe.moe_ffn, []
+
+    def __enter__(self):
+        def spy(params, x, cfg, stats=None):
+            st = {}
+            out = self.orig(params, x, cfg, stats=st)
+            self.calls.append(st)
+            return out
+
+        self.moe.moe_ffn = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_ffn = self.orig
+
+    def dropped(self) -> tuple[int, int]:
+        """(dropped (token, k) pairs, all pairs) over the recorded calls."""
+        kept = sum(int(c["keep"].sum()) for c in self.calls)
+        total = sum(c["keep"].numel() for c in self.calls)
+        return total - kept, total
+
+
+def free() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def timed_prefill(prefill, batch, runs: int = 3) -> tuple[float, list]:
+    """Mean host-clock ms of ``runs`` prefills, each ending in a synchronise."""
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        prefill(batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return sum(out) / len(out), out
+
+
+def decode_requests(steps, serve, model, cfg, b: int, plen: int, gen: int, card: str,
+                    label: str) -> torch.Tensor:
+    """``b`` requests, a seeded ``plen``-token prompt each, ``gen`` greedy
+    tokens through the cache; generated tokens/s logged."""
+    from repro_torch.models import multimodal
+
+    serve_step = steps.make_serve_step(cfg, model=model)[0]
+    prompt = multimodal.text_batch(cfg, b, plen, seed=1)
+    serve.generate(serve_step, model, {"tokens": prompt["tokens"][:, :2]}, 1)  # warm-up
+    res = serve.generate(serve_step, model, prompt, gen)
+    toks = res["tokens"]
+    if toks.shape != (b, gen) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"{label}: generated tokens {tuple(toks.shape)} out of range")
+    log(f"{label} decode: {b} x ({plen} prompt + {gen} generated) cached decode steps: "
+        f"prompt {res['prompt_s'] * 1e3:.3f} ms, generation {res['gen_s'] * 1e3:.3f} ms, "
+        f"{b * gen / res['gen_s']:,.1f} generated tokens/s; request 0: {toks[0].tolist()} "
+        f"[{card}]")
+    one = {"tokens": prompt["tokens"][:, :1]}
+    wall_ms, kern, busy_ms = profile_window(lambda: serve.generate(serve_step, model, one, 1))
+    log(f"profile {label} decode: 2 cached decode steps in {wall_ms:.3f} ms host clock "
+        f"(profiled), device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
+        f"{sum(e.count for e in kern)} kernel launches [{card}]")
+    return toks
+
+
+def serve_zoo(dev, card: str, qparams: dict) -> dict:
+    """Phase 8: the MoE, MLA, MQA and squared-ReLU models and checkpoints.
+    Returns the flash launches of its main-path runs per route."""
+    from repro_torch import checkpoint
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import vqc_statevector as K
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import moe, multimodal, transformer
+
+    launched = {"flash_wgmma": 0, "flash_simt": 0}
+
+    def count_from_zero():
+        torch.cuda.synchronize()
+        zero_flash_counts()
+        zero_counts(K)
+
+    def read_counts(label, want):
+        torch.cuda.synchronize()
+        if {k: FA.LAUNCHES[k] for k in want} != want:
+            raise AssertionError(f"{label}: flash launches {dict(FA.LAUNCHES)}, want {want}")
+        others = {k: n for k, n in K.LAUNCHES.items() if n}
+        if others:
+            raise AssertionError(f"{label}: launched circuit kernels {others}")
+        for key in launched:
+            launched[key] += FA.LAUNCHES[key]
+
+    # (a) granite-moe-3b-a800m at full width and depth through the flash
+    # kernel; (b) deepseek-v3-671b at full width, 2 layers (MLA, 256 + 1
+    # shared experts)
+    t_phase = time.perf_counter()
+    for name, change, (b, s), (plen, gen) in (
+            ("granite-moe-3b-a800m", dict(attention_impl="flash"), (4, 2048), (64, 16)),
+            ("deepseek-v3-671b", dict(n_layers=2), (4, 512), (16, 8))):
+        cfg = cfg_base.get(name).with_(**change)
+        t0 = time.perf_counter()
+        prefill, model = steps.make_prefill_step(cfg, device=dev)
+        torch.cuda.synchronize()
+        attn = (f"MLA q/kv ranks {cfg.mla.q_lora_rank}/{cfg.mla.kv_lora_rank}" if cfg.mla else
+                f"{cfg.kv_heads} kv heads, hd {cfg.resolved_head_dim}, {cfg.attention_impl}")
+        log(f"zoo {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
+            f"{attn}, {cfg.moe.n_experts} + {cfg.moe.n_shared_experts} experts "
+            f"top-{cfg.moe.top_k}, {cfg.dtype}, {transformer.param_count(model):,} parameters "
+            f"({transformer.active_param_count(cfg, model):,} active a token), "
+            f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card (seeded init in "
+            f"{time.perf_counter() - t0:.2f} s)")
+        batch = multimodal.text_batch(cfg, b, s, seed=0)
+        prefill(batch)  # warm-up
+        count_from_zero()
+        with MoESpy() as spy:
+            logits = prefill(batch)
+        n_flash = cfg.n_layers if cfg.attention_impl == "flash" else 0
+        read_counts(f"{cfg.name} prefill", {"flash_wgmma": n_flash, "flash_simt": 0})
+        if logits.shape != (b, s, cfg.vocab) or not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"{cfg.name}: prefill logits {tuple(logits.shape)} not finite")
+        del logits
+        dropped, pairs = spy.dropped()
+        cap = spy.calls[0]["capacity"]
+        if cap != moe.capacity(cfg, b * s):
+            raise AssertionError(f"{cfg.name}: capacity {cap}, want {moe.capacity(cfg, b * s)}")
+        ms, runs = timed_prefill(prefill, batch)
+        log(f"{cfg.name} prefill: {b} x {s} tokens in {ms:.3f} ms mean of {len(runs)} "
+            f"({', '.join(f'{r:.3f}' for r in runs)}), {b * s / ms * 1e3:,.1f} tokens/s; "
+            f"{n_flash} flash_wgmma launches; capacity {cap} a expert, dropped (token, k) pairs "
+            f"{dropped} of {pairs} ({dropped / pairs:.4f}); peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB [{card}]")
+        wall_ms, kern, busy_ms = profile_window(lambda: prefill(batch))
+        log(f"profile {cfg.name} prefill: {wall_ms:.3f} ms host clock (profiled), device busy "
+            f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
+            f"{sum(e.count for e in kern)} kernel launches [{card}]")
+        log_top(kern, 8)
+        moe_share(model, cfg, b, s, busy_ms, dev, card)
+        decode_requests(steps, serve, model, cfg, b, plen, gen, card, cfg.name)
+        del model, prefill
+        free()
+
+    # (b) float32, 1 layer, dropless: cached decode (absorbed MLA) against
+    # the prefill (decompressed MLA)
+    cfg32 = cfg.with_(n_layers=1, dtype="float32",
+                      moe=dataclasses.replace(cfg.moe, dropless=True))
+    t0 = time.perf_counter()
+    prefill32, model32 = steps.make_prefill_step(cfg32, device=dev)
+    serve32 = steps.make_serve_step(cfg32, model=model32)[0]
+    torch.cuda.synchronize()
+    prompt = multimodal.text_batch(cfg32, 4, 16, seed=0)
+    count_from_zero()
+    full = prefill32(prompt).float()
+    read_counts(f"{cfg.name} float32 prefill", {"flash_wgmma": 0, "flash_simt": 0})
+    res = serve.generate(serve32, model32, prompt, 1, keep_logits=True)
+    diff = float((res["prompt_logits"] - full).abs().max())
+    first_ok = torch.equal(res["tokens"][:, 0].cpu(), full[:, -1].argmax(-1).cpu())
+    log(f"{cfg.name} consistency (float32, 1 layer, dropless, capacity "
+        f"{moe.capacity(cfg32, 64)}): absorbed-MLA decode vs decompressed prefill logits over "
+        f"4 x 16 positions: max|diff| = {diff:.3e} (limit {SERVE_TOL}), logit scale "
+        f"{float(full.abs().max()):.3f}; first generated token equal: {first_ok}; peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - t0:.2f} s with the init [{card}]")
+    if not (diff <= SERVE_TOL and first_ok):
+        raise AssertionError(f"deepseek decode and prefill disagree: {diff}, first {first_ok}")
+    del model32, prefill32, serve32, full, res
+    free()
+
+    # (c) granite-34b, full width, 2 layers, float32: MQA through the naive,
+    # chunked and flash (SIMT) prefills; then bf16 through flash_wgmma
+    cfg = cfg_base.get("granite-34b").with_(n_layers=2, dtype="float32", attention_chunk=1024)
+    b, s = 4, 2048
+    model = transformer.Model(cfg, device=dev)
+    batch = multimodal.text_batch(cfg, b, s, seed=0)
+    outs = {}
+    with torch.no_grad():
+        for impl in ("naive", "chunked", "flash"):
+            model.cfg = cfg.with_(attention_impl=impl)
+            count_from_zero()
+            outs[impl] = model.prefill(batch)[0]
+            read_counts(f"{cfg.name} {impl} prefill",
+                        {"flash_wgmma": 0, "flash_simt": cfg.n_layers if impl == "flash" else 0})
+    d_chunk = float((outs["chunked"] - outs["naive"]).abs().max())
+    d_flash = float((outs["flash"] - outs["naive"]).abs().max())
+    log(f"{cfg.name} (2 layers, float32, MQA g {cfg.n_heads}, hd {cfg.resolved_head_dim}): "
+        f"{b} x {s} prefill logits, chunked (chunk {cfg.attention_chunk}) vs naive max|diff| = "
+        f"{d_chunk:.3e}, flash (SIMT) vs naive {d_flash:.3e} (limit 1e-4), logit scale "
+        f"{float(outs['naive'].abs().max()):.3f} [{card}]")
+    if not (d_chunk <= 1e-4 and d_flash <= 1e-4):
+        raise AssertionError(f"granite-34b prefills disagree: chunked {d_chunk}, flash {d_flash}")
+    del model, outs
+    free()
+    cfg16 = cfg.with_(dtype="bfloat16", attention_impl="flash")
+    prefill, model = steps.make_prefill_step(cfg16, device=dev)
+    prefill(batch)
+    count_from_zero()
+    logits = prefill(batch)
+    read_counts(f"{cfg.name} bf16 prefill", {"flash_wgmma": cfg.n_layers, "flash_simt": 0})
+    if not torch.isfinite(logits.float()).all():
+        raise AssertionError("granite-34b bf16 logits are not finite")
+    del logits
+    ms, runs = timed_prefill(prefill, batch)
+    with torch.no_grad():
+        h = model.embed_inputs(batch)
+        mixer = model.blocks[0].mixer
+        flash_ms = time_ms(lambda: blocks_attention(model, cfg16, "flash", h), iters=10)
+        sdpa_ms = time_ms(lambda: sdpa_attention(mixer, h, cfg16), iters=10)
+    log(f"{cfg.name} bf16 prefill (2 layers, flash_wgmma): {b} x {s} tokens in {ms:.3f} ms "
+        f"mean of {len(runs)}, {b * s / ms * 1e3:,.1f} tokens/s; one attention layer through "
+        f"the flash kernel {flash_ms:.4f} ms, through scaled_dot_product_attention "
+        f"{sdpa_ms:.4f} ms (same projections) [{card}]")
+    del model, prefill, h
+    free()
+
+    # (d) nemotron-4-340b, full width, 1 layer, bf16 (hd 192, squared ReLU)
+    cfg = cfg_base.get("nemotron-4-340b").with_(n_layers=1)
+    b, s = 2, 2048
+    t0 = time.perf_counter()
+    model = transformer.Model(cfg, device=dev)
+    torch.cuda.synchronize()
+    log(f"zoo {cfg.name} (1 layer): d {cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads, "
+        f"hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff} ({cfg.activation}), vocab {cfg.vocab}, "
+        f"{transformer.param_count(model):,} parameters (seeded init in "
+        f"{time.perf_counter() - t0:.2f} s)")
+    batch = multimodal.text_batch(cfg, b, s, seed=0)
+    with torch.no_grad():
+        model.cfg = cfg.with_(attention_impl="flash")
+        model.prefill(batch)
+        count_from_zero()
+        t0 = time.perf_counter()
+        flash_logits = model.prefill(batch)[0]
+        torch.cuda.synchronize()
+        flash_ms = (time.perf_counter() - t0) * 1e3
+        read_counts(f"{cfg.name} flash prefill", {"flash_wgmma": 1, "flash_simt": 0})
+        model.cfg = cfg.with_(attention_impl="naive")
+        naive_logits = model.prefill(batch)[0]
+        h = rms_norm_of_embed(model, batch)
+        att = {impl: blocks_attention(model, cfg, impl, h) for impl in ("flash", "naive")}
+    # bf16 spacing grows with magnitude: the flash tolerance (2e-2, for
+    # values of order 1) is applied to |diff| / max(1, |naive|)
+    naive_att = att["naive"].float()
+    d_abs = (att["flash"].float() - naive_att).abs()
+    d_att = float((d_abs / naive_att.abs().clamp(min=1.0)).max())
+    d_log = float((flash_logits.float() - naive_logits.float()).abs().max())
+    scale = float(naive_logits.float().abs().max())
+    step = 2.0 ** (math.floor(math.log2(scale)) - 7)
+    log(f"{cfg.name} (1 layer, bf16): {b} x {s} flash prefill {flash_ms:.3f} ms "
+        f"({b * s / flash_ms * 1e3:,.1f} tokens/s); attention layer output, flash vs naive: "
+        f"max|diff| / max(1, |naive|) = {d_att:.3e} (limit {FLASH_TOL[torch.bfloat16]}; "
+        f"max|diff| {float(d_abs.max()):.3e} at outputs up to "
+        f"{float(naive_att.abs().max()):.3f}); logits max|diff| = {d_log:.3e} "
+        f"({d_log / step:.1f} bf16 steps at the logits' scale {scale:.3f}) [{card}]")
+    if not (d_att <= FLASH_TOL[torch.bfloat16] and torch.isfinite(flash_logits.float()).all()):
+        raise AssertionError(f"nemotron flash and naive attention differ by {d_att}")
+    del model, flash_logits, naive_logits, att, h
+    free()
+
+    # (e) checkpoints
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    ckdir.mkdir(parents=True, exist_ok=True)
+    path = str(ckdir / "quclassi.npz")
+    t0 = time.perf_counter()
+    checkpoint.save(path, qparams, {"config": "quclassi-7q-3l"})
+    t1 = time.perf_counter()
+    back, meta = checkpoint.load(path, like={k: torch.empty_like(v) for k, v in qparams.items()})
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    same = all(back[k].is_cuda and torch.equal(back[k], v) for k, v in qparams.items())
+    log(f"checkpoint quclassi-7q-3l (trained in phase 4): {len(qparams)} leaves saved in "
+        f"{t1 - t0:.4f} s, loaded onto the card in {t2 - t1:.4f} s; equal bit for bit: {same}")
+    if not (same and meta == {"config": "quclassi-7q-3l"}):
+        raise AssertionError("the QuClassi checkpoint did not restore bit for bit")
+    cfg = cfg_base.get("granite-moe-3b-a800m").with_(n_layers=1, dtype="float32")
+    model = transformer.Model(cfg, device=dev, seed=1)
+    batch = multimodal.text_batch(cfg, 2, 256, seed=0)
+    with torch.no_grad():
+        want = model.prefill(batch)[0]
+    path = str(ckdir / "granite-moe.npz")
+    t0 = time.perf_counter()
+    checkpoint.save(path, transformer.params_to_numpy(cfg, model), {"arch": cfg.name})
+    t1 = time.perf_counter()
+    fresh = transformer.Model(cfg, device=dev, seed=2)
+    t2 = time.perf_counter()
+    tree, meta = checkpoint.load(path, like=transformer.params_to_numpy(cfg, fresh))
+    fresh.load_state_dict(transformer.params_from_numpy(cfg, tree, dev))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    with torch.no_grad():
+        got = fresh.prefill(batch)[0]
+    size = Path(path).stat().st_size
+    same = torch.equal(got, want)
+    log(f"checkpoint {cfg.name} (1 layer, float32, {transformer.param_count(model):,} "
+        f"parameters, {size / 2**30:.3f} GiB): saved in {t1 - t0:.3f} s, loaded into a fresh "
+        f"model on the card in {t3 - t2:.3f} s; prefill logits equal bit for bit: {same}")
+    if not (same and meta == {"arch": cfg.name}):
+        raise AssertionError("the restored granite-moe model's logits differ")
+    for f in ckdir.iterdir():
+        f.unlink()
+    ckdir.rmdir()
+    del model, fresh, tree, want, got
+    free()
+    log(f"zoo: phase 8 took {time.perf_counter() - t_phase:.2f} s wall")
+    return launched
+
+
+def moe_share(model, cfg, b: int, s: int, busy_ms: float, dev, card: str) -> None:
+    """One MoE layer (``moe_ffn``) and its expert bank alone at the
+    prefill's shape, timed by CUDA events (their kernels keep the card
+    busy), and their share of the profiled prefill's busy time over all
+    layers."""
+    from repro_torch.models import moe
+
+    params = model.blocks[0].ffn
+    cap = moe.capacity(cfg, b * s)
+    h = torch.randn((b, s, cfg.d_model), device=dev, dtype=model.dtype)
+    xs = torch.randn((max(cfg.moe.n_experts, cfg.moe.pad_to), cap, cfg.d_model), device=dev,
+                     dtype=model.dtype)
+    with torch.no_grad():
+        layer_ms = time_ms(lambda: moe.moe_ffn(params, h, cfg), iters=5, warmup=1)
+        bank_ms = time_ms(lambda: moe._expert_ffn(params.experts, xs, cfg.activation), iters=5,
+                          warmup=1)
+    n = cfg.n_layers
+    log(f"time {cfg.name} MoE layer (events): moe_ffn {layer_ms:.3f} ms, its expert bank "
+        f"(E {xs.shape[0]} x capacity {cap}) {bank_ms:.3f} ms, routing + dispatch + combine"
+        f"{' + shared expert' if cfg.moe.n_shared_experts else ''} {layer_ms - bank_ms:.3f} ms; "
+        f"x {n} layers against the prefill's {busy_ms:.3f} ms busy: MoE "
+        f"{n * layer_ms / busy_ms:.4f}, bank {n * bank_ms / busy_ms:.4f}, the rest "
+        f"{n * (layer_ms - bank_ms) / busy_ms:.4f} [{card}]")
+
+
+def rms_norm_of_embed(model, batch):
+    from repro_torch.models.common import rms_norm
+
+    return rms_norm(model.embed_inputs(batch), model.blocks[0].norm1, model.cfg.norm_eps)
+
+
+def blocks_attention(model, cfg, impl: str, h):
+    """Layer 0's attention on ``h`` through ``impl`` (its prefill route)."""
+    from repro_torch.models import blocks
+
+    return blocks._prefill_attention(cfg.with_(attention_impl=impl))(model.blocks[0].mixer, h,
+                                                                     cfg)
+
+
+def sdpa_attention(params, x, cfg):
+    """GQA attention with ``scaled_dot_product_attention`` in place of the
+    flash kernel (timed only)."""
+    from repro_torch.models.attention import project_qkv
+
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    pos = torch.arange(s, device=x.device)[None, :]
+    q, k, v = project_qkv(params, x, cfg, pos)
+    o = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True)
+    return o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd) @ params["wo"]
 
 
 def zero_counts(K) -> None:
@@ -1428,7 +1846,7 @@ def main() -> int:
               bank_mode=mode, init_params=inits[label], device=dev)
 
     launches = {k: 0 for k in K.LAUNCHES}
-    first = {}
+    first, trained = {}, {}
     for label, (c, mode, want, run) in runs.items():
         seen = []
 
@@ -1453,7 +1871,7 @@ def main() -> int:
         for key in counts:
             launches[key] += counts[key]
         ep = rep.epochs[0]
-        first[label] = seen[0]
+        first[label], trained[label] = seen[0], rep.params
         log(f"train {label}: loss {ep.loss:.6f}, train acc {ep.train_accuracy:.4f}, "
             f"test acc {ep.test_accuracy:.4f}, {steps} steps in {ep.wall_seconds:.4f} s "
             f"({steps / ep.wall_seconds:.3f} steps/s, "
@@ -1537,6 +1955,11 @@ def main() -> int:
     for key, n in cluster_phase(dev, card).items():
         launches[key] += n
     log(f"cluster: phase 7 took {time.perf_counter() - t0:.2f} s wall")
+
+    # --------------------------------------------------------------- 8. zoo
+    zoo = serve_zoo(dev, card, trained["7q implicit"])
+    launches["flash"] += zoo["flash_wgmma"]
+    records["flash"]["simt"]["launches"] += zoo["flash_simt"]
 
     kernels = [
         {"name": "fidelity", "route": "cuda",

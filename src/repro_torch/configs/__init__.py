@@ -9,6 +9,10 @@ import importlib
 _MODULES = (
     "smollm_360m",
     "qwen3_4b",
+    "granite_34b",
+    "nemotron_4_340b",
+    "granite_moe_3b_a800m",
+    "deepseek_v3_671b",
 )
 
 _loaded = False

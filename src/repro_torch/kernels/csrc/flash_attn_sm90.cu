@@ -21,7 +21,7 @@
 //     the one departure from the reference kernel, which keeps p in float32
 //     (its own naive path rounds the probabilities the same way);
 //   * a block holds three consumer warpgroups of 64 query rows each (192
-//     rows of one head) and one producer warpgroup, one thread of which
+//     rows of one head; two and 128 rows at hd 192) and one producer warpgroup, one thread of which
 //     issues every TMA copy: Q once, then K and V tiles into a ring of
 //     kStages stages in shared memory, each stage with a "full" mbarrier
 //     (armed with the bytes to expect) and an "empty" one (one arrival per
@@ -32,8 +32,9 @@
 //     t - 1's P.V, and the softmax of tile t runs while P.V is still on the
 //     tensor cores; the warpgroups of a block fill each other's gaps;
 //   * tiles stay bf16 in shared memory, in the swizzle that matches their
-//     row width (32, 64 or 128 bytes; hd 128 as two 64-column boxes), the
-//     same layout the wgmma descriptors name.  The tensor maps are 3-D
+//     row width (32, 64 or 128 bytes), the
+//     same layout the wgmma descriptors name (hd 128 and 192 as two and
+//     three 64-column boxes).  The tensor maps are 3-D
 //     (hd, S, heads): a ragged last tile is zero-filled inside its own head;
 //   * the mask (causal, window, keys >= S) and the online softmax run on the
 //     accumulator fragment in registers, in the log2 domain (one fused
@@ -44,8 +45,11 @@
 //     loaded, and a warpgroup skips the products of the tiles that it hides
 //     from all of its own rows (the diagonal's far side, rows past S);
 //     blocks of the last query tiles (the most causal work) go first.
-// One block per SM; ptxas reports 128 registers (the launch's share), no
-// spills.
+// At hd 192 a block has two consumer warpgroups (128 rows): the O
+// accumulator is 96 floats a thread and takes 240 registers, and 64-key
+// tiles in three stages keep shared memory at 193 KB.  One block per SM;
+// ptxas reports the launch's share of registers (128 a thread at 512
+// threads, 168 at 384), no spills.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,22 +58,26 @@
 
 namespace fa90 {
 
-constexpr int kConsumers = 3;                       // warpgroups of 64 rows
-constexpr int kBlockQ = 64 * kConsumers;            // query rows per block
-constexpr int kThreads = (kConsumers + 1) * 128;    // + the producer warpgroup
-// registers a thread after setmaxnreg: the producer gives its share to the
-// consumers' accumulators (the launch gives 128 each)
-constexpr int kProducerRegs = 24, kConsumerRegs = 160;
-static_assert(128 * (kProducerRegs + kConsumers * kConsumerRegs) <= 65536, "register file");
+constexpr int kProducerRegs = 24;                   // registers of a producer thread
 constexpr int kStages = 3;                          // K/V ring depth
 constexpr float kNegInf = -1e30f;                   // the reference's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct Tile {
-  static constexpr int kBlockK = HD == 128 ? 64 : 128;    // keys per K/V tile
+  // consumer warpgroups of 64 query rows: three, or two at hd 192, whose
+  // O accumulator (96 floats a thread) needs the registers of the third
+  static constexpr int kConsumers = HD == 192 ? 2 : 3;
+  static constexpr int kBlockQ = 64 * kConsumers;         // query rows per block
+  static constexpr int kThreads = (kConsumers + 1) * 128; // + the producer warpgroup
+  // registers a consumer thread after setmaxnreg: the producer gives its
+  // share to the consumers' accumulators (the launch gives 128 a thread at
+  // 512 threads, 168 at 384)
+  static constexpr int kConsumerRegs = HD == 192 ? 240 : 160;
+  static_assert(128 * (kProducerRegs + kConsumers * kConsumerRegs) <= 65536, "register file");
+  static constexpr int kBlockK = HD >= 128 ? 64 : 128;    // keys per K/V tile
   static constexpr int kCols = HD < 64 ? HD : 64;         // columns per TMA box
-  static constexpr int kHalves = HD / kCols;              // 2 boxes a row at hd 128
+  static constexpr int kHalves = HD / kCols;              // boxes a row: 2 at hd 128, 3 at 192
   static constexpr int kRowBytes = 2 * kCols;             // 32, 64 or 128: the swizzle span
   static constexpr int kChunks = kCols / 16;              // k16 chunks per box row
   // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
@@ -281,6 +289,40 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
 }
 
+// D (m64n192, f32) += A (registers, 4 x bf16x2) * B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95 "
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
 #pragma unroll
@@ -288,7 +330,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
 }
 
 // S = Q.K^T for the K tile at ks: hd / 16 k16 steps; within a swizzled row
-// a step is 32 bytes, and hd 128 moves to the second box after 4
+// a step is 32 bytes, and hd 128 and 192 move to the next box every 4
 template <int HD>
 __device__ __forceinline__ void issue_qk(float (&s)[Tile<HD>::kBlockK / 2], uint64_t desc_q,
                                          uint32_t ks) {
@@ -302,7 +344,8 @@ __device__ __forceinline__ void issue_qk(float (&s)[Tile<HD>::kBlockK / 2], uint
 }
 
 // O += P.V for the V tile at vs: BK / 16 k16 steps of 16 keys, V rows
-// kRowBytes apart; hd 128's second box is the descriptor's leading offset
+// kRowBytes apart; the boxes of hd 128 and 192 (N = 128 or 192 in one
+// wgmma) are the descriptor's leading offset apart
 template <int HD>
 __device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
                                          const uint32_t (&p)[Tile<HD>::kBlockK / 4], uint32_t vs) {
@@ -371,12 +414,13 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[N], const float (&s)[2 * N]
 // 0 .. kConsumers - 1 consume (rows q0 + 64 * wg ...); the last one
 // produces, from one thread.
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Tile<HD>::kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                    int seq, int bh_count, int groups, int n_qt, int causal, int window) {
   using T = Tile<HD>;
   constexpr int BK = T::kBlockK;
+  constexpr int kConsumers = T::kConsumers, kBlockQ = T::kBlockQ;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;  // swizzle atoms need 1 KB
   const uint32_t q_s = base;                           // [halves][kBlockQ][kCols]
@@ -432,7 +476,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
 
   // ---------------------------------------------------------- consumers
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::kConsumerRegs));
   const int wg = warp / 4;
   const int wq0 = q0 + 64 * wg;                      // this warpgroup's first row
   const int quad = lane % 4;
@@ -583,7 +627,7 @@ template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int bh, int seq, int groups,
            int causal, int window, cudaStream_t st) {
   using T = Tile<HD>;
-  const int n_qt = (seq + kBlockQ - 1) / kBlockQ;
+  const int n_qt = (seq + T::kBlockQ - 1) / T::kBlockQ;
   const long long blocks = static_cast<long long>(bh) * n_qt;
   if (seq < 1 || blocks < 1 || blocks > 0x7fffffffLL || groups < 1 || bh % groups || window < 0) {
     return cudaErrorInvalidValue;
@@ -592,7 +636,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int seq
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return kErrNoEncode;
   CUtensorMap tq, tk, tv;
-  if (!(encode<HD>(fn, &tq, q, seq, bh, kBlockQ) &&
+  if (!(encode<HD>(fn, &tq, q, seq, bh, T::kBlockQ) &&
         encode<HD>(fn, &tk, k, seq, bh / groups, T::kBlockK) &&
         encode<HD>(fn, &tv, v, seq, bh / groups, T::kBlockK))) {
     return kErrEncode;
@@ -601,7 +645,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int seq
   const cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return err;
-  kern<<<static_cast<unsigned>(blocks), kThreads, T::kSmem, st>>>(
+  kern<<<static_cast<unsigned>(blocks), T::kThreads, T::kSmem, st>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), seq, bh, groups, n_qt, causal, window);
   return cudaGetLastError();
 }
@@ -620,6 +664,7 @@ extern "C" int flash_sm90_launch(const void* q, const void* k, const void* v, vo
     case 32: return fa90::launch<32>(q, k, v, o, bh, seq, groups, causal, window, st);
     case 64: return fa90::launch<64>(q, k, v, o, bh, seq, groups, causal, window, st);
     case 128: return fa90::launch<128>(q, k, v, o, bh, seq, groups, causal, window, st);
+    case 192: return fa90::launch<192>(q, k, v, o, bh, seq, groups, causal, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

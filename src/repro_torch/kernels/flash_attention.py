@@ -26,7 +26,8 @@ to the other or to the plain version:
   * bfloat16 -> ``csrc/flash_attn_sm90.cu`` ``flash_wgmma_kernel``: both
     products as ``wgmma`` tensor-core tiles with float32 accumulators, Q, K
     and V tiles copied by TMA into a ring of stages, one producer warpgroup
-    and three consumer warpgroups of 64 query rows.  At the prefill's
+    and three consumer warpgroups of 64 query rows (two at hd 192, whose
+    accumulator needs the registers of the third).  At the prefill's
     S = 2048 the tensor cores' rate bounds the work (4·hd flops per visible
     pair against 2·(BH + 2·BH/g)·S·hd bytes); every pointer must be 16-byte
     aligned;
@@ -53,7 +54,7 @@ NEG_INF = -1e30
 #: the plain version's tile: query rows and keys per step
 BLOCK = 64
 #: head dims the kernel is compiled for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192)
 
 #: the kernel each dtype launches on a CUDA tensor (a key of LAUNCHES)
 ROUTES = {torch.bfloat16: "flash_wgmma", torch.float32: "flash_simt"}

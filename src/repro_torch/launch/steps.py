@@ -8,7 +8,7 @@ The reference's steps take the parameters as an argument; here the
 ``Model`` holds them, and each factory returns the step with the model it
 runs (built with its seeded init on ``device`` unless one is passed).  Both steps
 run without autograd.  ``make_train_step`` waits for the training slice
-(ROADMAP Queue 1 item 14g).
+(ROADMAP Queue 1 item 14h).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Shared model substrate: norms, RoPE, initializers, masks."""
+"""Shared model substrate: norms, RoPE, initializers, masks, cross-entropy."""
 from __future__ import annotations
 
 import torch
@@ -13,18 +13,34 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return (xf * inv).to(dt) * scale.to(dt)
 
 
+#: a weight past this many elements is drawn a block of rows at a time, so
+#: its float32 temporaries stay near 1 GiB (a full-width embedding is 4.7 G)
+DRAW_ELEMS = 1 << 28
+
+
+def _draw(gen: torch.Generator, rows: int, cols: int, scale: float, dtype) -> torch.Tensor:
+    """(rows, cols), N(0, 1) * scale, drawn in float32 on ``gen``'s device."""
+    if rows * cols <= DRAW_ELEMS:
+        w = torch.randn((rows, cols), generator=gen, dtype=torch.float32, device=gen.device)
+        return (w * scale).to(dtype)
+    out = torch.empty((rows, cols), dtype=dtype, device=gen.device)
+    step = max(1, DRAW_ELEMS // cols)
+    for r0 in range(0, rows, step):
+        n = min(rows, r0 + step) - r0
+        w = torch.randn((n, cols), generator=gen, dtype=torch.float32, device=gen.device)
+        out[r0:r0 + n] = (w * scale).to(dtype)
+    return out
+
+
 def init_dense(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
                scale: float | None = None) -> torch.Tensor:
     """(in_dim, out_dim) weight, N(0, 1) * scale (default in_dim ** -0.5),
     drawn in float32 on ``gen``'s device."""
-    s = scale if scale is not None else in_dim ** -0.5
-    w = torch.randn((in_dim, out_dim), generator=gen, dtype=torch.float32, device=gen.device)
-    return (w * s).to(dtype)
+    return _draw(gen, in_dim, out_dim, scale if scale is not None else in_dim ** -0.5, dtype)
 
 
 def init_embed(gen: torch.Generator, vocab: int, d_model: int, dtype) -> torch.Tensor:
-    w = torch.randn((vocab, d_model), generator=gen, dtype=torch.float32, device=gen.device)
-    return (w * 0.02).to(dtype)
+    return _draw(gen, vocab, d_model, 0.02, dtype)
 
 
 # ------------------------------------------------------------------- RoPE
@@ -76,3 +92,11 @@ def activation_fn(name: str):
     if name == "relu2":                 # Nemotron-4 squared ReLU
         return lambda x: torch.square(F.relu(x))
     raise ValueError(name)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE in float32.  logits (..., V), labels (...) int."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()

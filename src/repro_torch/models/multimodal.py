@@ -1,7 +1,7 @@
 """Token batches for the text models, seeded with numpy exactly as the
 reference's ``models/multimodal.py`` seeds them, so both packages see the
 same tokens.  The vision and audio frontends wait (ROADMAP Queue 1 item
-14f)."""
+14g)."""
 from __future__ import annotations
 
 import numpy as np
@@ -13,7 +13,7 @@ from repro_torch.configs.base import ModelConfig
 def _text_only(cfg: ModelConfig) -> None:
     if cfg.n_codebooks or cfg.n_prefix_embeds:
         raise NotImplementedError(
-            f"{cfg.name}: multimodal batches are not ported yet (ROADMAP Queue 1 item 14f)")
+            f"{cfg.name}: multimodal batches are not ported yet (ROADMAP Queue 1 item 14g)")
 
 
 def text_batch(cfg: ModelConfig, batch: int, seq_len: int, seed: int = 0) -> dict:

@@ -6,8 +6,11 @@ HLO stays one period long; PyTorch runs eagerly, so here the layers are an
 period ``p``'s copy of pattern entry ``j``, the reference's slice ``p`` of
 ``params["blocks"][j]`` (``params_from_numpy`` maps one onto the other).
 
-Dense text models only: the multimodal frontends, multi-token prediction
-and the training loss wait (ROADMAP Queue 1 items 14f and 14g).
+Text models, dense or MoE, GQA or MLA.  DeepSeek's multi-token
+prediction head (``mtp_proj``, ``mtp_norm``) is initialised and carried
+across, and, as in the reference, the serving path does not use it; its
+loss waits with ``Model.loss`` (ROADMAP Queue 1 item 14h).  The
+multimodal frontends wait for item 14g.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.checkpoint.checkpoint import to_numpy
 from repro_torch.core.trainer import resolve_device
 from repro_torch.models import blocks, common
 from repro_torch.models.common import rms_norm
@@ -30,11 +34,7 @@ class Model(nn.Module):
         super().__init__()
         if cfg.n_codebooks or cfg.n_prefix_embeds:
             raise NotImplementedError(
-                f"{cfg.name}: multimodal inputs are not ported yet (ROADMAP Queue 1 item 14f)")
-        if cfg.mtp_depth:
-            raise NotImplementedError(
-                f"{cfg.name}: multi-token prediction is not ported yet "
-                "(ROADMAP Queue 1 item 14g)")
+                f"{cfg.name}: multimodal inputs are not ported yet (ROADMAP Queue 1 item 14g)")
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
         p = len(cfg.pattern)
@@ -46,6 +46,11 @@ class Model(nn.Module):
                 common.init_dense(gen, cfg.d_model, cfg.vocab, self.dtype))
         self.final_norm = nn.Parameter(
             torch.ones((cfg.d_model,), dtype=self.dtype, device=gen.device))
+        if cfg.mtp_depth:
+            self.mtp_proj = nn.Parameter(
+                common.init_dense(gen, 2 * cfg.d_model, cfg.d_model, self.dtype))
+            self.mtp_norm = nn.Parameter(
+                torch.ones((cfg.d_model,), dtype=self.dtype, device=gen.device))
         self.blocks = nn.ModuleList(
             blocks.init_block_params(gen, kind, self.use_moe[i % p], cfg, self.dtype)
             for i, kind in enumerate(cfg.layer_kinds))
@@ -105,6 +110,21 @@ def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+def active_param_count(cfg: ModelConfig, model: nn.Module) -> int:
+    """Parameters touched per token (MoE counts top_k + shared experts):
+    the reference's count, which takes the routed experts' share from the
+    config's shapes."""
+    total = param_count(model)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    inactive_frac = 1.0 - (m.top_k / m.n_experts)
+    moe_layers = sum(cfg.is_moe_layer(j) for j in range(len(cfg.pattern))) * cfg.n_periods
+    gated = cfg.activation.endswith("_gated")
+    per_layer_expert = m.n_experts * m.d_ff_expert * cfg.d_model * (3 if gated else 2)
+    return int(total - inactive_frac * per_layer_expert * moe_layers)
+
+
 def _flatten(tree: dict, prefix: str = ""):
     for key, val in tree.items():
         if isinstance(val, dict):
@@ -129,3 +149,32 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu") -> dict[str, t
             for p in range(cfg.n_periods):
                 state[f"blocks.{p * n_pat + j}.{name}"] = tensor(arr[p])
     return state
+
+
+def params_to_numpy(cfg: ModelConfig, model: nn.Module) -> dict:
+    """The inverse of ``params_from_numpy``: the reference's parameter
+    pytree of ``model`` as numpy arrays (``blocks`` one nested dict per
+    pattern entry, stacked over periods), so ``checkpoint.save`` writes
+    the file the reference's ``checkpoint.load(like=params)`` restores.
+    bfloat16 leaves become the 2-byte ``V2`` records the reference writes."""
+    state = model.state_dict()
+    tree: dict = {k: to_numpy(v) for k, v in state.items() if not k.startswith("blocks.")}
+    n_pat = len(cfg.pattern)
+    blocks_tree = []
+    for j in range(n_pat):
+        prefix = f"blocks.{j}."
+        entry: dict = {}
+        for key in state:
+            if not key.startswith(prefix):
+                continue
+            name = key[len(prefix):]
+            stacked = np.stack([to_numpy(state[f"blocks.{p * n_pat + j}.{name}"])
+                                for p in range(cfg.n_periods)])
+            *path, leaf = name.split(".")
+            node = entry
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = stacked
+        blocks_tree.append(entry)
+    tree["blocks"] = blocks_tree
+    return tree

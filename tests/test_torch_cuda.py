@@ -394,6 +394,9 @@ def _assert_one_launch(before, dtype):
     (6, 100, 64, 3, True, 65),      # ragged tile inside each of 6 heads
     (4, 100, 128, 4, False, 48),
     (2, 100, 32, 1, True, 48),
+    (24, 2048, 192, 12, True, 0),   # nemotron's hd 192, g 12: two consumer warpgroups
+    (4, 300, 192, 2, True, 65),
+    (4, 1, 192, 1, False, 0),
 ])
 def test_flash_wgmma_pipeline_edges(cuda, bh, s, hd, groups, causal, window):
     q, k, v = _qkv(bh, s, hd, torch.bfloat16, cuda, groups=groups, seed=s + hd + window)
@@ -531,3 +534,88 @@ def test_cluster_backends_on_card(cuda, kind):
         rows = bank.materialize()
         torch.testing.assert_close(got, ops.vqc_fidelity(spec, rows.theta, rows.data),
                                    rtol=0, atol=ATOL)
+
+
+# ------------------------------------------ MQA, MLA, MoE and checkpoints
+def _cpu_and_card(cfg, cuda):
+    """The same seeded parameters on the CPU and on the card."""
+    cpu = transformer.Model(cfg, device="cpu", seed=3)
+    card = transformer.Model(cfg, device=cuda, seed=3)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "deepseek-v3-671b", "granite-34b",
+                                  "nemotron-4-340b"])
+def test_new_archs_on_card_match_cpu(cuda, name):
+    """Reduced prefill (MoE dispatch, MLA, MQA, squared ReLU) and cached
+    decode on the card against the port on the CPU, float32; the MoE
+    routing is the same on both."""
+    from repro_torch.models import moe
+
+    cfg = cfg_base.get(name).reduced()
+    cpu, card = _cpu_and_card(cfg, cuda)
+    toks = multimodal.text_batch(cfg, 4, 32, seed=1)   # T*K = 256: the Switch capacity
+    with torch.no_grad():
+        want, want_aux = cpu.prefill(toks)
+        got, got_aux = card.prefill(toks)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=1e-5, atol=0)
+    if cfg.moe:
+        x = torch.randn((4, 32, cfg.d_model), generator=torch.Generator().manual_seed(0))
+        s_cpu, s_card = {}, {}
+        with torch.no_grad():
+            moe.moe_ffn(cpu.blocks[0].ffn, x, cfg, stats=s_cpu)
+            moe.moe_ffn(card.blocks[0].ffn, x.to(cuda), cfg, stats=s_card)
+        assert torch.equal(s_card["expert_idx"].cpu(), s_cpu["expert_idx"])
+        assert torch.equal(s_card["keep"].cpu(), s_cpu["keep"])
+    caches_c, caches_g = cpu.init_caches(2, 8), card.init_caches(2, 8)
+    with torch.no_grad():
+        for t in range(8):
+            tok = {"tokens": toks["tokens"][:2, t:t + 1]}
+            lc, caches_c = cpu.decode_step(tok, caches_c, t)
+            lg, caches_g = card.decode_step(tok, caches_g, t)
+            torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("impl", ["chunked", "flash"])
+def test_mqa_prefill_on_card_matches_naive(cuda, impl):
+    """granite-34b's MQA (one kv head) through the chunked online softmax
+    and the float32 flash route against the naive path on the card."""
+    cfg = cfg_base.get("granite-34b").reduced().with_(attention_chunk=16)
+    model = transformer.Model(cfg, device=cuda)
+    toks = multimodal.text_batch(cfg, 2, 64)
+    with torch.no_grad():
+        naive, _ = model.prefill(toks)
+        model.cfg = cfg.with_(attention_impl=impl)
+        got, _ = model.prefill(toks)
+    torch.testing.assert_close(got, naive, rtol=0, atol=1e-4)
+
+
+def test_checkpoint_round_trip_of_card_tensors(cuda, tmp_path):
+    """Tensors on the card, saved and restored into a template on the
+    card, bit for bit; a model restored from its checkpoint prefills the
+    same logits."""
+    from repro_torch import checkpoint
+
+    tree = {"a": torch.randn((5, 7), device=cuda), "b": [torch.arange(4, device=cuda)],
+            "c": (torch.randn(3, device=cuda, dtype=torch.float64),)}
+    checkpoint.save(str(tmp_path / "t.npz"), tree, {"n": 1})
+    like = {"a": torch.zeros((5, 7), device=cuda), "b": [torch.zeros(4, dtype=torch.int64,
+                                                                      device=cuda)],
+            "c": (torch.zeros(3, device=cuda, dtype=torch.float64),)}
+    got, meta = checkpoint.load(str(tmp_path / "t.npz"), like=like)
+    assert meta == {"n": 1}
+    assert got["a"].is_cuda and torch.equal(got["a"], tree["a"])
+    assert torch.equal(got["b"][0], tree["b"][0]) and torch.equal(got["c"][0], tree["c"][0])
+
+    cfg = cfg_base.get("deepseek-v3-671b").reduced()
+    model = transformer.Model(cfg, device=cuda, seed=4)
+    checkpoint.save(str(tmp_path / "m.npz"), transformer.params_to_numpy(cfg, model))
+    fresh = transformer.Model(cfg, device=cuda, seed=5)
+    restored, _ = checkpoint.load(str(tmp_path / "m.npz"),
+                                  like=transformer.params_to_numpy(cfg, fresh))
+    fresh.load_state_dict(transformer.params_from_numpy(cfg, restored, cuda))
+    toks = multimodal.text_batch(cfg, 2, 16)
+    with torch.no_grad():
+        assert torch.equal(fresh.prefill(toks)[0], model.prefill(toks)[0])

@@ -56,7 +56,7 @@ def _dense_oracle(q, k, v, causal=True, window=0):
     return np.einsum("bst,btd->bsd", p / p.sum(-1, keepdims=True), v)
 
 
-@pytest.mark.parametrize("s,hd", [(32, 16), (64, 32), (128, 64), (256, 128)])
+@pytest.mark.parametrize("s,hd", [(32, 16), (64, 32), (128, 64), (256, 128), (128, 192)])
 def test_shape_sweep(s, hd):
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(4, s, hd, seed=s), "float32")
     want = RF.flash_attention(jq, jk, jv, block_q=min(64, s), block_k=min(64, s),

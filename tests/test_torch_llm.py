@@ -58,7 +58,10 @@ def _synth(pkg):
         mla=pkg.MLAConfig(), ssm=pkg.SSMConfig())
 
 
-@pytest.mark.parametrize("name", ["smollm-360m", "qwen3-4b", "synth"])
+NEW_ARCHS = ["granite-34b", "nemotron-4-340b", "granite-moe-3b-a800m", "deepseek-v3-671b"]
+
+
+@pytest.mark.parametrize("name", ["smollm-360m", "qwen3-4b", "synth", *NEW_ARCHS])
 def test_config_and_reduced_field_for_field(name):
     if name == "synth":
         port, ref = _synth(base), _synth(rbase)
@@ -72,7 +75,8 @@ def test_config_and_reduced_field_for_field(name):
 
 
 def test_registry_holds_only_the_ported_architectures():
-    assert base.all_names() == ["qwen3-4b", "smollm-360m"]
+    assert base.all_names() == ["deepseek-v3-671b", "granite-34b", "granite-moe-3b-a800m",
+                                "nemotron-4-340b", "qwen3-4b", "smollm-360m"]
     assert base.INPUT_SHAPES == {k: base.InputShape(*dataclasses.astuple(v))
                                  for k, v in rbase.INPUT_SHAPES.items()}
 
@@ -106,6 +110,16 @@ def test_causal_mask_and_activations_match_reference():
     for name in ("silu", "gelu", "relu2"):
         np.testing.assert_allclose(_np(common.activation_fn(name)(torch.from_numpy(x))),
                                    _np(rcommon.activation_fn(name)(jnp.asarray(x))), atol=1e-6)
+
+
+def test_cross_entropy_matches_reference():
+    rng = np.random.default_rng(4)
+    logits = rng.standard_normal((2, 5, 33), dtype=np.float32) * 3
+    labels = rng.integers(0, 33, (2, 5), dtype=np.int32)
+    got = common.cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels))
+    want = rcommon.cross_entropy(jnp.asarray(logits), jnp.asarray(labels))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
 
 
 # ------------------------------------------------------------------ params
@@ -258,11 +272,8 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(attention_impl="chunked"), "14b"),
-    (dict(mla=base.MLAConfig()), "14c"),
-    (dict(moe=base.MoEConfig(n_experts=4, top_k=2, d_ff_expert=64)), "14d"),
-    (dict(pattern=("attn", "mamba")), "14e"),
-    (dict(n_prefix_embeds=4, prefix_embed_dim=8), "14f"),
+    (dict(pattern=("attn", "mamba")), "14f"),
+    (dict(n_prefix_embeds=4, prefix_embed_dim=8), "14g"),
 ])
 def test_unported_layers_raise_naming_their_roadmap_item(change, item):
     cfg = base.get("smollm-360m").reduced().with_(**change)
@@ -272,11 +283,93 @@ def test_unported_layers_raise_naming_their_roadmap_item(change, item):
 
 def test_blocks_route_by_attention_impl(monkeypatch):
     calls = []
-    monkeypatch.setattr(blocks, "gqa_flash_attention",
-                        lambda p, x, cfg: calls.append("flash") or torch.zeros_like(x))
-    monkeypatch.setattr(blocks.attention, "gqa_attention",
-                        lambda p, x, cfg: calls.append("naive") or torch.zeros_like(x))
-    for impl in ("flash", "naive"):
+    for name, impl in (("gqa_flash_attention", "flash"), ("gqa_attention", "naive"),
+                       ("chunked_gqa_attention", "chunked"), ("mla_attention", "mla")):
+        target = blocks if impl == "flash" else blocks.attention
+        monkeypatch.setattr(target, name, lambda p, x, cfg, impl=impl:
+                            calls.append(impl) or torch.zeros_like(x))
+    for impl in ("flash", "naive", "chunked", "chunked_seqpar"):
         cfg = base.get("smollm-360m").reduced().with_(attention_impl=impl)
         transformer.Model(cfg, device="cpu").prefill(multimodal.text_batch(cfg, 1, 4))
-    assert calls == ["flash", "flash", "naive", "naive"]
+    cfg = base.get("deepseek-v3-671b").reduced().with_(attention_impl="flash")
+    transformer.Model(cfg, device="cpu").prefill(multimodal.text_batch(cfg, 1, 4))
+    assert calls == ["flash"] * 2 + ["naive"] * 2 + ["chunked"] * 4 + ["mla"] * 2
+
+
+# ------------------------------------------------- MQA, relu2, MLA and MoE
+@pytest.mark.parametrize("name", NEW_ARCHS)
+def test_prefill_logits_match_reference_new_archs(name):
+    """granite-34b (MQA through the flash path), nemotron (squared ReLU),
+    granite-moe (MoE) and deepseek (MLA + MoE with a shared expert)."""
+    impl = "flash" if name == "granite-34b" else "naive"
+    rcfg = rbase.get(name).reduced().with_(attention_impl=impl)
+    cfg = base.get(name).reduced().with_(attention_impl=impl)
+    got, want = _prefill_both(rcfg, cfg, 2, 32)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", NEW_ARCHS)
+def test_decode_matches_reference_new_archs(name):
+    """Cached decode against the reference's, and against the port's own
+    prefill (MoE made dropless, where both agree only then)."""
+    cfg, rcfg = base.get(name).reduced(), rbase.get(name).reduced()
+    got, want, model, toks = _decode_both(rcfg, cfg, 6, 8)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    if cfg.moe:
+        model.cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, dropless=True))
+    full, _ = model.prefill(toks)
+    np.testing.assert_allclose(got, _np(full), atol=ATOL)
+
+
+def test_chunked_prefill_matches_reference_granite_34b():
+    """MQA (one kv head, g = 4 at the reduced widths) through the chunked
+    online softmax, 4 chunks."""
+    cut = dict(attention_impl="chunked", attention_chunk=8)
+    rcfg, cfg = rbase.get("granite-34b").reduced().with_(**cut), \
+        base.get("granite-34b").reduced().with_(**cut)
+    got, want = _prefill_both(rcfg, cfg, 2, 32)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_active_param_count_matches_reference():
+    for name in ("granite-moe-3b-a800m", "deepseek-v3-671b"):
+        cfg, rcfg = base.get(name).reduced(), rbase.get(name).reduced()
+        tree = _ref_params(rcfg)
+        model = _port(cfg, tree)
+        assert transformer.param_count(model) == rtransformer.param_count(tree)
+        assert (transformer.active_param_count(cfg, model)
+                == rtransformer.active_param_count(rcfg, tree))
+        assert transformer.active_param_count(cfg, model) < transformer.param_count(model)
+
+
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "deepseek-v3-671b"])
+def test_params_to_numpy_inverts_params_from_numpy(name):
+    """The reference's tree, through the port's model and back: the same
+    structure (blocks per pattern entry, stacked over periods; MoE expert
+    banks (E, din, dout); DeepSeek's MTP head) and the same values."""
+    cfg = base.get(name).reduced()
+    tree = _ref_params(rbase.get(name).reduced())
+    back = transformer.params_to_numpy(cfg, _port(cfg, tree))
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for got, want in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v3-671b"])
+def test_run_reduced_tokens_equal_reference_moe(arch, capsys):
+    b, plen, gen = 2, 3, 5
+    rserve.run_reduced(arch, b, plen, gen)
+    printed = capsys.readouterr().out
+    want_row0 = [int(t) for t in
+                 re.search(r"sample continuation: \[([^\]]*)\]", printed).group(1).split(",")]
+    tree = _ref_params(rbase.get(arch).reduced())
+    got = serve.run_reduced(arch, b, plen, gen, device="cpu", params=tree)
+    assert got.shape == (b, gen)
+    assert got[0].tolist() == want_row0
+
+
+def test_serve_main_deepseek_on_cpu(capsys):
+    serve.main(["--arch", "deepseek-v3-671b", "--reduced", "--batch", "2", "--prompt-len", "3",
+                "--gen", "2", "--device", "cpu"])
+    assert "sample continuation" in capsys.readouterr().out
