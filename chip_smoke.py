@@ -33,10 +33,13 @@ Phases, in order; any failure exits non-zero before the result line:
                S 2048, hd 64, g 3) in bf16 and f32, at Qwen3-4B's (BH 32,
                hd 128, g 4) in bf16, Granite-34B's MQA (BH 192, hd 128,
                g 48) and Nemotron-4-340B's (BH 384, hd 192, g 12) in both,
-               with window 64 and non-causal at S 256, at S 100 (the last
-               tile part full), S 1 and S 192, within 2e-5 (f32) and 2e-2
-               (bf16), then both routes are timed at the smollm, granite-34b
-               and nemotron prefill shapes (4 x 2048) beside
+               Phi-3-vision's hd 96 (BH 128, g 1) in both, Jamba's (BH
+               128, hd 128, g 4) and MusicGen's (BH 128, hd 64, g 1) in
+               bf16, with window 64 and non-causal at S 256, at S 100 (the
+               last tile part full), S 1 and S 192, within 2e-5 (f32) and
+               2e-2 (bf16), then both routes are timed at the smollm,
+               granite-34b, nemotron, phi-3-vision, jamba and musicgen
+               prefill shapes (4 x 2048) beside
                ``scaled_dot_product_attention`` (timed only);
   4. train   — QuClassi Algorithm 1 through the data plane's
                ``worker_batched_executor``, 3 steps of 64 images after one
@@ -121,6 +124,27 @@ Phases, in order; any failure exits non-zero before the result line:
                logits' difference logged in bf16 steps); (e) checkpoints: the 7q-3l parameters trained in phase
                4, and ``granite-moe-3b-a800m`` at 1 layer in float32 restored
                into a fresh model, equal bit for bit.
+  9. ssm/mm  — the SSM / xLSTM mixers and the multimodal frontends, seeded,
+               published widths, each model freed before the next, counts
+               zeroed before each prefill and read after: (a)
+               ``jamba-v0.1-52b`` cut to one period (8 layers: 7 Mamba, 1
+               attention through flash at hd 128 g 4, MoE 16 experts top-2
+               on layers 1, 3, 5, 7), bf16: a 4 x 2048 prefill (1
+               flash_wgmma launch, capacity and dropped pairs, the Mamba
+               mixers' and MoE layers' share of busy time by CUDA events,
+               peak memory) and 4 x (64 + 16) decode, then float32,
+               dropless: the cached decode's logits over 2 x 64 positions
+               within 1e-3 of the prefill's, first token equal; (b)
+               ``xlstm-125m`` whole (6 mLSTM + 6 sLSTM): the same runs, no
+               kernel launched, the sLSTM loop's launches; (c)
+               ``phi-3-vision-4.2b`` whole: 576 projected patch embeddings
+               + 1,472 text tokens, 32 flash_wgmma launches at hd 96, the
+               flash attention layer within 2e-2 of naive relative to
+               max(1, |naive|), text decode; (d) ``musicgen-large`` whole
+               (4 codebooks): 4 x 2048 frames, decode per codebook; (e)
+               xlstm-125m in float32 through ``repro_torch.checkpoint`` bit
+               for bit, and a bf16 reduced Jamba's float32 leaves kept
+               through ``params_to_numpy`` -> ``params_from_numpy``.
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Needs CUDA; without it, or without the
 repository around it, it exits non-zero and prints no result.
@@ -193,8 +217,10 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float | None:
     """Mean device time of the CUDA kernel whose name contains ``kernel``
     over ``iters`` calls of ``fn`` (torch.profiler's kernel records): the
     kernel alone, where CUDA events around back-to-back calls also count
-    the gaps in which the card waits for the host.  None, said in the log,
-    when two profiled windows both miss some of the launches."""
+    the gaps in which the card waits for the host.  The profiler may drop
+    a few kernel records of a window: then the mean is over the launches it
+    recorded (said in the log), and None, said too, when two windows both
+    hold fewer than half of them."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -207,7 +233,10 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float | None:
         hits = [e for e in prof.key_averages()
                 if e.device_type == cuda_kind and kernel in e.key]
         count = sum(e.count for e in hits)
-        if count == iters:
+        if 2 * count >= iters:
+            if count != iters:
+                log(f"  the profiler recorded {count} of {iters} launches of {kernel}: device "
+                    "time is their mean")
             return sum(e.self_device_time_total for e in hits) / 1e3 / count
     log(f"  the profiler recorded {count} of {iters} launches of {kernel}: "
         "device time not measured")
@@ -244,11 +273,15 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) -> tu
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def profile_window(fn):
+def profile_window(fn, cpu: bool = True):
     """Run ``fn`` once under ``torch.profiler``: host-clock ms (ending in a
-    synchronise), the CUDA kernels' key averages, and their busy ms."""
+    synchronise), the CUDA kernels' key averages, and their busy ms.
+    ``cpu=False`` records the CUDA activity alone (a window of hundreds of
+    thousands of launches then costs seconds, not minutes, to read)."""
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
@@ -301,6 +334,14 @@ def check_flash(dev, card: str) -> tuple[float, dict]:
         ("part-full tile", 6, 100, 32, bf16, 1, False, 0),
         ("one row", 6, 1, 64, bf16, 3, True, 0),
         ("1.5 tiles", 6, 192, 64, bf16, 3, True, 0),
+        ("phi-3-vision-4.2b prefill", 128, 2048, 96, bf16, 1, True, 0),
+        ("phi-3-vision-4.2b prefill", 128, 2048, 96, f32, 1, True, 0),
+        ("jamba-v0.1-52b prefill", 128, 2048, 128, bf16, 4, True, 0),
+        ("musicgen-large prefill", 128, 2048, 64, bf16, 1, True, 0),
+        ("part-full tile", 6, 100, 96, bf16, 3, True, 64),
+        ("part-full tile", 6, 100, 96, f32, 3, False, 0),
+        ("1.5 tiles", 6, 192, 96, bf16, 3, False, 65),
+        ("one row", 4, 1, 96, bf16, 1, True, 0),
     ]
     worst = {bf16: 0.0, f32: 0.0}
     for i, (label, bh, s, hd, dtype, groups, causal, window) in enumerate(cases):
@@ -323,7 +364,8 @@ def check_flash(dev, card: str) -> tuple[float, dict]:
     # timing at the serving paths' shapes, 4 requests x 2048 tokens, bf16 on
     # the wgmma route and float32 on the SIMT route: smollm-360m (the row's
     # main shape, phase 5), granite-34b's MQA and nemotron-4-340b's hd 192
-    # (phase 8)
+    # (phase 8), phi-3-vision's hd 96, jamba's hd 128 g 4 and musicgen's
+    # hd 64 g 1 (phase 9)
     timed = [time_flash(dev, card, *shape) for shape in FLASH_SHAPES]
     main = dict(timed[0])
     simt = {"source": "src/repro_torch/kernels/csrc/flash_attn.cu", "dtype": "float32",
@@ -334,7 +376,10 @@ def check_flash(dev, card: str) -> tuple[float, dict]:
 #: flash timing shapes: label, batch, heads, kv heads, S, hd
 FLASH_SHAPES = (("smollm-360m prefill", 4, 15, 5, 2048, 64),
                 ("granite-34b prefill", 4, 48, 1, 2048, 128),
-                ("nemotron-4-340b prefill", 4, 96, 8, 2048, 192))
+                ("nemotron-4-340b prefill", 4, 96, 8, 2048, 192),
+                ("phi-3-vision-4.2b prefill", 4, 32, 32, 2048, 96),
+                ("jamba-v0.1-52b prefill", 4, 32, 8, 2048, 128),
+                ("musicgen-large prefill", 4, 32, 32, 2048, 64))
 
 
 def time_flash(dev, card: str, label: str, b: int, h: int, kv: int, s: int, hd: int) -> dict:
@@ -618,22 +663,27 @@ def timed_prefill(prefill, batch, runs: int = 3) -> tuple[float, list]:
 
 def decode_requests(steps, serve, model, cfg, b: int, plen: int, gen: int, card: str,
                     label: str) -> torch.Tensor:
-    """``b`` requests, a seeded ``plen``-token prompt each, ``gen`` greedy
-    tokens through the cache; generated tokens/s logged."""
+    """``b`` requests, a seeded ``plen``-token prompt each (frames of K
+    codes for audio, text for a VLM), ``gen`` greedy positions through the
+    cache; generated tokens/s (frames/s for audio) logged."""
     from repro_torch.models import multimodal
 
     serve_step = steps.make_serve_step(cfg, model=model)[0]
-    prompt = multimodal.text_batch(cfg, b, plen, seed=1)
-    serve.generate(serve_step, model, {"tokens": prompt["tokens"][:, :2]}, 1)  # warm-up
+    key = "codes" if cfg.n_codebooks else "tokens"
+    make = multimodal.audio_batch if cfg.n_codebooks else multimodal.text_batch
+    prompt = make(cfg, b, plen, seed=1)
+    serve.generate(serve_step, model, {key: prompt[key][:, :2]}, 1)  # warm-up
     res = serve.generate(serve_step, model, prompt, gen)
     toks = res["tokens"]
-    if toks.shape != (b, gen) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+    shape = (b, gen, cfg.n_codebooks) if cfg.n_codebooks else (b, gen)
+    if toks.shape != shape or not ((toks >= 0) & (toks < cfg.vocab)).all():
         raise AssertionError(f"{label}: generated tokens {tuple(toks.shape)} out of range")
+    unit = f"frames (of {cfg.n_codebooks} codes)" if cfg.n_codebooks else "tokens"
     log(f"{label} decode: {b} x ({plen} prompt + {gen} generated) cached decode steps: "
         f"prompt {res['prompt_s'] * 1e3:.3f} ms, generation {res['gen_s'] * 1e3:.3f} ms, "
-        f"{b * gen / res['gen_s']:,.1f} generated tokens/s; request 0: {toks[0].tolist()} "
-        f"[{card}]")
-    one = {"tokens": prompt["tokens"][:, :1]}
+        f"{b * gen / res['gen_s']:,.1f} generated {unit}/s; request 0: "
+        f"{(toks[0, :, 0] if cfg.n_codebooks else toks[0]).tolist()} [{card}]")
+    one = {key: prompt[key][:, :1]}
     wall_ms, kern, busy_ms = profile_window(lambda: serve.generate(serve_step, model, one, 1))
     log(f"profile {label} decode: 2 cached decode steps in {wall_ms:.3f} ms host clock "
         f"(profiled), device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
@@ -880,14 +930,286 @@ def serve_zoo(dev, card: str, qparams: dict) -> dict:
     return launched
 
 
+def peak_gib(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def mixer_share(model, cfg, kind: str, b: int, s: int, busy_ms: float, dev, card: str) -> None:
+    """One ``kind`` mixer alone at the prefill's shape, timed by CUDA events,
+    and its share of the profiled prefill's busy time over the model's
+    layers of that kind."""
+    from repro_torch.models import blocks
+
+    layers = [i for i, k in enumerate(cfg.layer_kinds) if k == kind]
+    mixer = blocks._SSM[kind][1]
+    params = model.blocks[layers[0]].mixer
+    h = torch.randn((b, s, cfg.d_model), device=dev, dtype=model.dtype)
+    with torch.no_grad():
+        ms = time_ms(lambda: mixer(params, h, cfg), iters=2, warmup=1)
+    n = len(layers)
+    log(f"time {cfg.name} {kind} mixer (events): {ms:.3f} ms a layer at {b} x {s}; x {n} "
+        f"layers against the profiled prefill's {busy_ms:.3f} ms busy: {n * ms / busy_ms:.4f} "
+        f"[{card}]")
+
+
+def serve_ssm_multimodal(dev, card: str) -> dict:
+    """Phase 9: the SSM / xLSTM mixers and the multimodal frontends (Jamba
+    one period, xLSTM-125M, Phi-3-vision, MusicGen-large) and their
+    checkpoints.  Returns the flash launches of its main-path runs per
+    route."""
+    from repro_torch import checkpoint
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import vqc_statevector as K
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import blocks, moe, multimodal, ssm, transformer
+
+    launched = {"flash_wgmma": 0, "flash_simt": 0}
+
+    def count_from_zero():
+        torch.cuda.synchronize()
+        zero_flash_counts()
+        zero_counts(K)
+
+    def read_counts(label, want):
+        torch.cuda.synchronize()
+        if {k: FA.LAUNCHES[k] for k in want} != want:
+            raise AssertionError(f"{label}: flash launches {dict(FA.LAUNCHES)}, want {want}")
+        others = {k: n for k, n in K.LAUNCHES.items() if n}
+        if others:
+            raise AssertionError(f"{label}: launched circuit kernels {others}")
+        for key in launched:
+            launched[key] += FA.LAUNCHES[key]
+
+    def consistency(cfg32, b, plen, label):
+        """float32: the cached decode's logits at every prompt position
+        against the prefill's (within SERVE_TOL), first token equal."""
+        t0 = time.perf_counter()
+        prefill32, model32 = steps.make_prefill_step(cfg32, device=dev)
+        serve32 = steps.make_serve_step(cfg32, model=model32)[0]
+        make = multimodal.audio_batch if cfg32.n_codebooks else multimodal.text_batch
+        prompt = make(cfg32, b, plen, seed=0)
+        n_attn = cfg32.layer_kinds.count("attn") if cfg32.attention_impl == "flash" else 0
+        count_from_zero()
+        full = prefill32(prompt).float()
+        read_counts(f"{label} float32 prefill", {"flash_wgmma": 0, "flash_simt": n_attn})
+        res = serve.generate(serve32, model32, prompt, 1, keep_logits=True)
+        diff = float((res["prompt_logits"] - full).abs().max())
+        first_ok = torch.equal(res["tokens"][:, 0].cpu(), full[:, -1].argmax(-1).cpu())
+        log(f"{label} consistency (float32, TF32 off): cached decode through the states"
+            f"{' and KV caches' if n_attn else ''} vs prefill logits over {b} x {plen} "
+            f"positions: max|diff| = {diff:.3e} (limit {SERVE_TOL}), logit scale "
+            f"{float(full.abs().max()):.3f}; first generated token equal: {first_ok}; peak "
+            f"{peak_gib(dev):.2f} GiB; {time.perf_counter() - t0:.2f} s with the init [{card}]")
+        if not (diff <= SERVE_TOL and first_ok):
+            raise AssertionError(f"{label}: decode and prefill disagree: {diff}, first {first_ok}")
+        del model32, prefill32, serve32, full, res
+        free()
+
+    def prefill_phase(cfg, batch, b, s, label, want, spy=None, runs=3, cpu=True,
+                      profiled=None):
+        """One counted prefill (routed through ``spy`` if given; it also
+        pays the first-call costs), ``runs`` timed, one profiled (``cpu``:
+        as ``profile_window``; of ``profiled``, a shorter batch, if given);
+        returns the profiled prefill's busy ms."""
+        prefill, model = steps.make_prefill_step(cfg, model=models[-1])
+        count_from_zero()
+        if spy is None:
+            logits = prefill(batch)
+        else:
+            with spy:
+                logits = prefill(batch)
+        read_counts(f"{label} prefill", want)
+        shape = (b, s) + ((cfg.n_codebooks,) if cfg.n_codebooks else ()) + (cfg.vocab,)
+        if tuple(logits.shape) != shape or not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"{label}: prefill logits {tuple(logits.shape)} not finite")
+        del logits
+        ms, runs = timed_prefill(prefill, batch, runs)
+        unit = "frames" if cfg.n_codebooks else "tokens"
+        log(f"{label} prefill: {b} x {s} {unit} in {ms:.3f} ms mean of {len(runs)} "
+            f"({', '.join(f'{r:.3f}' for r in runs)}), {b * s / ms * 1e3:,.1f} {unit}/s; "
+            f"{want['flash_wgmma']} flash_wgmma launches; peak {peak_gib(dev):.2f} GiB [{card}]")
+        window = batch if profiled is None else profiled
+        wall_ms, kern, busy_ms = profile_window(lambda: prefill(window), cpu=cpu)
+        shape = "" if profiled is None else f" of {' x '.join(map(str, window['tokens'].shape))}"
+        log(f"profile {label} prefill{shape}: {wall_ms:.3f} ms host clock (profiled"
+            f"{'' if cpu else ', CUDA activity only'}), device busy {busy_ms:.3f} ms, idle share "
+            f"{1 - busy_ms / wall_ms:.4f}, {sum(e.count for e in kern)} kernel launches [{card}]")
+        log_top(kern, 6)
+        return busy_ms
+
+    t_phase = time.perf_counter()
+    models, t_part = [], [t_phase]
+
+    def lap(label):
+        now = time.perf_counter()
+        log(f"ssm/mm: {label} took {now - t_part[0]:.2f} s wall")
+        t_part[0] = now
+
+    def build(cfg, label, note=""):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        model = transformer.Model(cfg, device=dev)
+        torch.cuda.synchronize()
+        models[:] = [model]
+        log(f"ssm/mm {label}: {cfg.n_layers} layers ({'/'.join(sorted(set(cfg.layer_kinds)))}), "
+            f"d {cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads, hd {cfg.resolved_head_dim}, "
+            f"{cfg.dtype}{note}, {transformer.param_count(model):,} parameters, "
+            f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card (seeded init in "
+            f"{time.perf_counter() - t0:.2f} s)")
+        return model
+
+    # (a) jamba-v0.1-52b at full width, one period of 8 layers: 7 Mamba + 1
+    # attention (flash, hd 128, g 4), MoE 16 experts top-2 on layers 1, 3,
+    # 5, 7, a dense SiLU-gated FFN on the others
+    cfg = cfg_base.get("jamba-v0.1-52b").with_(n_layers=8, attention_impl="flash")
+    b, s = 4, 2048
+    model = build(cfg, cfg.name, f", one period of {cfg.n_layers} layers")
+    batch = multimodal.text_batch(cfg, b, s, seed=0)
+    spy = MoESpy()
+    busy_ms = prefill_phase(cfg, batch, b, s, cfg.name, {"flash_wgmma": 1, "flash_simt": 0},
+                            spy=spy)
+    dropped, pairs = spy.dropped()
+    cap = spy.calls[0]["capacity"]
+    if len(spy.calls) != 4 or cap != moe.capacity(cfg, b * s):
+        raise AssertionError(f"{cfg.name}: {len(spy.calls)} MoE calls, capacity {cap}")
+    log(f"{cfg.name} routing: capacity {cap} a expert, dropped (token, k) pairs {dropped} of "
+        f"{pairs} ({dropped / pairs:.4f}) over the 4 MoE layers")
+    mixer_share(model, cfg, "mamba", b, s, busy_ms, dev, card)
+    moe_share(model, cfg, b, s, busy_ms, dev, card)
+    decode_requests(steps, serve, model, cfg, b, 64, 16, card, cfg.name)
+    log(f"{cfg.name}: peak {peak_gib(dev):.2f} GiB")
+    del model, batch
+    models.clear()
+    free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    consistency(cfg.with_(dtype="float32", moe=dataclasses.replace(cfg.moe, dropless=True)),
+                2, 64, f"{cfg.name} (one period, dropless)")
+    lap("(a) jamba-v0.1-52b")
+
+    # (b) xlstm-125m whole: 6 mLSTM + 6 sLSTM layers, no attention, no FFN
+    cfg = cfg_base.get("xlstm-125m")
+    model = build(cfg, cfg.name)
+    batch = multimodal.text_batch(cfg, b, s, seed=0)
+    # host-bound (the sLSTM loop, 27 launches a step): one timed run, the
+    # profiles a quarter as long and without the CPU activity (reading a
+    # window of 4 x 2048, 335,000 launches, took a minute)
+    sq = s // 4
+    busy_ms = prefill_phase(cfg, batch, b, s, cfg.name, {"flash_wgmma": 0, "flash_simt": 0},
+                            runs=1, cpu=False, profiled=multimodal.text_batch(cfg, b, sq, seed=0))
+    h = torch.randn((b, sq, cfg.d_model), device=dev, dtype=model.dtype)
+    with torch.no_grad():
+        wall_ms, kern, sl_busy = profile_window(
+            lambda: ssm.slstm_mixer(model.blocks[1].mixer, h, cfg), cpu=False)
+    n_sl, n_layers = sum(e.count for e in kern), cfg.layer_kinds.count("slstm")
+    log(f"{cfg.name} sLSTM loop: {n_sl} kernel launches a layer at {b} x {sq} ({n_sl / sq:.1f} a "
+        f"step), {n_layers * n_sl} over the {n_layers} sLSTM layers; one layer {wall_ms:.3f} ms "
+        f"host clock (profiled), device busy {sl_busy:.3f} ms, x {n_layers} layers against the "
+        f"{b} x {sq} prefill's {busy_ms:.3f} ms busy: {n_layers * sl_busy / busy_ms:.4f} [{card}]")
+    mixer_share(model, cfg, "mlstm", b, sq, busy_ms, dev, card)
+    decode_requests(steps, serve, model, cfg, b, 64, 16, card, cfg.name)
+    del model, batch, h
+    models.clear()
+    free()
+    consistency(cfg.with_(dtype="float32"), 2, 64, cfg.name)
+    lap("(b) xlstm-125m")
+
+    # (c) phi-3-vision-4.2b whole: 576 projected patch embeddings + 1472
+    # text tokens, MHA at hd 96 through the flash kernel
+    cfg = cfg_base.get("phi-3-vision-4.2b").with_(attention_impl="flash")
+    model = build(cfg, cfg.name, f", {cfg.n_prefix_embeds} patch embeddings of "
+                  f"{cfg.prefix_embed_dim}")
+    batch = multimodal.vlm_batch(cfg, b, s, seed=0)
+    prefill_phase(cfg, batch, b, s, cfg.name, {"flash_wgmma": cfg.n_layers, "flash_simt": 0})
+    with torch.no_grad():
+        h = rms_norm_of_embed(model, batch)
+        att = {impl: blocks_attention(model, cfg, impl, h) for impl in ("flash", "naive")}
+    naive_att = att["naive"].float()
+    d_abs = (att["flash"].float() - naive_att).abs()
+    d_att = float((d_abs / naive_att.abs().clamp(min=1.0)).max())
+    log(f"{cfg.name} attention layer 0 on the {b} x {s} image + text prefix, flash (wgmma, hd "
+        f"96) vs naive: max|diff| / max(1, |naive|) = {d_att:.3e} (limit "
+        f"{FLASH_TOL[torch.bfloat16]}; max|diff| {float(d_abs.max()):.3e} at outputs up to "
+        f"{float(naive_att.abs().max()):.3f}) [{card}]")
+    if not d_att <= FLASH_TOL[torch.bfloat16]:
+        raise AssertionError(f"phi-3-vision flash and naive attention differ by {d_att}")
+    del h, att, naive_att, d_abs
+    decode_requests(steps, serve, model, cfg, b, 64, 16, card, cfg.name)
+    del model, batch
+    models.clear()
+    free()
+    lap("(c) phi-3-vision-4.2b")
+
+    # (d) musicgen-large whole: K = 4 codebooks of 2048, MHA at hd 64
+    cfg = cfg_base.get("musicgen-large").with_(attention_impl="flash")
+    model = build(cfg, cfg.name, f", {cfg.n_codebooks} codebooks of {cfg.vocab}")
+    batch = multimodal.audio_batch(cfg, b, s, seed=0)
+    prefill_phase(cfg, batch, b, s, cfg.name, {"flash_wgmma": cfg.n_layers, "flash_simt": 0})
+    decode_requests(steps, serve, model, cfg, b, 64, 16, card, cfg.name)
+    del model, batch
+    models.clear()
+    free()
+    lap("(d) musicgen-large")
+
+    # (e) checkpoints: xlstm-125m in float32, bit for bit; a bf16 reduced
+    # Jamba keeps its float32 leaves float32 through params_to_numpy ->
+    # params_from_numpy
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    ckdir.mkdir(parents=True, exist_ok=True)
+    cfg = cfg_base.get("xlstm-125m").with_(dtype="float32")
+    model = transformer.Model(cfg, device=dev, seed=1)
+    batch = multimodal.text_batch(cfg, 2, 256, seed=0)
+    with torch.no_grad():
+        want = model.prefill(batch)[0]
+    path = str(ckdir / "xlstm.npz")
+    t0 = time.perf_counter()
+    checkpoint.save(path, transformer.params_to_numpy(cfg, model), {"arch": cfg.name})
+    t1 = time.perf_counter()
+    fresh = transformer.Model(cfg, device=dev, seed=2)
+    tree, meta = checkpoint.load(path, like=transformer.params_to_numpy(cfg, fresh))
+    fresh.load_state_dict(transformer.params_from_numpy(cfg, tree, dev))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with torch.no_grad():
+        got = fresh.prefill(batch)[0]
+    same_leaves = all(torch.equal(v, fresh.state_dict()[k]) for k, v in model.state_dict().items())
+    same = torch.equal(got, want) and same_leaves
+    log(f"checkpoint {cfg.name} (float32, {transformer.param_count(model):,} parameters): saved "
+        f"in {t1 - t0:.3f} s, loaded into a fresh model on the card in {t2 - t1:.3f} s; every "
+        f"leaf and the prefill logits equal bit for bit: {same}")
+    if not (same and meta == {"arch": cfg.name}):
+        raise AssertionError("the restored xlstm model differs")
+    cfg = cfg_base.get("jamba-v0.1-52b").reduced().with_(dtype="bfloat16")
+    model = transformer.Model(cfg, device=dev, seed=3)
+    back = transformer.params_from_numpy(cfg, transformer.params_to_numpy(cfg, model), dev)
+    f32 = {k: v.dtype for k, v in back.items() if v.dtype == torch.float32}
+    want_f32 = {f"blocks.{i}.mixer.{leaf}" for i, kind in enumerate(cfg.layer_kinds)
+                for leaf in ssm.FLOAT32_LEAVES.get(kind, ())}
+    kept = (set(f32) == want_f32
+            and all(torch.equal(back[k], v) for k, v in model.state_dict().items()))
+    log(f"checkpoint {cfg.name} (reduced, bf16): {len(f32)} float32 leaves (dt_bias, a_log, "
+        f"d_skip of {cfg.layer_kinds.count('mamba')} Mamba layers) kept float32 and every leaf "
+        f"equal through params_to_numpy -> params_from_numpy: {kept}")
+    if not kept:
+        raise AssertionError("bf16 jamba lost its float32 leaves")
+    for f in ckdir.iterdir():
+        f.unlink()
+    ckdir.rmdir()
+    del model, fresh, tree, want, got, back
+    free()
+    log(f"ssm/mm: phase 9 took {time.perf_counter() - t_phase:.2f} s wall")
+    return launched
+
+
 def moe_share(model, cfg, b: int, s: int, busy_ms: float, dev, card: str) -> None:
     """One MoE layer (``moe_ffn``) and its expert bank alone at the
     prefill's shape, timed by CUDA events (their kernels keep the card
-    busy), and their share of the profiled prefill's busy time over all
-    layers."""
+    busy), and their share of the profiled prefill's busy time over the
+    model's MoE layers."""
     from repro_torch.models import moe
 
-    params = model.blocks[0].ffn
+    moe_layers = [i for i in range(cfg.n_layers) if model.use_moe[i % len(cfg.pattern)]]
+    params = model.blocks[moe_layers[0]].ffn
     cap = moe.capacity(cfg, b * s)
     h = torch.randn((b, s, cfg.d_model), device=dev, dtype=model.dtype)
     xs = torch.randn((max(cfg.moe.n_experts, cfg.moe.pad_to), cap, cfg.d_model), device=dev,
@@ -896,7 +1218,7 @@ def moe_share(model, cfg, b: int, s: int, busy_ms: float, dev, card: str) -> Non
         layer_ms = time_ms(lambda: moe.moe_ffn(params, h, cfg), iters=5, warmup=1)
         bank_ms = time_ms(lambda: moe._expert_ffn(params.experts, xs, cfg.activation), iters=5,
                           warmup=1)
-    n = cfg.n_layers
+    n = len(moe_layers)
     log(f"time {cfg.name} MoE layer (events): moe_ffn {layer_ms:.3f} ms, its expert bank "
         f"(E {xs.shape[0]} x capacity {cap}) {bank_ms:.3f} ms, routing + dispatch + combine"
         f"{' + shared expert' if cfg.moe.n_shared_experts else ''} {layer_ms - bank_ms:.3f} ms; "
@@ -1960,6 +2282,11 @@ def main() -> int:
     zoo = serve_zoo(dev, card, trained["7q implicit"])
     launches["flash"] += zoo["flash_wgmma"]
     records["flash"]["simt"]["launches"] += zoo["flash_simt"]
+
+    # ------------------------------------------------- 9. SSM and multimodal
+    mm = serve_ssm_multimodal(dev, card)
+    launches["flash"] += mm["flash_wgmma"]
+    records["flash"]["simt"]["launches"] += mm["flash_simt"]
 
     kernels = [
         {"name": "fidelity", "route": "cuda",

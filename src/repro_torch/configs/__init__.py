@@ -13,6 +13,10 @@ _MODULES = (
     "nemotron_4_340b",
     "granite_moe_3b_a800m",
     "deepseek_v3_671b",
+    "jamba_v0_1_52b",
+    "xlstm_125m",
+    "phi_3_vision_4_2b",
+    "musicgen_large",
 )
 
 _loaded = False

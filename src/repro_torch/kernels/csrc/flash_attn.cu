@@ -195,6 +195,7 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
     case 16: err = flash::launch<16>(q, k, v, o, bh, seq, groups, causal, window, st); break;
     case 32: err = flash::launch<32>(q, k, v, o, bh, seq, groups, causal, window, st); break;
     case 64: err = flash::launch<64>(q, k, v, o, bh, seq, groups, causal, window, st); break;
+    case 96: err = flash::launch<96>(q, k, v, o, bh, seq, groups, causal, window, st); break;
     case 128: err = flash::launch<128>(q, k, v, o, bh, seq, groups, causal, window, st); break;
     case 192: err = flash::launch<192>(q, k, v, o, bh, seq, groups, causal, window, st); break;
     default: break;

@@ -34,7 +34,8 @@
 //   * tiles stay bf16 in shared memory, in the swizzle that matches their
 //     row width (32, 64 or 128 bytes), the
 //     same layout the wgmma descriptors name (hd 128 and 192 as two and
-//     three 64-column boxes).  The tensor maps are 3-D
+//     three 64-column boxes; hd 96, which no 64-column box divides, as three
+//     32-column boxes in the 64-byte swizzle).  The tensor maps are 3-D
 //     (hd, S, heads): a ragged last tile is zero-filled inside its own head;
 //   * the mask (causal, window, keys >= S) and the online softmax run on the
 //     accumulator fragment in registers, in the log2 domain (one fused
@@ -47,7 +48,10 @@
 //     blocks of the last query tiles (the most causal work) go first.
 // At hd 192 a block has two consumer warpgroups (128 rows): the O
 // accumulator is 96 floats a thread and takes 240 registers, and 64-key
-// tiles in three stages keep shared memory at 193 KB.  One block per SM;
+// tiles in three stages keep shared memory at 193 KB.  At hd 96, 64-key
+// tiles too: S (32), P (16) and O (48 floats) then fit the 160 registers of
+// a consumer thread, where 128-key tiles would need 144 of them for the
+// fragments alone.  One block per SM;
 // ptxas reports the launch's share of registers (128 a thread at 512
 // threads, 168 at 384), no spills.
 #include <cuda.h>
@@ -75,9 +79,11 @@ struct Tile {
   // 512 threads, 168 at 384)
   static constexpr int kConsumerRegs = HD == 192 ? 240 : 160;
   static_assert(128 * (kProducerRegs + kConsumers * kConsumerRegs) <= 65536, "register file");
-  static constexpr int kBlockK = HD >= 128 ? 64 : 128;    // keys per K/V tile
-  static constexpr int kCols = HD < 64 ? HD : 64;         // columns per TMA box
-  static constexpr int kHalves = HD / kCols;              // boxes a row: 2 at hd 128, 3 at 192
+  static constexpr int kBlockK = HD >= 96 ? 64 : 128;     // keys per K/V tile
+  // columns per TMA box: the whole row up to 64, else 64-column boxes, or
+  // 32-column ones where 64 does not divide hd (96)
+  static constexpr int kCols = HD <= 64 ? HD : (HD % 64 ? 32 : 64);
+  static constexpr int kHalves = HD / kCols;              // boxes a row: 2 at hd 128, 3 at 96, 192
   static constexpr int kRowBytes = 2 * kCols;             // 32, 64 or 128: the swizzle span
   static constexpr int kChunks = kCols / 16;              // k16 chunks per box row
   // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
@@ -263,6 +269,28 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
 }
 
+// D (m64n96, f32) += A (registers, 4 x bf16x2) * B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
 // D (m64n128, f32) += A (registers, 4 x bf16x2) * B (smem, MN-major)
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint64_t desc_b) {
@@ -330,7 +358,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
 }
 
 // S = Q.K^T for the K tile at ks: hd / 16 k16 steps; within a swizzled row
-// a step is 32 bytes, and hd 128 and 192 move to the next box every 4
+// a step is 32 bytes, and hd 128 and 192 move to the next box every 4, hd
+// 96 (32-column boxes) every 2
 template <int HD>
 __device__ __forceinline__ void issue_qk(float (&s)[Tile<HD>::kBlockK / 2], uint64_t desc_q,
                                          uint32_t ks) {
@@ -344,8 +373,8 @@ __device__ __forceinline__ void issue_qk(float (&s)[Tile<HD>::kBlockK / 2], uint
 }
 
 // O += P.V for the V tile at vs: BK / 16 k16 steps of 16 keys, V rows
-// kRowBytes apart; the boxes of hd 128 and 192 (N = 128 or 192 in one
-// wgmma) are the descriptor's leading offset apart
+// kRowBytes apart; the boxes of hd 96, 128 and 192 (N = 96, 128 or 192 in
+// one wgmma) are the descriptor's leading offset apart
 template <int HD>
 __device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
                                          const uint32_t (&p)[Tile<HD>::kBlockK / 4], uint32_t vs) {
@@ -663,6 +692,7 @@ extern "C" int flash_sm90_launch(const void* q, const void* k, const void* v, vo
     case 16: return fa90::launch<16>(q, k, v, o, bh, seq, groups, causal, window, st);
     case 32: return fa90::launch<32>(q, k, v, o, bh, seq, groups, causal, window, st);
     case 64: return fa90::launch<64>(q, k, v, o, bh, seq, groups, causal, window, st);
+    case 96: return fa90::launch<96>(q, k, v, o, bh, seq, groups, causal, window, st);
     case 128: return fa90::launch<128>(q, k, v, o, bh, seq, groups, causal, window, st);
     case 192: return fa90::launch<192>(q, k, v, o, bh, seq, groups, causal, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -54,7 +54,7 @@ NEG_INF = -1e30
 #: the plain version's tile: query rows and keys per step
 BLOCK = 64
 #: head dims the kernel is compiled for
-HEAD_DIMS = (16, 32, 64, 128, 192)
+HEAD_DIMS = (16, 32, 64, 96, 128, 192)
 
 #: the kernel each dtype launches on a CUDA tensor (a key of LAUNCHES)
 ROUTES = {torch.bfloat16: "flash_wgmma", torch.float32: "flash_simt"}

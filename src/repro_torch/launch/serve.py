@@ -26,27 +26,30 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(serve_step, model, prompt: dict, gen: int, *, keep_logits: bool = False) -> dict:
-    """Step ``prompt["tokens"]`` (B, P) through a fresh cache one token at a
-    time, then decode ``gen`` greedy tokens.  Returns ``tokens`` (B, gen),
-    ``prompt_s`` and ``gen_s`` (host seconds, each ending in a device
-    synchronise), and with ``keep_logits`` the float32 logits at every
-    prompt position, ``prompt_logits`` (B, P, V)."""
-    toks = prompt["tokens"].to(model.device)
-    b, plen = toks.shape
+    """Step the prompt, ``tokens`` (B, P) or, for audio, ``codes`` (B, P, K),
+    through a fresh cache one position at a time, then decode ``gen``
+    greedy positions (argmax per codebook for audio, fed back as (B, 1, K)).
+    Returns ``tokens`` (B, gen) or (B, gen, K), ``prompt_s`` and ``gen_s``
+    (host seconds, each ending in a device synchronise), and with
+    ``keep_logits`` the float32 logits at every prompt position,
+    ``prompt_logits`` (B, P, V) or (B, P, K, V)."""
+    key = "codes" if "codes" in prompt else "tokens"
+    toks = prompt[key].to(model.device)
+    b, plen = toks.shape[:2]
     caches = model.init_caches(b, plen + gen)
     logits, kept = None, []
     _sync(model.device)
     t0 = time.perf_counter()
     for t in range(plen):
-        logits, caches = serve_step({"tokens": toks[:, t:t + 1]}, caches, t)
+        logits, caches = serve_step({key: toks[:, t:t + 1]}, caches, t)
         if keep_logits:
             kept.append(logits[:, 0].to(torch.float32))
     _sync(model.device)
     t1 = time.perf_counter()
     out = []
     for t in range(plen, plen + gen):
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).reshape(b, 1)
-        logits, caches = serve_step({"tokens": nxt}, caches, t)
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]            # (B, 1) or (B, 1, K)
+        logits, caches = serve_step({key: nxt}, caches, t)
         out.append(nxt)
     _sync(model.device)
     t2 = time.perf_counter()
@@ -58,23 +61,26 @@ def generate(serve_step, model, prompt: dict, gen: int, *, keep_logits: bool = F
 def run_reduced(arch: str, batch: int, prompt_len: int, gen: int, *, device="cuda",
                 params: dict | None = None) -> torch.Tensor:
     """Serve the reduced ``arch``: ``batch`` requests whose prompt repeats
-    one seeded token ``prompt_len`` times, each decoding ``gen`` greedy
-    tokens.  ``params`` (the reference's pytree as numpy) replaces the
-    seeded init.  Returns the generated tokens (batch, gen)."""
+    one seeded token (a frame of K codes for audio) ``prompt_len`` times,
+    each decoding ``gen`` greedy positions.  ``params`` (the reference's
+    pytree as numpy) replaces the seeded init.  Returns the generated
+    tokens, (batch, gen) or (batch, gen, K)."""
     cfg = cfg_base.get(arch).reduced()
     serve_step, model = steps.make_serve_step(cfg, device=device)
     if params is not None:
         model.load_state_dict(transformer.params_from_numpy(cfg, params, model.device))
     print(f"[serve] {arch} (reduced): batch {batch}, prompt {prompt_len}, "
           f"generating {gen} tokens/request")
-    prompt = multimodal.decode_batch_for(cfg, batch)
-    prompt = {"tokens": prompt["tokens"].repeat(1, prompt_len)}
+    prompt = {k: v.repeat(1, prompt_len, *[1] * (v.dim() - 2))
+              for k, v in multimodal.decode_batch_for(cfg, batch).items()}
     res = generate(serve_step, model, prompt, gen)
     dt = res["prompt_s"] + res["gen_s"]
     total = batch * (prompt_len + gen)
+    first = res["tokens"][0, :8]
+    label = "sample continuation" + (" (codebook 0)" if cfg.n_codebooks else "")
     print(f"[serve] {total} cached decode steps in {dt:.1f}s "
           f"({total / dt:,.0f} tok/s incl. prefill) on {model.device}; "
-          f"sample continuation: {res['tokens'][0, :8].tolist()}")
+          f"{label}: {(first[:, 0] if cfg.n_codebooks else first).tolist()}")
     return res["tokens"]
 
 

@@ -7,8 +7,8 @@ when ``cfg.attention_impl == "flash"``.
 The reference's steps take the parameters as an argument; here the
 ``Model`` holds them, and each factory returns the step with the model it
 runs (built with its seeded init on ``device`` unless one is passed).  Both steps
-run without autograd.  ``make_train_step`` waits for the training slice
-(ROADMAP Queue 1 item 14h).
+run without autograd.  ``make_train_step`` raises: it waits for the
+training slice (ROADMAP Queue 1 item 14h).
 """
 from __future__ import annotations
 
@@ -20,6 +20,12 @@ from repro_torch.models import transformer
 
 def _model(cfg: ModelConfig, model, device) -> transformer.Model:
     return model if model is not None else transformer.Model(cfg, device=device)
+
+
+def make_train_step(cfg: ModelConfig, *, global_batch: int, clip_norm: float = 1.0):
+    """The reference's microbatched train step; not ported yet."""
+    raise NotImplementedError(
+        f"{cfg.name}: make_train_step waits for the training slice (ROADMAP Queue 1 item 14h)")
 
 
 def make_serve_step(cfg: ModelConfig, *, model=None, device="cuda"):

@@ -1,12 +1,12 @@
 """Block wiring: (mixer -> FFN/MoE) with pre-norm residuals, per layer kind.
 
 A model is ``n_layers`` blocks, layer ``i`` of kind
-``cfg.layer_kinds[i]``.  The port runs the ``"attn"`` kind: MLA when
-``cfg.mla``, else GQA through ``attention_impl`` (``"naive"``,
-``"chunked"`` / ``"chunked_seqpar"`` or the flash kernel, ``"flash"``),
-and an MoE or dense FFN.  The reference's ``shard_hint`` calls are the
-identity without a mesh and are left out.  The SSM / xLSTM kinds raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+``cfg.layer_kinds[i]``: ``"attn"`` (MLA when ``cfg.mla``, else GQA through
+``attention_impl``: ``"naive"``, ``"chunked"`` / ``"chunked_seqpar"`` or the
+flash kernel, ``"flash"``), or one of the SSM / xLSTM mixers of
+``models/ssm.py`` (``"mamba"``, ``"mlstm"``, ``"slstm"``), then an MoE or
+dense FFN where the config has one.  The reference's ``shard_hint`` calls
+are the identity without a mesh and are left out.
 """
 from __future__ import annotations
 
@@ -15,17 +15,20 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import gqa_flash_attention
-from repro_torch.models import attention, ffn as ffn_mod, moe as moe_mod
+from repro_torch.models import attention, ffn as ffn_mod, moe as moe_mod, ssm
 from repro_torch.models.common import rms_norm
 
-_SSM_WAITS = "the SSM / xLSTM mixers are not ported yet (ROADMAP Queue 1 item 14f)"
 _IMPLS = ("naive", "chunked", "chunked_seqpar", "flash")
+#: per SSM / xLSTM kind: (init params, mixer, init state)
+_SSM = {"mamba": (ssm.init_mamba_params, ssm.mamba_mixer, ssm.init_mamba_state),
+        "mlstm": (ssm.init_mlstm_params, ssm.mlstm_mixer, ssm.init_mlstm_state),
+        "slstm": (ssm.init_slstm_params, ssm.slstm_mixer, ssm.init_slstm_state)}
 
 
 def check_supported(kind: str, cfg: ModelConfig) -> None:
-    """Raise for a layer this port cannot run yet."""
-    if kind in ("mamba", "mlstm", "slstm"):
-        raise NotImplementedError(f"{cfg.name}: {kind}: {_SSM_WAITS}")
+    """Raise for a layer kind or attention impl the reference does not have."""
+    if kind in _SSM:
+        return
     if kind != "attn":
         raise ValueError(kind)
     if cfg.attention_impl not in _IMPLS:
@@ -34,16 +37,20 @@ def check_supported(kind: str, cfg: ModelConfig) -> None:
 
 class Block(nn.Module):
     """One layer's parameters: ``norm1``, ``mixer`` (GQA: wq, wk, wv, wo
-    and the qk norms; MLA: wq_a, q_norm, wq_b, wkv_a, kv_norm, wkv_b, wo),
-    and, when ``d_ff`` or MoE, ``norm2`` and ``ffn``."""
+    and the qk norms; MLA: wq_a, q_norm, wq_b, wkv_a, kv_norm, wkv_b, wo;
+    the SSM kinds: their ``models/ssm.py`` leaves), and, when ``d_ff`` or
+    MoE, ``norm2`` and ``ffn``."""
 
     def __init__(self, gen: torch.Generator, kind: str, use_moe: bool, cfg: ModelConfig, dtype):
         super().__init__()
         check_supported(kind, cfg)
         ones = torch.ones((cfg.d_model,), dtype=dtype, device=gen.device)
         self.norm1 = nn.Parameter(ones)
-        self.mixer = (attention.init_mla_params(gen, cfg, dtype) if cfg.mla
-                      else attention.init_gqa_params(gen, cfg, dtype))
+        if kind in _SSM:
+            self.mixer = _SSM[kind][0](gen, cfg, dtype)
+        else:
+            self.mixer = (attention.init_mla_params(gen, cfg, dtype) if cfg.mla
+                          else attention.init_gqa_params(gen, cfg, dtype))
         if cfg.d_ff or use_moe:
             self.norm2 = nn.Parameter(ones.clone())
             self.ffn = (moe_mod.init_moe_params(gen, cfg, dtype) if use_moe else
@@ -72,7 +79,9 @@ def apply_block(params: Block, x: torch.Tensor, kind: str, use_moe: bool, cfg: M
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, params.norm1, cfg.norm_eps)
     new_cache = None
-    if cache is not None:
+    if kind in _SSM:
+        out, new_cache = _SSM[kind][1](params.mixer, h, cfg, state=cache)
+    elif cache is not None:
         decode = attention.mla_decode if cfg.mla else attention.gqa_decode
         out, new_cache = decode(params.mixer, h, cache, pos, cfg)
     else:
@@ -91,5 +100,7 @@ def apply_block(params: Block, x: torch.Tensor, kind: str, use_moe: bool, cfg: M
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int, dtype, device):
     check_supported(kind, cfg)
+    if kind in _SSM:
+        return _SSM[kind][2](cfg, batch, dtype, device)
     init = attention.init_mla_cache if cfg.mla else attention.init_gqa_cache
     return init(cfg, batch, capacity, dtype, device)

@@ -6,11 +6,16 @@ HLO stays one period long; PyTorch runs eagerly, so here the layers are an
 period ``p``'s copy of pattern entry ``j``, the reference's slice ``p`` of
 ``params["blocks"][j]`` (``params_from_numpy`` maps one onto the other).
 
-Text models, dense or MoE, GQA or MLA.  DeepSeek's multi-token
-prediction head (``mtp_proj``, ``mtp_norm``) is initialised and carried
-across, and, as in the reference, the serving path does not use it; its
-loss waits with ``Model.loss`` (ROADMAP Queue 1 item 14h).  The
-multimodal frontends wait for item 14g.
+Every family of the reference: dense or MoE, GQA or MLA, the SSM / xLSTM
+mixers (``pattern``), and the stub multimodal frontends:
+  vlm   : precomputed patch embeddings (``image_embeds``) through the
+          ``projector``, prepended to the text tokens;
+  audio : K codebook embeddings summed per frame, K output heads, logits
+          (B, S, K, V).
+DeepSeek's multi-token prediction head (``mtp_proj``, ``mtp_norm``) is
+initialised and carried across, and, as in the reference, the serving path
+does not use it; its loss waits with ``Model.loss`` (ROADMAP Queue 1 item
+14h).
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.checkpoint.checkpoint import to_numpy
 from repro_torch.core.trainer import resolve_device
-from repro_torch.models import blocks, common
+from repro_torch.models import blocks, common, ssm
 from repro_torch.models.common import rms_norm
 
 
@@ -32,18 +37,25 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
         super().__init__()
-        if cfg.n_codebooks or cfg.n_prefix_embeds:
-            raise NotImplementedError(
-                f"{cfg.name}: multimodal inputs are not ported yet (ROADMAP Queue 1 item 14g)")
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
         p = len(cfg.pattern)
         self.use_moe = tuple(cfg.is_moe_layer(j) for j in range(p))
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-        self.embed = nn.Parameter(common.init_embed(gen, cfg.vocab, cfg.d_model, self.dtype))
-        if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(
-                common.init_dense(gen, cfg.d_model, cfg.vocab, self.dtype))
+        if cfg.n_codebooks:
+            k = cfg.n_codebooks
+            self.embed = nn.Parameter(torch.stack(
+                [common.init_embed(gen, cfg.vocab, cfg.d_model, self.dtype) for _ in range(k)]))
+            self.heads = nn.Parameter(torch.stack(
+                [common.init_dense(gen, cfg.d_model, cfg.vocab, self.dtype) for _ in range(k)]))
+        else:
+            self.embed = nn.Parameter(common.init_embed(gen, cfg.vocab, cfg.d_model, self.dtype))
+            if not cfg.tie_embeddings:
+                self.lm_head = nn.Parameter(
+                    common.init_dense(gen, cfg.d_model, cfg.vocab, self.dtype))
+        if cfg.n_prefix_embeds:
+            self.projector = nn.Parameter(
+                common.init_dense(gen, cfg.prefix_embed_dim, cfg.d_model, self.dtype))
         self.final_norm = nn.Parameter(
             torch.ones((cfg.d_model,), dtype=self.dtype, device=gen.device))
         if cfg.mtp_depth:
@@ -61,7 +73,22 @@ class Model(nn.Module):
 
     # -------------------------------------------------------------- embed
     def embed_inputs(self, batch: dict) -> torch.Tensor:
-        return self.embed[batch["tokens"].to(self.device)]
+        """``tokens`` (B, S) or, for audio, ``codes`` (B, S, K) -> (B, S, D);
+        a VLM batch's ``image_embeds`` (B, P, prefix_dim), projected, go
+        first (B, P + S, D)."""
+        cfg = self.cfg
+        if cfg.n_codebooks:
+            codes = batch["codes"].to(self.device)
+            x = torch.zeros(codes.shape[:2] + (cfg.d_model,), dtype=self.dtype,
+                            device=self.device)
+            for k in range(cfg.n_codebooks):
+                x = x + self.embed[k][codes[..., k]]
+        else:
+            x = self.embed[batch["tokens"].to(self.device)]
+        if cfg.n_prefix_embeds and "image_embeds" in batch:
+            prefix = batch["image_embeds"].to(self.device, self.dtype) @ self.projector
+            x = torch.cat([prefix, x], dim=1)
+        return x
 
     # ------------------------------------------------------------ forward
     def forward(self, x: torch.Tensor, *, caches=None, pos=None):
@@ -81,8 +108,17 @@ class Model(nn.Module):
     def hidden_to_logits(self, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         h = rms_norm(h, self.final_norm, cfg.norm_eps)
+        if cfg.n_codebooks:
+            return torch.einsum("bsd,kdv->bskv", h, self.heads)
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         return h @ head
+
+    # --------------------------------------------------------------- loss
+    def loss(self, batch: dict) -> torch.Tensor:
+        """The reference's training loss (next-token cross-entropy, the
+        codebooks' and the MTP head's terms, plus the MoE aux loss)."""
+        raise NotImplementedError(
+            f"{self.cfg.name}: Model.loss waits for the training slice (ROADMAP Queue 1 item 14h)")
 
     # -------------------------------------------------------------- decode
     def init_caches(self, batch: int, capacity: int) -> list:
@@ -92,7 +128,7 @@ class Model(nn.Module):
 
     def decode_step(self, batch: dict, caches: list, pos: int):
         """One-token decode: ``batch`` holds the NEW token, ``pos`` its
-        position.  Returns (logits (B, 1, V), new_caches)."""
+        position.  Returns (logits (B, 1, V) or (B, 1, K, V), new_caches)."""
         x = self.embed_inputs(batch)
         h, _, new_caches = self(x, caches=caches, pos=pos)
         return self.hidden_to_logits(h), new_caches
@@ -133,21 +169,39 @@ def _flatten(tree: dict, prefix: str = ""):
             yield f"{prefix}{key}", val
 
 
+def _leaf_dtype(cfg: ModelConfig, kind: str, name: str) -> torch.dtype:
+    """The dtype of leaf ``name`` of a layer of ``kind``: float32 for the
+    SSM mixers' ``ssm.FLOAT32_LEAVES`` (as the reference's inits draw
+    them), else ``cfg.dtype``."""
+    if name.startswith("mixer.") and name[len("mixer."):] in ssm.FLOAT32_LEAVES.get(kind, ()):
+        return torch.float32
+    return getattr(torch, cfg.dtype)
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu") -> dict[str, torch.Tensor]:
     """The reference's parameter pytree (numpy arrays; ``blocks`` is one
     dict per pattern entry with a leading ``n_periods`` axis) as this
-    port's ``state_dict``, in ``cfg.dtype`` on ``device``."""
+    port's ``state_dict`` on ``device``, each leaf in its ``_leaf_dtype``:
+    the float32 leaves of a bf16 model keep their values unrounded.
+    bfloat16 leaves may be ``ml_dtypes`` arrays (the reference's) or the
+    2-byte ``V2`` records of ``params_to_numpy``."""
     dtype = getattr(torch, cfg.dtype)
 
-    def tensor(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dtype)
+    def tensor(a, dt):
+        a = np.asarray(a)
+        if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+            t = torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a, dtype=np.float32))
+        return t.to(device=device, dtype=dt)
 
-    state = {k: tensor(v) for k, v in tree.items() if k != "blocks"}
+    state = {k: tensor(v, dtype) for k, v in tree.items() if k != "blocks"}
     n_pat = len(cfg.pattern)
     for j, entry in enumerate(tree["blocks"]):
         for name, arr in _flatten(entry):
+            dt = _leaf_dtype(cfg, cfg.pattern[j], name)
             for p in range(cfg.n_periods):
-                state[f"blocks.{p * n_pat + j}.{name}"] = tensor(arr[p])
+                state[f"blocks.{p * n_pat + j}.{name}"] = tensor(arr[p], dt)
     return state
 
 

@@ -397,6 +397,11 @@ def _assert_one_launch(before, dtype):
     (24, 2048, 192, 12, True, 0),   # nemotron's hd 192, g 12: two consumer warpgroups
     (4, 300, 192, 2, True, 65),
     (4, 1, 192, 1, False, 0),
+    (32, 2048, 96, 1, True, 0),     # phi-3-vision's hd 96 (three 32-column boxes), MHA
+    (8, 2048, 96, 4, True, 65),
+    (6, 100, 96, 3, False, 48),
+    (6, 192, 96, 3, True, 0),
+    (4, 1, 96, 1, True, 0),
 ])
 def test_flash_wgmma_pipeline_edges(cuda, bh, s, hd, groups, causal, window):
     q, k, v = _qkv(bh, s, hd, torch.bfloat16, cuda, groups=groups, seed=s + hd + window)
@@ -575,6 +580,71 @@ def test_new_archs_on_card_match_cpu(cuda, name):
             tok = {"tokens": toks["tokens"][:2, t:t + 1]}
             lc, caches_c = cpu.decode_step(tok, caches_c, t)
             lg, caches_g = card.decode_step(tok, caches_g, t)
+            torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["mamba", "mlstm", "slstm"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_mixers_on_card_match_cpu(cuda, kind, dtype):
+    """Each SSM / xLSTM mixer's prefill (two chunks and a ragged tail) and
+    one decode step on the card against the same plain code on the CPU.
+    float32: 1e-4 (another summation order in the card's products); bf16:
+    the outputs within 2e-2 relative to max(1, |cpu|), the flash bf16
+    tolerance."""
+    from repro_torch.models import blocks
+
+    name = "jamba-v0.1-52b" if kind == "mamba" else "xlstm-125m"
+    cfg = cfg_base.get(name).reduced().with_(dtype=str(dtype)[6:])
+    init, mixer, init_state = blocks._SSM[kind]
+    gen = torch.Generator().manual_seed(5)
+    params = init(gen, cfg, dtype)
+    card = {k: v.to(cuda) for k, v in params.items()}
+    x = (torch.randn((2, 71, cfg.d_model), generator=gen) * 0.5).to(dtype)
+    st = {k: v for k, v in init_state(cfg, 2, dtype, "cpu").items()}
+    with torch.no_grad():
+        want, _ = mixer(params, x, cfg)
+        got, _ = mixer(card, x.to(cuda), cfg)
+        want1, want_st = mixer(params, x[:, :1], cfg, state=st)
+        got1, got_st = mixer(card, x[:, :1].to(cuda), cfg,
+                             state={k: v.to(cuda) for k, v in st.items()})
+    for g, w in ((got, want), (got1, want1)):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4)
+        else:
+            rel = (g.cpu().float() - w.float()).abs() / w.float().abs().clamp(min=1.0)
+            assert float(rel.max()) <= 2e-2
+    for key in want_st:
+        assert got_st[key].dtype == want_st[key].dtype
+        torch.testing.assert_close(got_st[key].cpu().float(), want_st[key].float(), rtol=0,
+                                   atol=1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "xlstm-125m", "phi-3-vision-4.2b",
+                                  "musicgen-large"])
+def test_ssm_and_multimodal_archs_on_card_match_cpu(cuda, name):
+    """Reduced prefill (through the flash kernel's float32 route where the
+    model has attention) and cached decode on the card against the port on
+    the CPU, float32, MoE dropless."""
+    cfg = cfg_base.get(name).reduced().with_(attention_impl="flash")
+    if cfg.moe:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, dropless=True))
+    cpu, card = _cpu_and_card(cfg, cuda)
+    batch = multimodal.batch_for(cfg, 2, 40, seed=1)
+    before = dict(F.LAUNCHES)
+    with torch.no_grad():
+        want, _ = cpu.prefill(batch)
+        got, _ = card.prefill(batch)
+    n_attn = cfg.layer_kinds.count("attn")
+    assert F.LAUNCHES["flash_simt"] == before["flash_simt"] + n_attn
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    key = "codes" if cfg.n_codebooks else "tokens"
+    toks = multimodal.decode_batch_for(cfg, 2, seed=2)[key]
+    caches_c, caches_g = cpu.init_caches(2, 4), card.init_caches(2, 4)
+    with torch.no_grad():
+        for t in range(4):
+            lc, caches_c = cpu.decode_step({key: toks}, caches_c, t)
+            lg, caches_g = card.decode_step({key: toks}, caches_g, t)
             torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
 
 

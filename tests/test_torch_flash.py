@@ -56,7 +56,8 @@ def _dense_oracle(q, k, v, causal=True, window=0):
     return np.einsum("bst,btd->bsd", p / p.sum(-1, keepdims=True), v)
 
 
-@pytest.mark.parametrize("s,hd", [(32, 16), (64, 32), (128, 64), (256, 128), (128, 192)])
+@pytest.mark.parametrize("s,hd", [(32, 16), (64, 32), (128, 64), (256, 128), (128, 192),
+                                  (128, 96)])
 def test_shape_sweep(s, hd):
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(4, s, hd, seed=s), "float32")
     want = RF.flash_attention(jq, jk, jv, block_q=min(64, s), block_k=min(64, s),
@@ -121,9 +122,9 @@ def test_groups_index_kv_heads(groups):
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
 
 
-def _gqa_cfgs(kv_heads):
-    kw = dict(name="m", family="dense", n_layers=2, d_model=64, n_heads=4, kv_heads=kv_heads,
-              d_ff=128, vocab=97, dtype="float32", attention_impl="flash")
+def _gqa_cfgs(kv_heads, d_model=64):
+    kw = dict(name="m", family="dense", n_layers=2, d_model=d_model, n_heads=4,
+              kv_heads=kv_heads, d_ff=128, vocab=97, dtype="float32", attention_impl="flash")
     return RefConfig(**kw), ModelConfig(**kw)
 
 
@@ -146,6 +147,23 @@ def test_gqa_layer_matches_naive_and_reference(kv_heads):
     np.testing.assert_allclose(flash, _np(A.gqa_attention(tp, torch.from_numpy(x), cfg)),
                                atol=2e-5)
     np.testing.assert_allclose(flash, _np(RA.gqa_attention(jp, jnp.asarray(x), rcfg)), atol=2e-5)
+    np.testing.assert_allclose(flash, _np(RF.gqa_flash_attention(jp, jnp.asarray(x), rcfg)),
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("kv_heads", [1, 4])
+def test_gqa_layer_at_hd_96_matches_naive_and_reference(kv_heads):
+    """Phi-3-vision's head dim (4 heads of 96; g 4 and MHA), S 100: two
+    64-row query tiles, the second part full."""
+    rcfg, cfg = _gqa_cfgs(kv_heads, d_model=384)
+    assert cfg.resolved_head_dim == 96
+    p = _gqa_params(cfg)
+    x = np.random.default_rng(3).standard_normal((2, 100, 384), dtype=np.float32)
+    jp = {k: jnp.asarray(a) for k, a in p.items()}
+    tp = {k: torch.from_numpy(a) for k, a in p.items()}
+    flash = _np(F.gqa_flash_attention(tp, torch.from_numpy(x), cfg))
+    np.testing.assert_allclose(flash, _np(A.gqa_attention(tp, torch.from_numpy(x), cfg)),
+                               atol=2e-5)
     np.testing.assert_allclose(flash, _np(RF.gqa_flash_attention(jp, jnp.asarray(x), rcfg)),
                                atol=2e-5)
 

@@ -23,7 +23,7 @@ from repro.models import common as rcommon
 from repro.models import multimodal as rmm
 from repro.models import transformer as rtransformer
 from repro_torch.configs import base
-from repro_torch.launch import serve, steps
+from repro_torch.launch import mesh, serve, steps
 from repro_torch.models import blocks, common, multimodal, transformer
 
 ATOL = 1e-4
@@ -76,7 +76,8 @@ def test_config_and_reduced_field_for_field(name):
 
 def test_registry_holds_only_the_ported_architectures():
     assert base.all_names() == ["deepseek-v3-671b", "granite-34b", "granite-moe-3b-a800m",
-                                "nemotron-4-340b", "qwen3-4b", "smollm-360m"]
+                                "jamba-v0.1-52b", "musicgen-large", "nemotron-4-340b",
+                                "phi-3-vision-4.2b", "qwen3-4b", "smollm-360m", "xlstm-125m"]
     assert base.INPUT_SHAPES == {k: base.InputShape(*dataclasses.astuple(v))
                                  for k, v in rbase.INPUT_SHAPES.items()}
 
@@ -271,14 +272,16 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
         transformer.Model(base.get("smollm-360m").reduced())
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(pattern=("attn", "mamba")), "14f"),
-    (dict(n_prefix_embeds=4, prefix_embed_dim=8), "14g"),
-])
-def test_unported_layers_raise_naming_their_roadmap_item(change, item):
-    cfg = base.get("smollm-360m").reduced().with_(**change)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        transformer.Model(cfg, device="cpu")
+@pytest.mark.parametrize("entry,item", [("loss", "14h"), ("train_step", "14h"),
+                                        ("production_mesh", "15")])
+def test_unported_entry_points_raise_naming_their_roadmap_item(entry, item):
+    cfg = base.get("smollm-360m").reduced()
+    call = {"loss": lambda: transformer.Model(cfg, device="cpu").loss(
+                multimodal.text_batch(cfg, 1, 4)),
+            "train_step": lambda: steps.make_train_step(cfg, global_batch=8),
+            "production_mesh": lambda: mesh.make_production_mesh()}[entry]
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+        call()
 
 
 def test_blocks_route_by_attention_impl(monkeypatch):

@@ -29,7 +29,8 @@ def test_every_module_imports_with_jax_blocked():
                      "repro_torch.api", "repro_torch.api.cluster",
                      "repro_torch.comanager.simulation", "repro_torch.federated",
                      "repro_torch.scale", "repro_torch.checkpoint.checkpoint",
-                     "repro_torch.models.moe"):
+                     "repro_torch.models.moe", "repro_torch.models.ssm",
+                     "repro_torch.models.multimodal"):
         assert sentinel in mods
     code = (
         "import sys\n"
