@@ -145,6 +145,24 @@ Phases, in order; any failure exits non-zero before the result line:
                xlstm-125m in float32 through ``repro_torch.checkpoint`` bit
                for bit, and a bf16 reduced Jamba's float32 leaves kept
                through ``params_to_numpy`` -> ``params_from_numpy``.
+ 10. train   — LM training through ``make_train_step``, counts zeroed
+               before each training run and read after (no kernel of the
+               port launches: attention trains through ``naive``): (a)
+               ``smollm-360m`` at full width and depth (32 layers, bf16,
+               seeded weights, its own naive attention and per-layer
+               remat, AdamW), global batch 64 x 1024 in two interleaved
+               microbatches of 32 rows: one warm-up step whose loss must
+               be within 1e-3 relative of the cross-entropy of a no-grad
+               prefill of the same batch, with a finite global gradient
+               norm, then 3 timed steps on the same batch (the loss must
+               fall), tokens/s, step time, peak memory, matmul FLOPs
+               against the bf16 peak, and one profiled step's idle share
+               and top device operations; (b) every architecture's
+               ``reduced()`` config, float32: one step of global batch 4
+               on the card against the same step on the CPU (loss within
+               1e-5 relative, parameters within 1e-5, AdamW leaves where
+               |g| > 1e-3 max|g|); (c) a loss through the flash kernel
+               with grad enabled raises, launching nothing.
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Needs CUDA; without it, or without the
 repository around it, it exits non-zero and prints no result.
@@ -176,6 +194,17 @@ PEAK_BYTES_PER_S = 3.35e12
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: float32 decode logits against the float32 flash prefill's
 SERVE_TOL = 1e-3
+#: phase 10: a float32 train step's loss and parameters on the card against
+#: the CPU port's (TF32 off)
+TRAIN_RTOL = 1e-5
+#: AdamW leaves are compared where |g| > TRAIN_ADAM_MASK * max |g| of the
+#: leaf: a first Adam step is +-lr by the gradient's sign (ROADMAP R7)
+TRAIN_ADAM_MASK = 1e-3
+#: step 0's bf16 loss against the cross-entropy of a no-grad prefill
+TRAIN_PREFILL_RTOL = 1e-3
+TRAIN_ARCHS = ("nemotron-4-340b", "phi-3-vision-4.2b", "granite-34b", "smollm-360m",
+               "qwen3-4b", "granite-moe-3b-a800m", "musicgen-large", "xlstm-125m",
+               "jamba-v0.1-52b", "deepseek-v3-671b")
 #: rows of the device-memory route's checks and timing (15q-1l, 17q-1l)
 DMEM_ROWS = 256
 #: float32 operations per amplitude of one gate application: a rotation
@@ -1199,6 +1228,185 @@ def serve_ssm_multimodal(dev, card: str) -> dict:
     free()
     log(f"ssm/mm: phase 9 took {time.perf_counter() - t_phase:.2f} s wall")
     return launched
+
+
+def train_flops(cfg, model, tokens: int, s: int) -> float:
+    """Matmul FLOPs of one train step with per-layer remat: the layers run
+    forward twice (the step and the backward's recompute) and backward once
+    (twice a forward's FLOPs), the head forward once and backward once.  A
+    layer's forward is 2 FLOPs per weight a token plus the naive
+    attention's two (S, S) products over every head (the causal half is
+    computed too)."""
+    layer_w = sum(p.numel() for blk in model.blocks for p in blk.parameters() if p.dim() == 2)
+    attn = 2 * 2 * s * cfg.n_heads * cfg.resolved_head_dim * cfg.layer_kinds.count("attn")
+    head = cfg.vocab * cfg.d_model
+    return tokens * (4 * (2 * layer_w + attn) + 3 * 2 * head)
+
+
+def train_lm(dev, card: str) -> None:
+    """Phase 10: LM training (``Model.loss`` through ``make_train_step``).
+    (a) SmolLM-360M at full width and depth, bf16, AdamW: a no-grad
+    prefill's cross-entropy, one warm-up step (its loss against that
+    cross-entropy), 3 timed steps on the same batch, one profiled; (b)
+    every architecture's ``reduced()`` config, float32, one step on the
+    card against the same step on the CPU; (c) a loss through the flash
+    kernel raises.  No kernel of the port launches in this phase."""
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import vqc_statevector as K
+    from repro_torch.launch import steps
+    from repro_torch.models import common, multimodal, transformer
+
+    def count_from_zero():
+        torch.cuda.synchronize()
+        zero_flash_counts()
+        zero_counts(K)
+
+    def no_launches(label):
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in [*FA.LAUNCHES.items(), *K.LAUNCHES.items()] if n}
+        if launched:
+            raise AssertionError(f"{label}: launched {launched}; training runs no kernel")
+
+    t_phase = time.perf_counter()
+    free()
+    # (a) smollm-360m: 32 layers, its own attention_impl ("naive") and remat
+    cfg = cfg_base.get("smollm-360m")
+    gb, s = 64, 1024
+    if cfg.attention_impl != "naive" or not cfg.remat or cfg.optimizer != "adamw":
+        raise AssertionError(f"{cfg.name}: trains with {cfg.attention_impl}, remat "
+                             f"{cfg.remat}, {cfg.optimizer}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    train_step, optimizer, model = steps.make_train_step(cfg, global_batch=gb, device=dev)
+    opt_state = optimizer.init(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    n_micro = gb // cfg.microbatch
+    log(f"train {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.kv_heads} heads, hd {cfg.resolved_head_dim}, {cfg.dtype}, attention "
+        f"{cfg.attention_impl}, remat {cfg.remat}, {cfg.optimizer} lr {cfg.learning_rate}, "
+        f"{transformer.param_count(model):,} parameters; with the optimizer state "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card (seeded init in "
+        f"{time.perf_counter() - t0:.2f} s); global batch {gb} x {s} = {gb * s:,} tokens a "
+        f"step in {n_micro} interleaved microbatches of {cfg.microbatch}")
+    batch = {k: v.to(dev) for k, v in multimodal.text_batch(cfg, gb, s, seed=0).items()}
+    with torch.no_grad():
+        want = sum(float(common.cross_entropy(model.prefill(mb)[0][:, :-1], mb["tokens"][:, 1:]))
+                   for mb in steps.micro_split(batch, n_micro)) / n_micro
+    free()
+    count_from_zero()
+    stats = {}
+    t0 = time.perf_counter()
+    opt_state, loss = train_step(opt_state, batch, stats)
+    losses, gnorm = [float(loss)], float(stats["grad_norm"])
+    warm_s = time.perf_counter() - t0
+    del stats
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt_state, loss = train_step(opt_state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    no_launches(f"{cfg.name} train")
+    peak = peak_gib(dev)
+    rel = abs(losses[0] - want) / abs(want)
+    step_ms = sum(times) / len(times) * 1e3
+    flops = train_flops(cfg, model, gb * s, s)
+    log(f"train {cfg.name}: step 0 (warm-up, {warm_s:.3f} s) loss {losses[0]:.6f} against "
+        f"the no-grad prefill's cross-entropy {want:.6f}: rel diff {rel:.3e} (limit "
+        f"{TRAIN_PREFILL_RTOL}); global grad norm {gnorm:.4f}; losses "
+        f"{', '.join(f'{v:.6f}' for v in losses)}")
+    log(f"train {cfg.name}: {gb} x {s} tokens a step in {step_ms:.3f} ms mean of 3 "
+        f"({', '.join(f'{t * 1e3:.3f}' for t in times)}), "
+        f"{gb * s * len(times) / sum(times):,.1f} tokens/s (host clock, synchronised at each "
+        f"end); peak {peak:.2f} GiB; {flops:.4e} matmul FLOPs a step: bound "
+        f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms at the bf16 peak, "
+        f"{flops / (step_ms / 1e3) / 1e12:.1f} TFLOP/s achieved [{card}]")
+    if not rel <= TRAIN_PREFILL_RTOL:
+        raise AssertionError(f"{cfg.name}: step 0's loss {losses[0]} is not the prefill's "
+                             f"cross-entropy {want}")
+    if not math.isfinite(gnorm):
+        raise AssertionError(f"{cfg.name}: the global gradient norm {gnorm} is not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: the loss did not fall: {losses}")
+    wall_ms, kern, busy_ms = profile_window(lambda: train_step(opt_state, batch), cpu=False)
+    log(f"profile {cfg.name} train step: {wall_ms:.3f} ms host clock (profiled, CUDA activity "
+        f"only), device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
+        f"{sum(e.count for e in kern)} kernel launches [{card}]")
+    # cuBLAS names its Hopper GEMMs nvjet_*, its older ones *gemm* / *xmma*
+    kinds = {"matmul": ("gemm", "xmma", "cutlass", "nvjet"), "softmax": ("softmax",),
+             "copy and cast": ("copy",)}
+
+    def kind_of(key):
+        return next((k for k, names in kinds.items() if any(t in key.lower() for t in names)),
+                    "other elementwise and reductions")
+
+    shares = {}
+    for e in kern:
+        shares[kind_of(e.key)] = shares.get(kind_of(e.key), 0.0) + e.self_device_time_total / 1e3
+    log(f"profile {cfg.name} train step by kind: " + ", ".join(
+        f"{k} {v:.3f} ms ({v / busy_ms:.4f})" for k, v in sorted(shares.items())) + f" [{card}]")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {kind_of(e.key)}: {e.self_device_time_total / 1e3:.4f} ms x{e.count} "
+            f"{e.key[:140]}")
+    del train_step, optimizer, model, opt_state, batch, loss
+    free()
+    log(f"train: (a) took {time.perf_counter() - t_phase:.2f} s wall")
+
+    # (b) every reduced architecture, float32 (TF32 off): one step of global
+    # batch 4 (two interleaved microbatches) on the card against the CPU
+    t0 = time.perf_counter()
+    for name in TRAIN_ARCHS:
+        cfg = cfg_base.get(name).reduced()
+        cpu = transformer.Model(cfg, device="cpu", seed=3)
+        on_card = transformer.Model(cfg, device=dev, seed=3)
+        on_card.load_state_dict(cpu.state_dict())
+        batch = multimodal.batch_for(cfg, 4, 16, seed=1)
+        results = []
+        for model in (cpu, on_card):
+            if model is on_card:
+                count_from_zero()
+            train_step, optimizer, _ = steps.make_train_step(cfg, global_batch=4, model=model)
+            stats = {}
+            _, loss = train_step(optimizer.init(dict(model.named_parameters())), batch, stats)
+            results.append((float(loss), stats["grads"]))
+        no_launches(f"{name} reduced train")
+        (want, grads), (got, _) = results
+        adam = cfg.optimizer in ("adam", "adamw")
+        card_params = dict(on_card.named_parameters())
+        err = 0.0
+        for n, p in cpu.named_parameters():
+            g = grads[n].abs()
+            mask = g > TRAIN_ADAM_MASK * g.max() if adam else torch.ones_like(g, dtype=torch.bool)
+            diff = (card_params[n].detach().cpu() - p.detach()).abs()[mask]
+            err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        rel = abs(got - want) / abs(want)
+        log(f"train {name} (reduced, float32): card loss {got:.7f}, CPU {want:.7f}, rel diff "
+            f"{rel:.3e} (limit {TRAIN_RTOL}); parameters after the step max|diff| {err:.3e} "
+            f"(limit {TRAIN_RTOL}{', AdamW leaves where |g| > 1e-3 max|g|' if adam else ''})")
+        if not (rel <= TRAIN_RTOL and err <= TRAIN_RTOL):
+            raise AssertionError(f"{name}: the card's train step differs from the CPU's")
+        del cpu, on_card, results, grads, card_params
+    free()
+    log(f"train: (b) took {time.perf_counter() - t0:.2f} s wall")
+
+    # (c) the flash kernel has no backward: a loss through it raises, launching nothing
+    cfg = cfg_base.get("smollm-360m").reduced().with_(attention_impl="flash")
+    model = transformer.Model(cfg, device=dev)
+    count_from_zero()
+    try:
+        model.loss(multimodal.text_batch(cfg, 2, 16))
+    except RuntimeError as exc:
+        if "has no backward" not in str(exc):
+            raise
+        log(f"train flash: a loss with grad enabled raises: {exc}")
+    else:
+        raise AssertionError("a loss through the flash kernel did not raise")
+    no_launches("flash loss")
+    del model
+    log(f"train: phase 10 took {time.perf_counter() - t_phase:.2f} s wall")
 
 
 def moe_share(model, cfg, b: int, s: int, busy_ms: float, dev, card: str) -> None:
@@ -2287,6 +2495,9 @@ def main() -> int:
     mm = serve_ssm_multimodal(dev, card)
     launches["flash"] += mm["flash_wgmma"]
     records["flash"]["simt"]["launches"] += mm["flash_simt"]
+
+    # -------------------------------------------------------- 10. LM training
+    train_lm(dev, card)
 
     kernels = [
         {"name": "fidelity", "route": "cuda",

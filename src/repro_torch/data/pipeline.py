@@ -1,12 +1,16 @@
-"""Batching data pipeline (the "Data Cleaning" -> model feed path of Fig 1).
+"""Batching data pipeline (the "Data Cleaning" -> model feed path of Fig 1,
+plus the classical-LM token pipeline for the architecture zoo).
 
-numpy in, numpy out: the trainer moves each batch to its device.
+numpy in, numpy out for images: the trainer moves each batch to its device.
+Token batches are ``torch.long`` tensors on the CPU, as ``batch_for`` makes
+them.
 """
 from __future__ import annotations
 
 from typing import Iterator
 
 import numpy as np
+import torch
 
 
 def clean(images: np.ndarray, clip_percentile: float = 99.5) -> np.ndarray:
@@ -26,3 +30,11 @@ def batches(images: np.ndarray, labels: np.ndarray, batch_size: int,
     for i in range(0, end, batch_size):
         idx = order[i:i + batch_size]
         yield images[idx], labels[idx]
+
+
+def synthetic_tokens(rng_seed: int, batch: int, seq_len: int, vocab: int) -> torch.Tensor:
+    """Deterministic (batch, seq_len) token batch for LM smoke tests and
+    benchmarks: the reference's values, as int64."""
+    rng = np.random.default_rng(rng_seed)
+    toks = rng.integers(0, vocab, size=(batch, seq_len), dtype=np.int32)
+    return torch.from_numpy(toks).long()

@@ -37,8 +37,12 @@ to the other or to the plain version:
 Both skip kv tiles that the mask hides from a whole block (their terms are
 exactly 0, so the function is the same).  ``_flash_plain`` is the same
 computation in PyTorch, 64-row by 64-key tiles in the reference's order
-with no skip.  On a CPU tensor the wrapper takes the plain version; on a
-CUDA tensor it launches its route's kernel or raises.
+with no skip.  On a CPU tensor the wrapper takes the plain version, at any
+head dim; on a CUDA tensor it launches its route's kernel (compiled for
+``HEAD_DIMS``) or raises.  Like the reference's kernel, the function has no
+backward: with grad enabled and an input that requires grad it raises on
+both devices, where the CUDA launch would return a tensor with no autograd
+history and a CPU run would train through the plain version.
 """
 from __future__ import annotations
 
@@ -73,8 +77,6 @@ def _check(q, k, v, groups: int) -> None:
         raise ValueError(f"q {tuple(q.shape)} with groups={groups} needs k and v of "
                          f"shape {(bh // max(groups, 1), s, hd)}, got {tuple(k.shape)} "
                          f"and {tuple(v.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share a dtype in {tuple(ROUTES)}, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -82,12 +84,18 @@ def _check(q, k, v, groups: int) -> None:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash-attention kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward (neither has the reference's Pallas kernel, "
+            "which jax.grad cannot transpose): train through attention_impl='naive' or "
+            "'chunked', or call it under torch.no_grad()")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, groups: int = 1) -> torch.Tensor:
     """q (BH, S, hd), k and v (BH / groups, S, hd), scale pre-applied ->
-    (BH, S, hd) in q's dtype."""
+    (BH, S, hd) in q's dtype.  Forward only: with grad enabled and any of
+    q, k, v requiring grad it raises a ``RuntimeError`` on every device."""
     _check(q, k, v, groups)
     if q.device.type == "cpu":
         return _flash_plain(q, k, v, causal=causal, window=window, groups=groups)
@@ -162,6 +170,9 @@ def check_tma_aligned(*tensors: torch.Tensor) -> None:
 
 
 def _flash_cuda(q, k, v, causal: bool, window: int, groups: int) -> torch.Tensor:
+    if q.shape[-1] not in HEAD_DIMS:  # the plain version takes any head dim
+        raise ValueError(f"head dim {q.shape[-1]}: the flash kernels are compiled for head "
+                         f"dims {HEAD_DIMS} only")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     bh, s, hd = q.shape
     out = torch.empty_like(q)

@@ -12,22 +12,28 @@ mixers (``pattern``), and the stub multimodal frontends:
           ``projector``, prepended to the text tokens;
   audio : K codebook embeddings summed per frame, K output heads, logits
           (B, S, K, V).
-DeepSeek's multi-token prediction head (``mtp_proj``, ``mtp_norm``) is
-initialised and carried across, and, as in the reference, the serving path
-does not use it; its loss waits with ``Model.loss`` (ROADMAP Queue 1 item
-14h).
+DeepSeek's multi-token prediction head (``mtp_proj``, ``mtp_norm``) enters
+``Model.loss`` only, as in the reference: serving does not use it.
+
+``loss`` is the training forward.  With ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint`` (non-reentrant) while grad is enabled: its
+activations are recomputed in the backward, as the reference's
+``jax.checkpoint`` of its scan body recomputes them.  That changes memory,
+not numbers.  ``prefill`` and ``decode_step`` are the serving forwards and
+run without autograd.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.checkpoint.checkpoint import to_numpy
 from repro_torch.core.trainer import resolve_device
 from repro_torch.models import blocks, common, ssm
-from repro_torch.models.common import rms_norm
+from repro_torch.models.common import cross_entropy, rms_norm
 
 
 class Model(nn.Module):
@@ -92,18 +98,29 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------ forward
     def forward(self, x: torch.Tensor, *, caches=None, pos=None):
-        """x (B, S, D) -> (hidden (B, S, D), aux, new_caches)."""
+        """x (B, S, D) -> (hidden (B, S, D), aux, new_caches).  Each layer
+        is checkpointed when ``cfg.remat``, grad is enabled and there is
+        no cache."""
         cfg = self.cfg
         decode = caches is not None
+        remat = cfg.remat and not decode and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = [] if decode else None
         for i, (blk, kind) in enumerate(zip(self.blocks, cfg.layer_kinds)):
-            x, a, nc = blocks.apply_block(blk, x, kind, self.use_moe[i % len(cfg.pattern)], cfg,
-                                          cache=caches[i] if decode else None, pos=pos)
+            use_moe = self.use_moe[i % len(cfg.pattern)]
+            if remat:
+                x, a = checkpoint(self._layer, blk, x, kind, use_moe, use_reentrant=False)
+            else:
+                x, a, nc = blocks.apply_block(blk, x, kind, use_moe, cfg,
+                                              cache=caches[i] if decode else None, pos=pos)
+                if decode:
+                    new_caches.append(nc)
             aux = aux + a
-            if decode:
-                new_caches.append(nc)
         return x, aux, new_caches
+
+    def _layer(self, blk, x, kind: str, use_moe: bool):
+        x, a, _ = blocks.apply_block(blk, x, kind, use_moe, self.cfg)
+        return x, a
 
     def hidden_to_logits(self, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -115,10 +132,32 @@ class Model(nn.Module):
 
     # --------------------------------------------------------------- loss
     def loss(self, batch: dict) -> torch.Tensor:
-        """The reference's training loss (next-token cross-entropy, the
-        codebooks' and the MTP head's terms, plus the MoE aux loss)."""
-        raise NotImplementedError(
-            f"{self.cfg.name}: Model.loss waits for the training slice (ROADMAP Queue 1 item 14h)")
+        """The reference's training loss, a float32 scalar: next-token
+        cross-entropy (for a VLM batch over the text after the
+        ``n_prefix_embeds`` patches; for audio over every codebook), plus
+        DeepSeek's MTP term at weight 0.3 (``tokens[:, 2:]`` predicted from
+        ``[h_t ; embed(tok_{t+1})]`` through ``mtp_proj`` and ``mtp_norm``),
+        plus the MoE aux loss."""
+        cfg = self.cfg
+        x = self.embed_inputs(batch)
+        h, aux, _ = self(x)
+        logits = self.hidden_to_logits(h)
+        if cfg.n_codebooks:
+            codes = batch["codes"].to(self.device)
+            ce = cross_entropy(logits[:, :-1].reshape(-1, cfg.vocab), codes[:, 1:].reshape(-1))
+        else:
+            labels = batch["tokens"].to(self.device)
+            pfx = cfg.n_prefix_embeds if "image_embeds" in batch else 0
+            lg = logits[:, pfx:]                                     # text region only
+            ce = cross_entropy(lg[:, :-1], labels[:, 1:])
+            if cfg.mtp_depth:
+                hh = h[:, pfx:]
+                emb_next = self.embed[labels[:, 1:]]
+                z = torch.cat([hh[:, :-1], emb_next], dim=-1) @ self.mtp_proj
+                z = rms_norm(z, self.mtp_norm, cfg.norm_eps)
+                head = self.embed.T if cfg.tie_embeddings else self.lm_head
+                ce = ce + 0.3 * cross_entropy(z[:, :-1] @ head, labels[:, 2:])
+        return ce + aux
 
     # -------------------------------------------------------------- decode
     def init_caches(self, batch: int, capacity: int) -> list:
@@ -126,6 +165,7 @@ class Model(nn.Module):
         return [blocks.init_block_cache(kind, self.cfg, batch, capacity, self.dtype, self.device)
                 for kind in self.cfg.layer_kinds]
 
+    @torch.no_grad()
     def decode_step(self, batch: dict, caches: list, pos: int):
         """One-token decode: ``batch`` holds the NEW token, ``pos`` its
         position.  Returns (logits (B, 1, V) or (B, 1, K, V), new_caches)."""
@@ -134,6 +174,7 @@ class Model(nn.Module):
         return self.hidden_to_logits(h), new_caches
 
     # ------------------------------------------------------------ prefill
+    @torch.no_grad()
     def prefill(self, batch: dict):
         """Full-sequence forward returning (logits, aux); no cache is built
         (cached generation re-feeds tokens through ``decode_step``)."""
@@ -211,7 +252,18 @@ def params_to_numpy(cfg: ModelConfig, model: nn.Module) -> dict:
     pattern entry, stacked over periods), so ``checkpoint.save`` writes
     the file the reference's ``checkpoint.load(like=params)`` restores.
     bfloat16 leaves become the 2-byte ``V2`` records the reference writes."""
-    state = model.state_dict()
+    return _to_tree(cfg, model.state_dict())
+
+
+def grads_to_numpy(cfg: ModelConfig, model: nn.Module) -> dict:
+    """The parameters' ``.grad`` in the reference's pytree, as
+    ``params_to_numpy`` lays out the parameters: a leaf the loss did not
+    touch (``.grad`` None) is zeros, as ``jax.grad`` gives it."""
+    return _to_tree(cfg, {name: torch.zeros_like(p) if p.grad is None else p.grad
+                          for name, p in model.named_parameters()})
+
+
+def _to_tree(cfg: ModelConfig, state: dict[str, torch.Tensor]) -> dict:
     tree: dict = {k: to_numpy(v) for k, v in state.items() if not k.startswith("blocks.")}
     n_pat = len(cfg.pattern)
     blocks_tree = []

@@ -689,3 +689,63 @@ def test_checkpoint_round_trip_of_card_tensors(cuda, tmp_path):
     toks = multimodal.text_batch(cfg, 2, 16)
     with torch.no_grad():
         assert torch.equal(fresh.prefill(toks)[0], model.prefill(toks)[0])
+
+
+# ------------------------------------------------------------- LM training
+TRAIN_ARCHS = ["nemotron-4-340b", "phi-3-vision-4.2b", "granite-34b", "smollm-360m",
+               "qwen3-4b", "granite-moe-3b-a800m", "musicgen-large", "xlstm-125m",
+               "jamba-v0.1-52b", "deepseek-v3-671b"]
+
+
+def _train_once(cfg, model, batch):
+    from repro_torch.launch import steps
+
+    train_step, optimizer, _ = steps.make_train_step(cfg, global_batch=4, model=model)
+    stats = {}
+    _, loss = train_step(optimizer.init(dict(model.named_parameters())), batch, stats)
+    return loss, stats["grads"]
+
+
+@pytest.mark.parametrize("name", TRAIN_ARCHS)
+def test_train_step_on_card_matches_cpu(cuda, name):
+    """One float32 train step (global batch 4: two interleaved microbatches)
+    on the card against the same step of the port on the CPU: the loss
+    within 1e-5 relative, the new parameters within 1e-5 (AdamW: where the
+    CPU's gradient exceeds 1e-3 of its leaf's largest, ROADMAP Queue 3
+    R7).  The MoE sort and scatter, the SSM scans, MLA and MTP run their
+    backward on CUDA."""
+    cfg = cfg_base.get(name).reduced()
+    cpu, card = _cpu_and_card(cfg, cuda)
+    batch = multimodal.batch_for(cfg, 4, 16, seed=1)
+    want, grads = _train_once(cfg, cpu, batch)
+    got, _ = _train_once(cfg, card, batch)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
+    adam = cfg.optimizer in ("adam", "adamw")
+    card_params = dict(card.named_parameters())
+    for n, p in cpu.named_parameters():
+        g = grads[n].abs()
+        mask = g > 1e-3 * g.max() if adam else torch.ones_like(g, dtype=torch.bool)
+        err = (card_params[n].detach().cpu() - p.detach()).abs()[mask]
+        assert err.numel() == 0 or float(err.max()) <= 1e-5, (name, n)
+
+
+def test_train_launcher_on_card(cuda, capsys):
+    from repro_torch.launch import train
+
+    loss = train.run_reduced("smollm-360m", 3, 2, 16, device="cuda")
+    assert np.isfinite(loss)
+    assert "on cuda" in capsys.readouterr().out
+
+
+def test_flash_loss_raises_on_card(cuda):
+    """The flash kernel has no backward: a loss through it with grad enabled
+    raises before any launch; without grad the prefill launches it."""
+    cfg = cfg_base.get("smollm-360m").reduced().with_(attention_impl="flash")
+    model = transformer.Model(cfg, device=cuda)
+    batch = multimodal.text_batch(cfg, 2, 16)
+    before = dict(F.LAUNCHES)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        model.loss(batch)
+    assert F.LAUNCHES == before
+    model.prefill(batch)
+    assert F.LAUNCHES["flash_simt"] == before["flash_simt"] + cfg.n_layers

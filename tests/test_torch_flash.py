@@ -57,8 +57,10 @@ def _dense_oracle(q, k, v, causal=True, window=0):
 
 
 @pytest.mark.parametrize("s,hd", [(32, 16), (64, 32), (128, 64), (256, 128), (128, 192),
-                                  (128, 96)])
+                                  (128, 96), (128, 80)])
 def test_shape_sweep(s, hd):
+    """hd 80 is no compiled head dim: the CPU's plain version takes any, as
+    the reference's kernel does."""
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(4, s, hd, seed=s), "float32")
     want = RF.flash_attention(jq, jk, jv, block_q=min(64, s), block_k=min(64, s),
                               interpret=True)
@@ -239,10 +241,16 @@ def test_bf16_plain_rounds_probabilities():
 
 @pytest.mark.parametrize("bad", ["head_dim", "groups", "dtype", "rank"])
 def test_rejects_what_the_kernel_does_not_take(bad):
+    """A head dim outside ``HEAD_DIMS`` is refused by the CUDA routes only
+    (before any launch); the rest by every device."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(4, 32, 16))
     if bad == "head_dim":
         q, k, v = (torch.zeros(4, 32, 48) for _ in range(3))
-    elif bad == "groups":
+        with pytest.raises(ValueError, match="compiled for head dims"):
+            F._flash_cuda(q, k, v, True, 0, 1)
+        assert F.flash_attention(q, k, v).shape == (4, 32, 48)
+        return
+    if bad == "groups":
         k, v = k[:3], v[:3]
     elif bad == "dtype":
         q = q.to(torch.float16)
@@ -259,3 +267,26 @@ def test_fully_masked_first_tile_gives_no_nan():
     got = _np(F._flash_plain(*(torch.from_numpy(a) for a in (q, k, v)), window=4))
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, _dense_oracle(q, k, v, True, 4), atol=2e-5)
+
+
+def test_refuses_grad_like_the_reference():
+    """The reference's kernel has no transpose rule (``jax.grad`` through it
+    fails), and the port's has no backward: with grad enabled and an input
+    that requires grad it raises on the CPU too, so a loss through
+    ``attention_impl="flash"`` raises; under ``torch.no_grad()`` or
+    without a grad-requiring input it runs."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 32, 16))
+    want = F.flash_attention(q, k, v)
+    qg = q.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="has no backward"):
+        F.flash_attention(qg, k, v)
+    with torch.no_grad():
+        assert torch.equal(F.flash_attention(qg, k, v), want)
+    from repro_torch.configs import base
+    from repro_torch.models import multimodal, transformer
+    cfg = base.get("smollm-360m").reduced().with_(attention_impl="flash")
+    model = transformer.Model(cfg, device="cpu")
+    batch = multimodal.text_batch(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        model.loss(batch)
+    assert torch.isfinite(model.prefill(batch)[0]).all()

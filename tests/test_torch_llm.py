@@ -23,7 +23,7 @@ from repro.models import common as rcommon
 from repro.models import multimodal as rmm
 from repro.models import transformer as rtransformer
 from repro_torch.configs import base
-from repro_torch.launch import mesh, serve, steps
+from repro_torch.launch import mesh, serve, steps, train
 from repro_torch.models import blocks, common, multimodal, transformer
 
 ATOL = 1e-4
@@ -272,13 +272,11 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
         transformer.Model(base.get("smollm-360m").reduced())
 
 
-@pytest.mark.parametrize("entry,item", [("loss", "14h"), ("train_step", "14h"),
+@pytest.mark.parametrize("entry,item", [("train_full_config", "15"), ("serve_full_config", "15"),
                                         ("production_mesh", "15")])
 def test_unported_entry_points_raise_naming_their_roadmap_item(entry, item):
-    cfg = base.get("smollm-360m").reduced()
-    call = {"loss": lambda: transformer.Model(cfg, device="cpu").loss(
-                multimodal.text_batch(cfg, 1, 4)),
-            "train_step": lambda: steps.make_train_step(cfg, global_batch=8),
+    call = {"train_full_config": lambda: train.main(["--arch", "smollm-360m", "--device", "cpu"]),
+            "serve_full_config": lambda: serve.main(["--arch", "smollm-360m", "--device", "cpu"]),
             "production_mesh": lambda: mesh.make_production_mesh()}[entry]
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         call()

@@ -30,7 +30,8 @@ def test_every_module_imports_with_jax_blocked():
                      "repro_torch.comanager.simulation", "repro_torch.federated",
                      "repro_torch.scale", "repro_torch.checkpoint.checkpoint",
                      "repro_torch.models.moe", "repro_torch.models.ssm",
-                     "repro_torch.models.multimodal"):
+                     "repro_torch.models.multimodal", "repro_torch.optim.schedules",
+                     "repro_torch.launch.train"):
         assert sentinel in mods
     code = (
         "import sys\n"
