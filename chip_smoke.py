@@ -162,7 +162,21 @@ Phases, in order; any failure exits non-zero before the result line:
                on the card against the same step on the CPU (loss within
                1e-5 relative, parameters within 1e-5, AdamW leaves where
                |g| > 1e-3 max|g|); (c) a loss through the flash kernel
-               with grad enabled raises, launching nothing.
+               with grad enabled raises, launching nothing;
+ 11. dry-run — (a) the paper's bank dry-run (``launch/quantum_dryrun.py``,
+               ``quclassi-7q-3l`` x 1,048,576 circuits): its records on a
+               1 x 1 mesh and the 16 x 16 pod, the whole bank through
+               ``fidelity_kernel`` and through the per-gate plain path on
+               the card (within 1e-5), both timed beside the fused and
+               per-gate traffic bounds and the kernel's operations bound;
+               (b) a slice of it placed by ``bank_shardings`` over 1 and 3
+               shards and run by ``sharded_executor``, bit-equal to
+               ``worker_batched_executor``; (c) the LM dry-run
+               (``launch/dryrun.py``) of ``smollm-360m`` x ``train_4k`` on
+               16 x 16 and at phase 10a's 64 x 1024 on 1 x 1: its argument
+               bytes for parameters and AdamW state equal to the bytes the
+               card's allocator is asked for them, its FLOPs beside
+               ``train_flops``.  Records in ``chiprun_out/dryrun/``.
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Needs CUDA; without it, or without the
 repository around it, it exits non-zero and prints no result.
@@ -1409,6 +1423,141 @@ def train_lm(dev, card: str) -> None:
     log(f"train: phase 10 took {time.perf_counter() - t_phase:.2f} s wall")
 
 
+#: phase 11: the paper's bank dry-run at the reference's default size
+BANK_CIRCUITS = 1 << 20
+#: phase 11b: the slice of that bank placed by ``bank_shardings``
+BANK_SLICE = 1 << 16
+def dryrun_phase(dev, card: str) -> dict:
+    """Phase 11: the dry-runs.  (a) The paper's bank dry-run,
+    ``quclassi-7q-3l`` x 1,048,576 circuits: the records of the 1 x 1 host
+    mesh and the 16 x 16 pod; the whole bank through ``fidelity_kernel``
+    (the quantum dry-run's own execution: counts zeroed just before, read
+    just after) and through the per-gate plain path on the card, within
+    1e-5, both timed beside the two traffic bounds and the kernel's
+    operations bound.  (b) A slice of the bank placed by
+    ``bank_shardings`` on the card as a mesh of 1 and of 3 shards and run
+    by ``sharded_executor``, bit-equal to ``worker_batched_executor``.  (c)
+    The LM dry-run of ``smollm-360m`` x ``train_4k`` on the 16 x 16 mesh and
+    at phase 10a's 64 x 1024 on a 1 x 1 mesh: its per-device argument bytes
+    for the parameters and AdamW state equal to the bytes the card's
+    allocator is asked for them (its ``requested_bytes``; what it holds,
+    ``allocated_bytes``, adds its rounding and unsplit block tails), its
+    FLOPs beside ``train_flops``.  Returns (a) and (b)'s launches."""
+    from repro_torch.comanager import dataplane
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.core import circuits, fidelity
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vqc_statevector as K
+    from repro_torch.launch import dryrun, quantum_dryrun, steps
+    from repro_torch.launch.mesh import DeviceMesh, make_mesh
+
+    t_phase = time.perf_counter()
+    out_dir = str(ROOT / "chiprun_out" / "dryrun")
+    host = make_mesh((1, 1), ("data", "model"))
+    spec = circuits.build_quclassi_circuit(7, 3)
+    free()
+
+    # (a) the bank: the 1 x 1 record runs it on the card, the pod's counts only
+    torch.cuda.synchronize()
+    zero_counts(K)
+    rec = quantum_dryrun.run(7, 3, BANK_CIRCUITS, verbose=False, mesh=host, device=dev,
+                             out_dir=out_dir)
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    res = rec.pop("_results")
+    pod = quantum_dryrun.run(7, 3, BANK_CIRCUITS, verbose=False, out_dir=out_dir)
+    if counts["fidelity"] < 1 or any(n for k, n in counts.items() if k != "fidelity"):
+        raise AssertionError(f"bank dry-run: launches {counts}; it runs fidelity_kernel alone")
+    err = rec["executed"]["max_abs_diff"]
+    if not err <= quantum_dryrun.TOL:
+        raise AssertionError(f"bank dry-run: fused vs per-gate max |diff| {err}")
+    theta, data = res["theta"], res["data"]
+    fused_ms = time_ms(lambda: ops.vqc_fidelity(spec, theta, data), iters=10)
+    fused_dev = device_ms(lambda: ops.vqc_fidelity(spec, theta, data), "fidelity_kernel",
+                          iters=10)
+    pergate_ms = time_ms(lambda: fidelity.fidelity_batch(spec, theta, data), iters=3, warmup=1)
+    kern_bytes = rec["fused_kernel"]["bytes_per_device"]
+    state_bytes = rec["pergate"]["analytic_state_bytes_per_device"]
+    flops = BANK_CIRCUITS * (ops_flops(spec.ops, spec.n_qubits) + 2 * 2**spec.n_qubits)
+    op_ms, op_by = bound(flops, kern_bytes)
+    shown = "not measured" if fused_dev is None else f"{fused_dev:.4f} ms"
+    log(f"dryrun bank {rec['workload']}: {BANK_CIRCUITS:,} circuits ({spec.n_qubits} qubits, "
+        f"{spec.n_theta} theta, {spec.n_data} data angles, {len(spec.ops)} gates) on 1 card: "
+        f"fused {fused_ms:.4f} ms (events; device {shown}), per-gate plain {pergate_ms:.4f} ms; "
+        f"traffic bounds: fused {kern_bytes:,} B = {kern_bytes / PEAK_BYTES_PER_S * 1e3:.4f} "
+        f"ms, per-gate state {state_bytes:,} B = {state_bytes / PEAK_BYTES_PER_S * 1e3:.4f} "
+        f"ms at {PEAK_BYTES_PER_S / 1e12} TB/s; the kernel's bound {op_ms:.4f} ms ({op_by}; "
+        f"{flops:,} float32 operations); max |fused - per-gate| {err:.3e} (limit "
+        f"{quantum_dryrun.TOL}); launches {counts} [{card}]")
+    log(f"dryrun bank counts: per-gate path on meta {rec['pergate']['flops_per_device']:.4e} "
+        f"FLOPs, {rec['pergate']['bytes_per_device']:.4e} B (1 x 1); the 16 x 16 pod "
+        f"{pod['chips']} chips, {pod['pergate']['bytes_per_device']:.4e} B and "
+        f"{pod['fused_kernel']['bytes_per_device']:,} B fused a chip")
+    del res
+
+    # (b) a slice placed by bank_shardings and run by sharded_executor
+    th, dt = theta[:BANK_SLICE].contiguous(), data[:BANK_SLICE].contiguous()
+    want = dataplane.worker_batched_executor(
+        spec, dataplane.round_robin_assignment(BANK_SLICE, 4), 4)(th, dt)
+    sharded = {}
+    for n_shards in (1, 3):
+        mesh = DeviceMesh((dev,) * n_shards)
+        t_sh, d_sh = dataplane.bank_shardings(mesh)
+        torch.cuda.synchronize()
+        zero_counts(K)
+        got = dataplane.sharded_executor(spec, mesh)(t_sh.place(th), d_sh.place(dt))
+        torch.cuda.synchronize()
+        sharded[n_shards] = K.LAUNCHES["fidelity"]
+        if not torch.equal(got, want):
+            raise AssertionError(f"bank_shardings over {n_shards} shards: max |diff| "
+                                 f"{float((got - want).abs().max())}")
+        counts["fidelity"] += K.LAUNCHES["fidelity"]
+    log(f"dryrun bank_shardings: {BANK_SLICE:,} rows over 1 and 3 shards of the card bit-equal "
+        f"to worker_batched_executor; fidelity launches {sharded}")
+    del theta, data, th, dt
+    free()
+
+    # (c) the LM dry-run: the pod, and phase 10a's shape on one card
+    cfg = cfg_base.get("smollm-360m")
+    t0 = time.perf_counter()
+    pod_rec = dryrun.run_one(cfg.name, "train_4k", False, verbose=False, out_dir=out_dir)
+    shape = cfg_base.InputShape("train_64x1024", 1024, 64, "train")
+    one = dryrun.run_one(cfg.name, shape, False, verbose=False, mesh=host, out_dir=out_dir)
+    count_s = time.perf_counter() - t0
+    args = one["arguments_per_device"]
+    want_bytes = args["params"] + args["opt_state"] - 4   # the step is a host int here
+    def held():
+        torch.cuda.synchronize()
+        stats = torch.cuda.memory_stats(dev)
+        return stats["requested_bytes.all.current"], stats["allocated_bytes.all.current"]
+
+    before = held()
+    _, optimizer, model = steps.make_train_step(cfg, global_batch=64, device=dev)
+    opt_state = optimizer.init(dict(model.named_parameters()))
+    got_bytes, got_alloc = (a - b for a, b in zip(held(), before))
+    n_tensors = sum(1 for _ in model.parameters()) * (1 + sum(
+        isinstance(v, dict) for v in opt_state.values()))
+    ref_flops = train_flops(cfg, model, 64 * 1024, 1024)
+    log(f"dryrun {cfg.name}: train_4k on 16 x 16 {pod_rec['flops_per_device']:.4e} FLOPs, "
+        f"{pod_rec['bytes_accessed_per_device']:.4e} B, "
+        f"{pod_rec['memory']['argument_size_bytes']:,} argument bytes a chip; 64 x 1024 on "
+        f"1 x 1: {one['flops_per_device']:.4e} FLOPs against train_flops {ref_flops:.4e} "
+        f"(ratio {one['flops_per_device'] / ref_flops:.6f}), "
+        f"{one['bytes_accessed_per_device']:.4e} B counted (eager, unfused); both counted in "
+        f"{count_s:.2f} s")
+    log(f"dryrun {cfg.name}: parameters + AdamW state {want_bytes:,} B by the specs, "
+        f"{got_bytes:,} B requested from the card's allocator for {n_tensors} tensors (diff "
+        f"{got_bytes - want_bytes:,} B), {got_alloc:,} B held by it (rounding and unsplit "
+        f"block tails: {got_alloc - got_bytes:,} B) [{card}]")
+    if got_bytes != want_bytes:
+        raise AssertionError(f"{cfg.name}: the dry-run's {want_bytes} B of parameters and "
+                             f"optimizer state against {got_bytes} B allocated")
+    del model, optimizer, opt_state
+    free()
+    log(f"dryrun: phase 11 took {time.perf_counter() - t_phase:.2f} s wall")
+    return counts
+
+
 def moe_share(model, cfg, b: int, s: int, busy_ms: float, dev, card: str) -> None:
     """One MoE layer (``moe_ffn``) and its expert bank alone at the
     prefill's shape, timed by CUDA events (their kernels keep the card
@@ -2498,6 +2647,10 @@ def main() -> int:
 
     # -------------------------------------------------------- 10. LM training
     train_lm(dev, card)
+
+    # ------------------------------------------------------------ 11. dry-runs
+    for key, n in dryrun_phase(dev, card).items():
+        launches[key] += n
 
     kernels = [
         {"name": "fidelity", "route": "cuda",

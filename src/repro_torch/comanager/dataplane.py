@@ -13,9 +13,10 @@ the serving layer's escape hatch onto it for batches no single worker fits.
 Results come back in bank order, so ``shift_rule.assemble_gradient``
 consumes them identically — scheduling never changes the math.
 
-Every factory returns a ``declare``-d executor.  The reference's
-``bank_shardings`` (a ``pjit`` sharding read only by the dry-run) waits for
-the dry-run's port (ROADMAP Queue 1 item 15).
+Every factory returns a ``declare``-d executor.  ``bank_shardings`` gives
+the (theta, data) shardings that cut a bank's rows over a mesh's ``data``
+axis: ``sharded_executor`` places banks with them, and runs banks already
+placed by them.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from repro_torch.core import shift_rule
 from repro_torch.core.sim import CircuitSpec
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import DeviceMesh, make_host_mesh
+from repro_torch.launch.partition import NamedSharding, P, Sharded
 
 
 class SlotStreams:
@@ -276,8 +278,14 @@ def worker_multibank_executor(spec: CircuitSpec, assignment: Sequence[int], n_wo
     return declare(run, multibank=True)
 
 
-def _pad_rows(x: torch.Tensor, pad: int) -> torch.Tensor:
-    return torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad else x
+def bank_shardings(mesh: DeviceMesh, axis: str = "data") -> tuple[NamedSharding, NamedSharding]:
+    """Shardings of (theta_bank, data_bank): rows over ``axis``, zero-padded
+    to a multiple of its size, one contiguous piece per device in mesh
+    order (``NamedSharding.place``)."""
+    if axis != "data":
+        raise ValueError(f"the port's meshes shard over 'data' only, got {axis!r}")
+    s = NamedSharding(mesh, P(axis, None))
+    return (s, s)
 
 
 def sharded_executor(spec: CircuitSpec, mesh: DeviceMesh, axis: str = "data"):
@@ -293,25 +301,22 @@ def sharded_executor(spec: CircuitSpec, mesh: DeviceMesh, axis: str = "data"):
     sample shard for all (param, shift) groups; the gathered (n_groups, B)
     grid flattens back to bank order.  Per-lane math never depends on the
     shard, so every shard count gives the same bits.
+
+    Rows are placed by ``bank_shardings``; a bank already placed by them
+    (``partition.Sharded``) runs on its pieces as they lie.
     """
-    if axis != "data":
-        raise ValueError(f"the port's meshes shard over 'data' only, got {axis!r}")
+    sharding = bank_shardings(mesh, axis)[0]
     devices = mesh.devices
-    n_shards = len(devices)
     home = devices[0]
 
     def _shards(*arrays):
-        """Each array padded to a multiple of the shard count and cut into
-        one contiguous float32 piece per device, copied there."""
-        c = arrays[0].shape[0]
-        pad = (-c) % n_shards
-        per = (c + pad) // n_shards
-        padded = [_pad_rows(a.to(torch.float32), pad) for a in arrays]
-        return [
-            tuple(a[i * per : (i + 1) * per].to(dev, non_blocking=True).contiguous()
-                  for a in padded)
-            for i, dev in enumerate(devices)
-        ]
+        """Each array's float32 pieces, one per device (placed here unless
+        ``bank_shardings`` placed it already), zipped per device."""
+        placed = [a if isinstance(a, Sharded) else sharding.place(a.to(torch.float32))
+                  for a in arrays]
+        if any(len(p.pieces) != len(devices) or p.dim for p in placed):
+            raise ValueError("a placed bank must be cut over this mesh's rows by bank_shardings")
+        return list(zip(*(tuple(t.to(torch.float32) for t in p.pieces) for p in placed)))
 
     def _local(fn, *arrays, dim: int = 0):
         outs = [fn(*shard) for shard in _shards(*arrays)]  # all launched first
@@ -325,7 +330,7 @@ def sharded_executor(spec: CircuitSpec, mesh: DeviceMesh, axis: str = "data"):
                 bank.theta, bank.data, dim=1,
             )
             return out[:, : bank.n_samples].reshape(-1)
-        c = theta_bank.shape[0]
+        c = theta_bank.size if isinstance(theta_bank, Sharded) else theta_bank.shape[0]
         return _local(lambda t, d: kops.vqc_fidelity(spec, t, d), theta_bank, data_bank)[:c]
 
     def run_banks(thetas, datas, four_term: bool, group_sets: tuple):

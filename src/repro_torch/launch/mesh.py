@@ -1,5 +1,6 @@
 """Device meshes of the port: a tuple of ``torch.device``s on one ``data``
-axis, inside one process.
+axis, inside one process (``DeviceMesh``), and shape-only meshes that the
+dry-runs partition against (``ShapeMesh``).
 
 The reference is single-controller: ``shard_map`` over the ``data`` axis of
 the local devices.  Its counterpart here launches every shard on its own
@@ -31,13 +32,42 @@ class DeviceMesh:
         return {"data": len(self.devices), "model": 1}
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's TPU pod mesh (16 x 16 chips, 2 pods multi-pod), read
-    only by the dry-runs."""
-    raise NotImplementedError(
-        "the production mesh is read only by the dry-runs, which are not "
-        "ported yet (ROADMAP Queue 1 item 15)"
-    )
+@dataclasses.dataclass(frozen=True)
+class ShapeMesh:
+    """A mesh of named axes and sizes with no devices behind it: what the
+    dry-runs partition against (the counterpart of the reference's meshes
+    of host placeholders).  Nothing is ever placed on it."""
+
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.sizes) or any(n < 1 for n in self.sizes):
+            raise ValueError(f"bad mesh {self.axis_names} x {self.sizes}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def make_mesh(sizes: tuple[int, ...], axis_names: tuple[str, ...]) -> ShapeMesh:
+    return ShapeMesh(tuple(axis_names), tuple(sizes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
+    """The reference's TPU pod mesh, shape only: 16 x 16 = 256 chips on
+    ("data", "model"); 2 pods = 512 chips on ("pod", "data", "model")."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_mesh((16, 16), ("data", "model"))
+
+
+def chips(mesh) -> int:
+    """Devices of ``mesh`` (a ``DeviceMesh`` or a ``ShapeMesh``)."""
+    n = 1
+    for size in mesh.shape.values():
+        n *= size
+    return n
 
 
 def batch_axes(mesh) -> tuple[str, ...]:

@@ -4,9 +4,10 @@
       --reduced --batch 4 --prompt-len 16 --gen 24 --device cpu
 
 ``--reduced`` serves the smoke-scale config with real batched requests on
-``--device`` (default ``cuda``).  Without it the reference lowers the full
-config's serve_step against a production mesh (its dry-run), which is not
-ported yet (ROADMAP Queue 1 item 15).
+``--device`` (default ``cuda``).  Without it the full config's serve step
+is dry-run against the production mesh (``launch.dryrun.run_one`` at
+``--shape``, decode_32k by default: shapes and counts on the ``meta``
+device, nothing allocated) and its record written.
 """
 from __future__ import annotations
 
@@ -92,13 +93,15 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=24)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--shape", default="decode_32k")
+    ap.add_argument("--multi-pod", action="store_true")
     args = ap.parse_args(argv)
-    if not args.reduced:
-        raise NotImplementedError(
-            "serving the full config lowers serve_step against a production mesh "
-            "(the reference's dry-run), which is not ported yet (ROADMAP Queue 1 item 15); "
-            "pass --reduced")
-    run_reduced(args.arch, args.batch, args.prompt_len, args.gen, device=args.device)
+    if args.reduced:
+        return run_reduced(args.arch, args.batch, args.prompt_len, args.gen, device=args.device)
+    print("[serve] full config -> dry-run of serve_step against the production mesh "
+          "(meta device)")
+    from repro_torch.launch import dryrun
+    return dryrun.run_one(args.arch, args.shape, multi_pod=args.multi_pod)
 
 
 if __name__ == "__main__":

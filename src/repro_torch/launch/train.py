@@ -4,9 +4,9 @@
       --reduced --steps 50 --batch 8 --seq 64 --device cpu
 
 ``--reduced`` runs real steps of the smoke-scale config on ``--device``
-(default ``cuda``).  Without it the reference lowers the full config
-against a production mesh (its dry-run), which is not ported yet (ROADMAP
-Queue 1 item 15).
+(default ``cuda``).  Without it the full config is dry-run against the
+production mesh (``launch.dryrun.run_one``: shapes and counts on the
+``meta`` device, nothing allocated) and its record written.
 """
 from __future__ import annotations
 
@@ -56,13 +56,15 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--multi-pod", action="store_true")
     args = ap.parse_args(argv)
-    if not args.reduced:
-        raise NotImplementedError(
-            "training the full config lowers train_step against a production mesh "
-            "(the reference's dry-run), which is not ported yet (ROADMAP Queue 1 item 15); "
-            "pass --reduced")
-    run_reduced(args.arch, args.steps, args.batch, args.seq, args.ckpt, device=args.device)
+    if args.reduced:
+        return run_reduced(args.arch, args.steps, args.batch, args.seq, args.ckpt,
+                           device=args.device)
+    print("[train] full config -> dry-run against the production mesh (meta device)")
+    from repro_torch.launch import dryrun
+    return dryrun.run_one(args.arch, args.shape, multi_pod=args.multi_pod)
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ from torch import nn
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import apply_rope, causal_mask, rms_norm, softmax_f32
+from repro_torch.models.sharding import shard_hint
 
 
 # ----------------------------------------------------------------- params
@@ -104,9 +105,9 @@ def chunked_gqa_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
     every KV chunk in order (the running max starts at -inf, masked scores
     are -1e30, p is cast to the model dtype before P·V), so the
     (B, H, S, S) scores are never materialized.  Fully masked chunks run
-    and contribute 0.  ``"chunked_seqpar"`` spreads the query chunks over
-    a mesh axis in the reference; its ``shard_hint``s are the identity
-    without a mesh, so both impls run this loop."""
+    and contribute 0.  ``"chunked_seqpar"`` runs the same loop with the
+    query chunks hinted over the ``model`` axis, as the reference's
+    ``shard_hint``s spread them."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.kv_heads
@@ -120,6 +121,9 @@ def chunked_gqa_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
     q, k, v = project_qkv(params, x, cfg, positions)
 
     qg = q.reshape(b, n_chunks, ck, kv, g, hd) * (hd ** -0.5)
+    seqpar = cfg.attention_impl == "chunked_seqpar"
+    if seqpar:
+        qg = shard_hint(qg, "batch", "model", None, None, None, None)
     kc = k.reshape(b, n_chunks, ck, kv, hd)
     vc = v.reshape(b, n_chunks, ck, kv, hd)
     ar = torch.arange(ck, device=x.device)
@@ -147,7 +151,10 @@ def chunked_gqa_attention(params, x: torch.Tensor, cfg: ModelConfig, *,
             m_run = m_new
         out = acc / torch.clamp(l_run[..., None], min=1e-30)
         outs.append(out.permute(0, 3, 1, 2, 4))                     # (b, ck, kv, g, hd)
-    out = torch.cat(outs, dim=1).reshape(b, s, h * hd).to(x.dtype)
+    outs = torch.stack(outs, dim=1)                                  # (b, n, ck, kv, g, hd)
+    if seqpar:
+        outs = shard_hint(outs, "batch", "model", None, None, None, None)
+    out = outs.reshape(b, s, h * hd).to(x.dtype)
     return out @ params["wo"]
 
 

@@ -5,8 +5,8 @@ A model is ``n_layers`` blocks, layer ``i`` of kind
 ``attention_impl``: ``"naive"``, ``"chunked"`` / ``"chunked_seqpar"`` or the
 flash kernel, ``"flash"``), or one of the SSM / xLSTM mixers of
 ``models/ssm.py`` (``"mamba"``, ``"mlstm"``, ``"slstm"``), then an MoE or
-dense FFN where the config has one.  The reference's ``shard_hint`` calls
-are the identity without a mesh and are left out.
+dense FFN where the config has one.  The residual stream carries the
+reference's ``shard_hint``s (``models/sharding.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import gqa_flash_attention
 from repro_torch.models import attention, ffn as ffn_mod, moe as moe_mod, ssm
 from repro_torch.models.common import rms_norm
+from repro_torch.models.sharding import shard_hint
 
 _IMPLS = ("naive", "chunked", "chunked_seqpar", "flash")
 #: per SSM / xLSTM kind: (init params, mixer, init state)
@@ -86,7 +87,7 @@ def apply_block(params: Block, x: torch.Tensor, kind: str, use_moe: bool, cfg: M
         out, new_cache = decode(params.mixer, h, cache, pos, cfg)
     else:
         out = _prefill_attention(cfg)(params.mixer, h, cfg)
-    x = x + out
+    x = shard_hint(x + out, "batch", None, "model_act")
 
     if hasattr(params, "ffn"):
         h2 = rms_norm(x, params.norm2, cfg.norm_eps)
@@ -94,7 +95,7 @@ def apply_block(params: Block, x: torch.Tensor, kind: str, use_moe: bool, cfg: M
             y, aux = moe_mod.moe_ffn(params.ffn, h2, cfg)
         else:
             y = ffn_mod.ffn(params.ffn, h2, cfg.activation)
-        x = x + y
+        x = shard_hint(x + y, "batch", None, "model_act")
     return x, aux, new_cache
 
 

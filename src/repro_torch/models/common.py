@@ -13,6 +13,22 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return (xf * inv).to(dt) * scale.to(dt)
 
 
+class ShapeOnly:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device, which has
+    none: a model built with it has every parameter's shape and dtype and
+    draws nothing."""
+
+    device = torch.device("meta")
+
+
+def randn(gen, shape: tuple[int, ...]) -> torch.Tensor:
+    """N(0, 1) float32 of ``shape`` drawn on ``gen`` (a ``ShapeOnly``
+    generator gives an empty ``meta`` tensor)."""
+    if isinstance(gen, ShapeOnly):
+        return torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+
+
 #: a weight past this many elements is drawn a block of rows at a time, so
 #: its float32 temporaries stay near 1 GiB (a full-width embedding is 4.7 G)
 DRAW_ELEMS = 1 << 28
@@ -21,13 +37,13 @@ DRAW_ELEMS = 1 << 28
 def _draw(gen: torch.Generator, rows: int, cols: int, scale: float, dtype) -> torch.Tensor:
     """(rows, cols), N(0, 1) * scale, drawn in float32 on ``gen``'s device."""
     if rows * cols <= DRAW_ELEMS:
-        w = torch.randn((rows, cols), generator=gen, dtype=torch.float32, device=gen.device)
+        w = randn(gen, (rows, cols))
         return (w * scale).to(dtype)
     out = torch.empty((rows, cols), dtype=dtype, device=gen.device)
     step = max(1, DRAW_ELEMS // cols)
     for r0 in range(0, rows, step):
         n = min(rows, r0 + step) - r0
-        w = torch.randn((n, cols), generator=gen, dtype=torch.float32, device=gen.device)
+        w = randn(gen, (n, cols))
         out[r0:r0 + n] = (w * scale).to(dtype)
     return out
 

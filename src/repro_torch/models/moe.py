@@ -53,8 +53,7 @@ def _stack(gen: torch.Generator, n: int, din: int, dout: int, dtype) -> torch.Te
     out = torch.empty((n, din, dout), dtype=dtype, device=gen.device)
     for e0 in range(0, n, _DRAW_EXPERTS):
         e1 = min(n, e0 + _DRAW_EXPERTS)
-        w = torch.randn((e1 - e0, din, dout), generator=gen, dtype=torch.float32,
-                        device=gen.device)
+        w = common.randn(gen, (e1 - e0, din, dout))
         out[e0:e1] = (w * din ** -0.5).to(dtype)
     return out
 

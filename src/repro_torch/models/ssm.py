@@ -30,6 +30,10 @@ Dtypes follow the reference: the Mamba ``dt_bias``, ``a_log`` and
 ``d_skip``, the mLSTM ``b_i`` and ``b_f`` and the sLSTM ``b`` are float32
 in a model of any dtype (``FLOAT32_LEAVES``), states are float32 except
 Mamba's ``conv`` and sLSTM's ``h`` (model dtype).  Decode ignores ``pos``.
+
+The three loops (Mamba's and mLSTM's over chunks, sLSTM's over steps) run
+``loops.trip_loop``: ``range`` in every real run; under the dry-run's op
+counter, three trips that count as all of them.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
+from repro_torch.models.loops import expand_trips, trip_loop
 
 #: mixer leaves that the reference keeps in float32 whatever the model dtype
 FLOAT32_LEAVES = {"mamba": ("dt_bias", "a_log", "d_skip"), "mlstm": ("b_i", "b_f"),
@@ -170,15 +175,16 @@ def mamba_mixer(params, x: torch.Tensor, cfg: ModelConfig, *, state=None):
         # at its own length (the reference's zero padding only adds steps
         # after it, which it cuts)
         chunk = min(cfg.ssm.chunk, s_len)
+        n_chunks = -(-s_len // chunk)
         h = torch.zeros((b_sz, d_inner, n), dtype=_F32, device=x.device)
         ys = []
-        for s0 in range(0, s_len, chunk):
-            s1 = min(s0 + chunk, s_len)
+        for i in trip_loop(n_chunks):
+            s0, s1 = i * chunk, min((i + 1) * chunk, s_len)
             h_all = _scan_chunk(*terms(s0, s1), h)
             h = h_all[:, -1]
             ys.append(torch.einsum("bsdn,bsn->bsd", h_all, c_in[:, s0:s1]))
             del h_all
-        y = torch.cat(ys, dim=1)
+        y = torch.cat(expand_trips(ys, n_chunks), dim=1)
         new_state = None
 
     y = (y + params["d_skip"] * xs.to(_F32)).to(x.dtype)
@@ -283,12 +289,13 @@ def mlstm_mixer(params, x: torch.Tensor, cfg: ModelConfig, *, state=None):
         c_st = torch.zeros((b_sz, h, hd, hd), dtype=_F32, device=x.device)
         n_st = torch.zeros((b_sz, h, hd), dtype=_F32, device=x.device)
         ys = []
-        for c0 in range(0, s_len + pad, chunk):
-            sl = slice(c0, c0 + chunk)
+        n_chunks = (s_len + pad) // chunk
+        for i in trip_loop(n_chunks):
+            sl = slice(i * chunk, (i + 1) * chunk)
             c_st, n_st, y_k = _mlstm_chunk(c_st, n_st, q[:, sl], k[:, sl], v[:, sl],
                                            log_i[:, sl], log_f[:, sl])
             ys.append(y_k)
-        y = torch.cat(ys, dim=1)[:, :s_len].reshape(b_sz, s_len, d)
+        y = torch.cat(expand_trips(ys, n_chunks), dim=1)[:, :s_len].reshape(b_sz, s_len, d)
         new_state = None
 
     y = y.to(x.dtype) * F.silu(x @ params["w_gate"])
@@ -308,7 +315,7 @@ def init_slstm_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> nn.Param
     d = cfg.d_model
     hd = d // h
     dev = gen.device
-    r = torch.randn((4, h, hd, hd), generator=gen, dtype=_F32, device=dev) * hd ** -0.5
+    r = common.randn(gen, (4, h, hd, hd)) * hd ** -0.5
     return nn.ParameterDict({
         "w_in": common.init_dense(gen, d, 4 * d, dtype),
         # block-diagonal recurrent weights per head: (4, H, hd, hd)
@@ -341,10 +348,11 @@ def slstm_mixer(params, x: torch.Tensor, cfg: ModelConfig, *, state=None):
         c, n, hm, m = state["c"], state["n"], state["h"], state["m"]
 
     hs = []
-    for t in range(s_len):
+    pre_steps = pre_all.unbind(1)   # one op, so the backward stacks S step grads once
+    for t in trip_loop(s_len):
         hr = hm.reshape(b_sz, h_heads, hd).to(r.dtype)
         rec = torch.einsum("bhd,ghde->gbhe", hr, r).to(_F32).reshape(4, b_sz, d)
-        pre = pre_all[:, t].transpose(0, 1) + rec + bias
+        pre = pre_steps[t].transpose(0, 1) + rec + bias
         z_t = torch.tanh(pre[0])
         i_log = pre[1]
         f_log = -F.softplus(-pre[2])                                     # log sigmoid(f)
@@ -358,7 +366,7 @@ def slstm_mixer(params, x: torch.Tensor, cfg: ModelConfig, *, state=None):
         m = m_new
         hm = h_new.to(x.dtype)
         hs.append(hm)
-    y = torch.stack(hs, dim=1)                                          # (B, S, D)
+    y = torch.stack(expand_trips(hs, s_len), dim=1)                     # (B, S, D)
     new_state = {"c": c, "n": n, "h": hm, "m": m} if state is not None else None
     return y @ params["wo"], new_state
 

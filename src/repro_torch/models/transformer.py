@@ -34,12 +34,15 @@ from repro_torch.checkpoint.checkpoint import to_numpy
 from repro_torch.core.trainer import resolve_device
 from repro_torch.models import blocks, common, ssm
 from repro_torch.models.common import cross_entropy, rms_norm
+from repro_torch.models.sharding import shard_hint
 
 
 class Model(nn.Module):
     """Parameters of ``cfg`` drawn from ``seed`` on ``device`` (the port's
     own init: the reference's ``jax.random`` stream cannot be reproduced,
-    so parity runs load its weights with ``params_from_numpy``)."""
+    so parity runs load its weights with ``params_from_numpy``).  On
+    ``device="meta"`` the model is shape-only: it draws nothing and
+    allocates nothing (the dry-run's counterpart of ``jax.eval_shape``)."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
         super().__init__()
@@ -47,7 +50,9 @@ class Model(nn.Module):
         self.dtype = getattr(torch, cfg.dtype)
         p = len(cfg.pattern)
         self.use_moe = tuple(cfg.is_moe_layer(j) for j in range(p))
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        dev = torch.device(device)
+        gen = (common.ShapeOnly() if dev.type == "meta"
+               else torch.Generator(device=resolve_device(dev)).manual_seed(seed))
         if cfg.n_codebooks:
             k = cfg.n_codebooks
             self.embed = nn.Parameter(torch.stack(
@@ -94,7 +99,7 @@ class Model(nn.Module):
         if cfg.n_prefix_embeds and "image_embeds" in batch:
             prefix = batch["image_embeds"].to(self.device, self.dtype) @ self.projector
             x = torch.cat([prefix, x], dim=1)
-        return x
+        return shard_hint(x, "batch", None, None)
 
     # ------------------------------------------------------------ forward
     def forward(self, x: torch.Tensor, *, caches=None, pos=None):
@@ -128,7 +133,7 @@ class Model(nn.Module):
         if cfg.n_codebooks:
             return torch.einsum("bsd,kdv->bskv", h, self.heads)
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
-        return h @ head
+        return shard_hint(h @ head, "batch", None, "model")
 
     # --------------------------------------------------------------- loss
     def loss(self, batch: dict) -> torch.Tensor:
@@ -252,19 +257,23 @@ def params_to_numpy(cfg: ModelConfig, model: nn.Module) -> dict:
     pattern entry, stacked over periods), so ``checkpoint.save`` writes
     the file the reference's ``checkpoint.load(like=params)`` restores.
     bfloat16 leaves become the 2-byte ``V2`` records the reference writes."""
-    return _to_tree(cfg, model.state_dict())
+    return params_tree(cfg, model.state_dict(), to_numpy, np.stack)
 
 
 def grads_to_numpy(cfg: ModelConfig, model: nn.Module) -> dict:
     """The parameters' ``.grad`` in the reference's pytree, as
     ``params_to_numpy`` lays out the parameters: a leaf the loss did not
     touch (``.grad`` None) is zeros, as ``jax.grad`` gives it."""
-    return _to_tree(cfg, {name: torch.zeros_like(p) if p.grad is None else p.grad
-                          for name, p in model.named_parameters()})
+    return params_tree(cfg, {name: torch.zeros_like(p) if p.grad is None else p.grad
+                             for name, p in model.named_parameters()}, to_numpy, np.stack)
 
 
-def _to_tree(cfg: ModelConfig, state: dict[str, torch.Tensor]) -> dict:
-    tree: dict = {k: to_numpy(v) for k, v in state.items() if not k.startswith("blocks.")}
+def params_tree(cfg: ModelConfig, state: dict[str, torch.Tensor], leaf, stack) -> dict:
+    """``state`` (named as this port's ``state_dict``) in the reference's
+    pytree layout, ``leaf(tensor)`` at each leaf and ``stack(leaves)``
+    joining a pattern entry's leaves over periods: ``params_to_numpy`` is
+    ``leaf=to_numpy, stack=np.stack``; the dry-run passes shape records."""
+    tree: dict = {k: leaf(v) for k, v in state.items() if not k.startswith("blocks.")}
     n_pat = len(cfg.pattern)
     blocks_tree = []
     for j in range(n_pat):
@@ -274,13 +283,13 @@ def _to_tree(cfg: ModelConfig, state: dict[str, torch.Tensor]) -> dict:
             if not key.startswith(prefix):
                 continue
             name = key[len(prefix):]
-            stacked = np.stack([to_numpy(state[f"blocks.{p * n_pat + j}.{name}"])
-                                for p in range(cfg.n_periods)])
-            *path, leaf = name.split(".")
+            stacked = stack([leaf(state[f"blocks.{p * n_pat + j}.{name}"])
+                             for p in range(cfg.n_periods)])
+            *path, last = name.split(".")
             node = entry
             for part in path:
                 node = node.setdefault(part, {})
-            node[leaf] = stacked
+            node[last] = stacked
         blocks_tree.append(entry)
     tree["blocks"] = blocks_tree
     return tree

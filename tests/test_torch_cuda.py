@@ -749,3 +749,37 @@ def test_flash_loss_raises_on_card(cuda):
     assert F.LAUNCHES == before
     model.prefill(batch)
     assert F.LAUNCHES["flash_simt"] == before["flash_simt"] + cfg.n_layers
+
+
+def test_quantum_dryrun_executes_on_card(cuda, tmp_path):
+    """The bank dry-run's execution on the card: ``fidelity_kernel`` within
+    1e-5 of the per-gate plain path, one launch at least, nothing else."""
+    from repro_torch.launch import quantum_dryrun
+    before = dict(K.LAUNCHES)
+    rec = quantum_dryrun.run(7, 3, 4096, verbose=False, device=cuda, out_dir=str(tmp_path))
+    assert rec["executed"]["max_abs_diff"] <= quantum_dryrun.TOL
+    assert K.LAUNCHES["fidelity"] > before["fidelity"]
+    assert rec["_results"]["fused"].device.type == "cuda"
+
+
+@pytest.mark.parametrize("n_shards", [1, 3])
+def test_bank_shardings_on_card_bit_equal(cuda, n_shards):
+    from repro_torch.comanager import dataplane
+    from repro_torch.launch.mesh import DeviceMesh
+    spec = circuits.build_quclassi_circuit(7, 3)
+    th, dt = _angles(spec, 1000, cuda, seed=n_shards)
+    mesh = DeviceMesh((cuda,) * n_shards)
+    t_sh, d_sh = dataplane.bank_shardings(mesh)
+    got = dataplane.sharded_executor(spec, mesh)(t_sh.place(th), d_sh.place(dt))
+    want = dataplane.worker_batched_executor(
+        spec, dataplane.round_robin_assignment(1000, 4), 4)(th, dt)
+    assert torch.equal(got, want)
+
+
+def test_meta_model_allocates_nothing_on_card(cuda):
+    """The dry-run's shape-only model draws and allocates nothing."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model = transformer.Model(cfg_base.get("smollm-360m"), device="meta")
+    assert transformer.param_count(model) == 409_007_040
+    assert torch.cuda.memory_allocated() == before

@@ -124,8 +124,12 @@ def test_mesh_spill_executor_matches_reference():
 def test_mesh_module():
     assert tmesh.make_host_mesh("cpu").devices == (torch.device("cpu"),)
     assert tmesh.batch_axes(tmesh.make_host_mesh("cpu")) == ("data",)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tmesh.make_production_mesh()
+    pod = tmesh.make_production_mesh()
+    assert pod.axis_names == ("data", "model") and pod.shape == {"data": 16, "model": 16}
+    multi = tmesh.make_production_mesh(multi_pod=True)
+    assert multi.shape == {"pod": 2, "data": 16, "model": 16}
+    assert tmesh.batch_axes(multi) == ("pod", "data") and tmesh.data_axis_size(multi) == 32
+    assert tmesh.chips(pod) == 256 and tmesh.chips(multi) == 512
     with pytest.raises(ValueError):
         tmesh.DeviceMesh(())
     with pytest.raises(ValueError, match="'data' only"):

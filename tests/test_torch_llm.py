@@ -8,6 +8,7 @@ its plain version.  Tolerances: 1e-4 on logits (float32 through 2 layers:
 other summation orders in the projections and the attention).
 """
 import dataclasses
+import json
 import re
 
 import jax
@@ -258,12 +259,16 @@ def test_run_reduced_tokens_equal_reference(capsys):
     np.testing.assert_array_equal(got.numpy(), np.concatenate(want, 1))
 
 
-def test_serve_main_on_cpu_and_full_config_raises(capsys):
+def test_serve_main_on_cpu_and_full_config_raises(capsys, tmp_path, monkeypatch):
+    """``--reduced`` serves on the CPU; the full config returns its dry-run
+    record and writes it (the name predates the dry-run)."""
+    from repro_torch.launch import dryrun
     serve.main(["--arch", "qwen3-4b", "--reduced", "--batch", "2", "--prompt-len", "3",
                 "--gen", "2", "--device", "cpu"])
     assert "sample continuation" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        serve.main(["--arch", "smollm-360m", "--device", "cpu"])
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
+    rec = serve.main(["--arch", "smollm-360m", "--device", "cpu"])
+    assert rec["shape"] == "decode_32k" and (tmp_path / "smollm-360m__decode_32k__16x16.json").exists()
 
 
 def test_cuda_requested_without_cuda_raises(monkeypatch):
@@ -274,12 +279,27 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("entry,item", [("train_full_config", "15"), ("serve_full_config", "15"),
                                         ("production_mesh", "15")])
-def test_unported_entry_points_raise_naming_their_roadmap_item(entry, item):
+def test_unported_entry_points_raise_naming_their_roadmap_item(entry, item, tmp_path,
+                                                                monkeypatch):
+    """The entry points of ROADMAP Queue 1 item ``item`` each return what
+    the reference's returns, allocating on no device: the full configs'
+    dry-run records, the production mesh's shape (the name predates the
+    port of these entry points)."""
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {"train_full_config": lambda: train.main(["--arch", "smollm-360m", "--device", "cpu"]),
             "serve_full_config": lambda: serve.main(["--arch", "smollm-360m", "--device", "cpu"]),
             "production_mesh": lambda: mesh.make_production_mesh()}[entry]
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        call()
+    got = call()
+    if entry == "production_mesh":
+        assert got.shape == {"data": 16, "model": 16}
+        return
+    shape = "train_4k" if entry == "train_full_config" else "decode_32k"
+    assert (got["arch"], got["shape"], got["mesh"], got["chips"]) == (
+        "smollm-360m", shape, "16x16", 256)
+    assert got["flops_per_device"] > 0 and got["memory"]["argument_size_bytes"] > 0
+    assert json.loads((tmp_path / f"smollm-360m__{shape}__16x16.json").read_text()) == got
 
 
 def test_blocks_route_by_attention_impl(monkeypatch):

@@ -31,7 +31,13 @@ def test_every_module_imports_with_jax_blocked():
                      "repro_torch.scale", "repro_torch.checkpoint.checkpoint",
                      "repro_torch.models.moe", "repro_torch.models.ssm",
                      "repro_torch.models.multimodal", "repro_torch.optim.schedules",
-                     "repro_torch.launch.train"):
+                     "repro_torch.launch.train", "repro_torch.launch.partition",
+                     "repro_torch.launch.dryrun", "repro_torch.launch.quantum_dryrun",
+                     "repro_torch.models.sharding", "repro_torch.models.loops",
+                     "repro_torch.roofline",
+                     "repro_torch.roofline.analysis", "repro_torch.roofline.hlo_analyzer",
+                     "repro_torch.roofline.profile_hlo", "repro_torch.roofline.reanalyze",
+                     "repro_torch.roofline.report", "repro_torch.roofline.op_counter"):
         assert sentinel in mods
     code = (
         "import sys\n"
