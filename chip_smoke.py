@@ -177,6 +177,29 @@ Phases, in order; any failure exits non-zero before the result line:
                bytes for parameters and AdamW state equal to the bytes the
                card's allocator is asked for them, its FLOPs beside
                ``train_flops``.  Records in ``chiprun_out/dryrun/``.
+ 12. faults  — the serving fleet's fault tolerance on phase 6a's Fig-6 mix
+               and fleet (5/10/15/20-qubit workers, 2 slots each): every
+               future bit-equal to phase 6a's fault-free sync run, and every
+               failure the fleet records one the injector raised (its
+               failure count equals the attempts the injector refused): (a)
+               crash migration, no retry, one failure trips the breaker,
+               the crash at 0.3 of a fault-free run's time (sync: w2, which
+               sync placement gives the 7-qubit batches; async: w3): the
+               worker offline, a batch migrated; (b) w2 flaky (p = 0.3),
+               two in-place retries: a retry; (c) async, w3 slowed x3,
+               hedge_k 0.5 (which hedges healthy batches too): w3's batches
+               hedged, w3 giving fewer batches' results than in an unslowed
+               control run, every future resolved once; (d) w4 drained and
+               a 20-qubit w5 registered halfway: no later batch on w4; (e)
+               phase 6b's two tenants training quclassi-7q-3l while w2
+               crashes and recovers: losses and parameters equal to the
+               fault-free runs' bit for bit; (f) (a) async and (c) traced:
+               ``validate_trace`` clean, migrated and hedged stages
+               present.  (a), (b), (d) run sync and async.  Circuits/s with
+               and without the fault, per-tenant p50/p99, the counters,
+               the attempts the faulted worker ran before its first refusal
+               and each part's async idle share are logged; counts are
+               zeroed before each part and read after.
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Needs CUDA; without it, or without the
 repository around it, it exits non-zero and prints no result.
@@ -1617,15 +1640,34 @@ def zero_counts(K) -> None:
         K.LAUNCHES[key] = 0
 
 
-def train_tenants(dev, workers, cfg, batch, test_set, inits, seeds, kw):
+def launch_reader(K, card: str):
+    """-> (counts, read): ``read(label, wanted)`` logs the wrappers' counts
+    since they were last zeroed, fails if a kernel of ``wanted`` was never
+    launched, and adds them to ``counts``."""
+    counts = {key: 0 for key in K.LAUNCHES}
+
+    def read(label: str, wanted) -> None:
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+        log(f"  {label}: launches {got} [{card}]")
+        for key in wanted:
+            if got[key] <= 0:
+                raise AssertionError(f"{label}: the {key} kernel was never launched")
+        for key, n in got.items():
+            counts[key] += n
+
+    return counts, read
+
+
+def train_tenants(dev, workers, cfg, batch, test_set, inits, seeds, kw, **rt_kw):
     """Each tenant of ``seeds`` trains ``cfg`` from its own host thread,
     free-running, through one async ``GatewayRuntime`` on ``workers`` (2
-    admissions pending a tenant); -> (runtime, reports, seconds).  Fails if a
-    tenant or the runtime failed."""
+    admissions pending a tenant; ``rt_kw`` to the runtime); -> (runtime,
+    reports, seconds).  Fails if a tenant or the runtime failed."""
     from repro_torch.core.trainer import train
     from repro_torch.serve import GatewayRuntime
 
-    rt = GatewayRuntime(workers, deadline=0.05, mode="async", max_pending=2)
+    rt = GatewayRuntime(workers, deadline=0.05, mode="async", max_pending=2, **rt_kw)
     reps, errors = {}, []
 
     def tenant(cid):
@@ -1652,38 +1694,39 @@ def train_tenants(dev, workers, cfg, batch, test_set, inits, seeds, kw):
     return rt, reps, seconds
 
 
-def serve_gateway(dev, card: str) -> dict:
-    """Phase 6: the multi-tenant serving port on the card, (a) the Fig-6
-    mix through a sync and an async runtime, (b) two tenants training
-    quclassi-7q-3l through one async runtime, (c) mesh spill.  Counts are
-    zeroed just before each path and read just after; returns their sum."""
-    from repro_torch.comanager import dataplane
-    from repro_torch.comanager.worker import WorkerConfig
+def tenant_runs(dev):
+    """Phases 6b and 12e: two tenants' ``quclassi-7q-3l`` runs, batch 64,
+    implicit banks, 3 steps of one batch; -> (cfg, batch, test set, initial
+    parameters, seeds, ``train`` keywords)."""
     from repro_torch.configs.quclassi_paper import get_quclassi
-    from repro_torch.core import circuits, quclassi, shift_rule
-    from repro_torch.core.trainer import train
+    from repro_torch.core import quclassi
     from repro_torch.data.mnist import make_pair_dataset, train_test_split
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import vqc_statevector as K
-    from repro_torch.serve import GatewayRuntime
 
-    counts = {key: 0 for key in K.LAUNCHES}
+    cfg = get_quclassi("quclassi-7q-3l")
+    x, y = make_pair_dataset(1, 5, n_per_class=128, seed=0)
+    (xtr, ytr), test_set = train_test_split(x, y)
+    one_batch = (xtr[:64], ytr[:64])  # 3 epochs of one batch: 3 steps, a loss each
+    kw = dict(epochs=3, batch_size=64, lr=1e-3, bank_mode="implicit", device=dev)
+    seeds = {"tenant-a": 0, "tenant-b": 1}
+    inits = {cid: quclassi.init_params(cfg, torch.Generator().manual_seed(s), dev)
+             for cid, s in seeds.items()}
+    return cfg, one_batch, test_set, inits, seeds, kw
 
-    def read(label: str, wanted) -> None:
-        torch.cuda.synchronize()
-        got = dict(K.LAUNCHES)
-        log(f"  {label}: launches {got} [{card}]")
-        for key in wanted:
-            if got[key] <= 0:
-                raise AssertionError(f"{label}: the {key} kernel was never launched")
-        for key, n in got.items():
-            counts[key] += n
 
-    def fig6_workers(max_qubits=(5, 10, 15, 20)):
-        return [WorkerConfig(f"w{i + 1}", q) for i, q in enumerate(max_qubits)]
+def fig6_workers(max_qubits=(5, 10, 15, 20)):
+    """The paper's 4-worker multi-tenant fleet (5/10/15/20 qubits)."""
+    from repro_torch.comanager.worker import WorkerConfig
 
-    # (a) the Fig-6 client mix: each client's materialized shift-rule bank
-    rng = np.random.default_rng(6)
+    return [WorkerConfig(f"w{i + 1}", q) for i, q in enumerate(max_qubits)]
+
+
+def fig6_clients(dev, rng) -> list:
+    """The Fig-6 client mix (``benchmarks/gateway_throughput.py:42-50``):
+    4 clients (5Q/1L, 5Q/2L, 7Q/1L, 7Q/2L), each with a materialized
+    shift-rule bank of 64 samples drawn from ``rng``; -> [(cid, spec, theta
+    rows, data rows)]."""
+    from repro_torch.core import circuits, shift_rule
+
     clients = []
     for cid, qc, nl in (("5q1l", 5, 1), ("5q2l", 5, 2), ("7q1l", 7, 1), ("7q2l", 7, 2)):
         spec = circuits.build_quclassi_circuit(qc, nl)
@@ -1692,50 +1735,83 @@ def serve_gateway(dev, card: str) -> dict:
                             device=dev)
         bank = shift_rule.build_bank(theta, data)
         clients.append((cid, spec, bank.theta, bank.data))
-    n_rows = sum(t.shape[0] for _, _, t, _ in clients)
+    return clients
 
-    def fig6(mode: str):
-        """The clients' rows interleaved (row i of every client, then row
-        i + 1), drained; -> per client fidelities, seconds, runtime."""
-        rt = GatewayRuntime(fig6_workers(), target=128, deadline=0.05, mode=mode,
-                            slots_per_worker=2)
-        try:
-            for cid, _, _, _ in clients:
-                rt.gateway.register_client(cid, slo_ms=4000.0)
-            rows = {cid: list(zip(t.unbind(0), d.unbind(0))) for cid, _, t, d in clients}
-            futs = {cid: [] for cid in rows}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(max(len(r) for r in rows.values())):
-                for cid, spec, _, _ in clients:
-                    if i < len(rows[cid]):
-                        futs[cid].append(rt.gateway.submit(
-                            cid, spec, rows[cid][i], now=rt.dispatcher.clock()))
-                rt.dispatcher.kick()
-            rt.dispatcher.drain()
-            got = {cid: torch.stack([f.value for f in fs]) for cid, fs in futs.items()}
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            if getattr(rt.dispatcher, "errors", []):
-                raise AssertionError(f"{mode} runtime errors: {rt.dispatcher.errors}")
-        finally:
-            rt.close()
-        return got, seconds, rt
+
+def serve_fig6(clients, mode: str, halfway=None, **rt_kw):
+    """The clients' rows interleaved (row i of every client, then row i +
+    1) into a ``GatewayRuntime`` (target 128, 2 slots a worker, ``rt_kw``
+    beside), drained; ``halfway(rt)`` runs once, after half the rows were
+    submitted; -> (per client fidelities, seconds, runtime).  Fails if the
+    runtime recorded an error."""
+    from repro_torch.serve import GatewayRuntime
+
+    rt = GatewayRuntime(fig6_workers(), target=128, deadline=0.05, mode=mode,
+                        slots_per_worker=2, **rt_kw)
+    try:
+        for cid, _, _, _ in clients:
+            rt.gateway.register_client(cid, slo_ms=4000.0)
+        rows = {cid: list(zip(t.unbind(0), d.unbind(0))) for cid, _, t, d in clients}
+        futs = {cid: [] for cid in rows}
+        n = max(len(r) for r in rows.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            if halfway is not None and i == n // 2:
+                halfway(rt)
+            for cid, spec, _, _ in clients:
+                if i < len(rows[cid]):
+                    futs[cid].append(rt.gateway.submit(
+                        cid, spec, rows[cid][i], now=rt.dispatcher.clock()))
+            rt.dispatcher.kick()
+        rt.dispatcher.drain()
+        got = {cid: torch.stack([f.value for f in fs]) for cid, fs in futs.items()}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if getattr(rt.dispatcher, "errors", []):
+            raise AssertionError(f"{mode} runtime errors: {rt.dispatcher.errors}")
+    finally:
+        rt.close()
+    return got, seconds, rt
+
+
+def tenant_latencies(summ: dict) -> dict:
+    return {t["client"]: (t["p50_latency_s"], t["p99_latency_s"]) for t in summ["tenants"]}
+
+
+def serve_gateway(dev, card: str) -> tuple[dict, dict]:
+    """Phase 6: the multi-tenant serving port on the card, (a) the Fig-6
+    mix through a sync and an async runtime, (b) two tenants training
+    quclassi-7q-3l through one async runtime, (c) mesh spill.  Counts are
+    zeroed just before each path and read just after; returns their sum
+    and (a)'s fault-free sync fidelities, the baseline of phase 12."""
+    from repro_torch.comanager import dataplane
+    from repro_torch.core import circuits
+    from repro_torch.core.trainer import train
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vqc_statevector as K
+    from repro_torch.serve import GatewayRuntime
+
+    counts, read = launch_reader(K, card)
+
+    # (a) the Fig-6 client mix: each client's materialized shift-rule bank
+    rng = np.random.default_rng(6)
+    clients = fig6_clients(dev, rng)
+    n_rows = sum(t.shape[0] for _, _, t, _ in clients)
 
     log("gateway (a): the Fig-6 mix, 4 clients x a materialized bank of 64 samples "
         f"({n_rows} rows), workers of 5/10/15/20 qubits")
     for mode in ("sync", "async"):
-        fig6(mode)  # warm-up: device tables, streams, first launches
+        serve_fig6(clients, mode)  # warm-up: device tables, streams, first launches
     zero_counts(K)
     out = {}
     for mode in ("sync", "async"):
-        got, seconds, rt = fig6(mode)
+        got, seconds, rt = serve_fig6(clients, mode)
         out[mode] = got
         summ = rt.telemetry.summary()
-        tenants = {t["client"]: (t["p50_latency_s"], t["p99_latency_s"]) for t in summ["tenants"]}
         log(f"  {mode}: {n_rows} circuits in {seconds:.4f} s = {n_rows / seconds:.1f} circuits/s, "
             f"{summ['batches']} batches, lane fill {summ['lane_fill']}, per-tenant "
-            f"(p50 s, p99 s) {tenants} [{card}]")
+            f"(p50 s, p99 s) {tenant_latencies(summ)} [{card}]")
     read("gateway (a) launches, sync + async", ("fidelity",))
     worst = 0.0
     for cid, spec, theta, data in clients:
@@ -1746,21 +1822,14 @@ def serve_gateway(dev, card: str) -> dict:
     log(f"  async == sync bit for bit; max|diff| to direct ops.vqc_fidelity = {worst:.3e}")
     if not worst <= TOL:
         raise AssertionError(f"Fig-6 fidelities differ from direct launches by {worst}")
-    wall_ms, kern, busy_ms = profile_window(lambda: fig6("async"))
+    wall_ms, kern, busy_ms = profile_window(lambda: serve_fig6(clients, "async"))
     log(f"  async run profiled: {wall_ms:.3f} ms host clock, device busy {busy_ms:.3f} ms, "
         f"idle share {1 - busy_ms / wall_ms:.4f}, {sum(e.count for e in kern)} kernel "
         f"launches [{card}]")
     zero_counts(K)  # the profiled run is not counted
 
     # (b) two tenants training quclassi-7q-3l on one async runtime
-    cfg = get_quclassi("quclassi-7q-3l")
-    x, y = make_pair_dataset(1, 5, n_per_class=128, seed=0)
-    (xtr, ytr), test_set = train_test_split(x, y)
-    one_batch = (xtr[:64], ytr[:64])  # 3 epochs of one batch: 3 steps, a loss each
-    kw = dict(epochs=3, batch_size=64, lr=1e-3, bank_mode="implicit", device=dev)
-    seeds = {"tenant-a": 0, "tenant-b": 1}
-    inits = {cid: quclassi.init_params(cfg, torch.Generator().manual_seed(s), dev)
-             for cid, s in seeds.items()}
+    cfg, one_batch, test_set, inits, seeds, kw = tenant_runs(dev)
     n_groups = 1 + 2 * cfg.n_theta
     solo = {}
     for cid, s in seeds.items():  # solo: the data plane alone, 4 workers
@@ -1819,6 +1888,312 @@ def serve_gateway(dev, card: str) -> dict:
         if rt.telemetry.mesh_spills < 1 or not diff <= TOL:
             raise AssertionError(f"{label}: no mesh spill, or max|diff| {diff} > {TOL}")
     read("gateway (c) launches", ("fidelity", "fidelity_dmem"))
+    return counts, out["sync"]
+
+
+#: phase 12: a crashed worker's fault starts at its attempt number
+#: FAULT_AFTER (it runs its first FAULT_AFTER batches), a point in the run's
+#: progress: an onset in wall time can fall after the worker's last batch
+#: when the host schedules the faulted run faster than the fault-free one
+#: (a sync run that crashed w2 at 0.3 of the fault-free time caught no batch
+#: of w2 once).  (e)'s crash-recover window lasts RECOVER_S of the
+#: fault-free training's time
+FAULT_AFTER = 2
+RECOVER_S = 0.3
+#: phase 12c: the slowed worker's factor, and the hedge threshold, a
+#: multiple of the service model's estimate of a batch.  On an NVIDIA H100
+#: 80GB HBM3 (700 W) a healthy Fig-6 batch's time spread 1.95-24x from its
+#: median to its maximum (the host's scheduling of 8 slot threads), more
+#: than the slowdown's 3x, so no threshold singles out the slowed worker:
+#: at 1.5 a run hedged 0-8 times, slowed or not, and at 0.5 some slowed
+#: runs hedged once.  At a quarter of the estimate every batch still
+#: running when a slot frees is hedged, healthy ones too
+#: (``phase12_probe.py --hedge-trials``, PERF.md).  What shows the
+#: straggler is who wins: the slowed worker loses its hedged batches, so it
+#: gives fewer batches' results than in an unslowed control run.  The slowed
+#: worker is w2, the one Algorithm 2 gives a 7-qubit batch first (w3 takes
+#: one only while w2 holds one); like a crash, the slowdown starts at its
+#: batch FAULT_AFTER + 1, once the service model has timed the families
+#: (an unseen family's estimate is 1 s, which no batch outlasts)
+SLOW_FACTOR = 3.0
+HEDGE_K = 0.25
+SLOWED = "w2"
+
+
+def counting_injector(failures, after: int = 0):
+    """A ``FaultInjector`` of ``failures`` that counts the attempts it
+    refused (``refused``) and each worker's attempts (``seen``), and starts
+    each worker's fault at that worker's attempt number ``after``: the
+    spec's ``at`` and ``recover_at`` count from the time of that attempt
+    (``onset``, per worker)."""
+    from repro_torch.comanager.faults import normalize_failures
+    from repro_torch.serve.fleet import FaultInjector, InjectedWorkerFault
+
+    class CountingInjector(FaultInjector):
+        def __init__(self):
+            super().__init__({})
+            self.pending = normalize_failures(failures)
+            self.refused = 0
+            self.seen = {}
+            self.onset = {}
+
+        def check(self, worker_id, now):
+            with self._lock:
+                n = self.seen.get(worker_id, 0)
+                self.seen[worker_id] = n + 1
+                spec = self.pending.pop(worker_id, None) if n >= after else None
+                if spec is not None:
+                    self._t0 = now if self._t0 is None else self._t0
+                    t = now - self._t0
+                    self.onset[worker_id] = t
+                    self.schedule[worker_id] = dataclasses.replace(
+                        spec, at=spec.at + t,
+                        recover_at=None if spec.recover_at is None else spec.recover_at + t)
+            try:
+                super().check(worker_id, now)
+            except InjectedWorkerFault:
+                with self._lock:
+                    self.refused += 1
+                raise
+
+    return CountingInjector()
+
+
+def fault_phase(dev, card: str, baseline: dict) -> dict:
+    """Phase 12: the serving fleet's fault tolerance on the card, on the
+    Fig-6 mix and fleet of phase 6a (its fault-free sync fidelities are
+    ``baseline``): (a) crash migration, (b) a flaky worker, (c) hedging,
+    (d) live membership, (e) two tenants training through a crash-recover,
+    (f) (a) and (c) traced.  Every future must equal the fault-free run's
+    bit for bit, and every failure the fleet records must be one the
+    injector raised.  Counts are zeroed just before each part and read just
+    after; returns their sum."""
+    from repro_torch.comanager.faults import FaultSpec, FaultToleranceConfig
+    from repro_torch.comanager.worker import WorkerConfig
+    from repro_torch.kernels import vqc_statevector as K
+    from repro_torch.obs import ObservabilityConfig, validate_trace
+    from repro_torch.obs.trace import CircuitTrace, WorkerSpan
+
+    t_phase = time.perf_counter()
+    counts, read = launch_reader(K, card)
+
+    clients = fig6_clients(dev, np.random.default_rng(6))  # phase 6a's draws
+    n_rows = sum(t.shape[0] for _, _, t, _ in clients)
+
+    def check(label: str, got, seconds, rt, inj) -> dict:
+        """The replay invariant and the failure accounting of one run; logs
+        its rates and counters, returns the counters."""
+        for cid, want in baseline.items():
+            if not torch.equal(got[cid], want):
+                raise AssertionError(f"{label}: {cid}'s futures differ from phase 6a's "
+                                     "fault-free run")
+        for cid, st in rt.telemetry.tenants.items():
+            if st.completed != st.submitted:
+                raise AssertionError(f"{label}: {cid} completed {st.completed} of "
+                                     f"{st.submitted} circuits")
+        summ = rt.telemetry.summary()
+        fleet = rt.dispatcher.fleet.snapshot()
+        c = {key: sum(v[key] for v in fleet.values())
+             for key in ("failures", "retries", "migrations", "hedges", "offline_trips")}
+        c["migrated_batches"] = summ.get("migrated_batches", 0)
+        refused, onset, seen = (0, {}, {}) if inj is None else (inj.refused, inj.onset, inj.seen)
+        if c["failures"] != refused:
+            raise AssertionError(f"{label}: the fleet recorded {c['failures']} failures, the "
+                                 f"injector refused {refused} attempts: an error that was not "
+                                 "injected was retried or migrated")
+        states = {w: v["state"] for w, v in fleet.items()}
+        log(f"  {label}: {n_rows} circuits in {seconds:.4f} s = {n_rows / seconds:.1f} "
+            f"circuits/s, bit-equal to the fault-free run; {c}, refused {refused} (fault onset "
+            f"{onset} s, attempts by worker {seen}), "
+            f"hedges by straggler "
+            f"{ {w: v['hedges'] for w, v in fleet.items() if v['hedges']} }, states {states}, "
+            f"per-tenant (p50 s, p99 s) {tenant_latencies(summ)} [{card}]")
+        won = [w for w, _, _ in rt.dispatcher.batch_log]
+        return dict(c, states=states, slowed_hedges=fleet[SLOWED]["hedges"],
+                    slowed_won=won.count(SLOWED))
+
+    def idle(label: str, run) -> None:
+        wall_ms, kern, busy_ms = profile_window(run)
+        log(f"  {label} profiled: {wall_ms:.3f} ms host clock, device busy {busy_ms:.3f} ms, "
+            f"idle share {1 - busy_ms / wall_ms:.4f} [{card}]")
+
+    # the fault-free runs the faulted ones are timed against
+    free = {}
+    for mode in ("sync", "async"):
+        serve_fig6(clients, mode)  # warm
+        got, free[mode], rt = serve_fig6(clients, mode)
+        check(f"fault-free {mode}", got, free[mode], rt, None)
+    zero_counts(K)  # counted per part below
+
+    # (a) crash migration: no retry, one failure trips the breaker.  Sync
+    # placement never reaches w3 (Algorithm 2 orders workers by (CRU, id),
+    # and a sync batch is placed with nothing outstanding), so the sync run
+    # crashes w2, the worker its 7-qubit batches take.
+    log(f"faults (a): crash migration, the crash at the crashed worker's batch {FAULT_AFTER + 1}")
+    crash_ft = FaultToleranceConfig(retry_limit=0, breaker_threshold=1)
+    crashed = {"sync": "w2", "async": "w3"}
+
+    def crash_run(mode, **kw):
+        inj = counting_injector({crashed[mode]: FaultSpec(kind="crash")}, after=FAULT_AFTER)
+        return (*serve_fig6(clients, mode, fault_tolerance=crash_ft, fault_injector=inj, **kw),
+                inj)
+
+    for mode in ("sync", "async"):
+        c = check(f"(a) {mode}, {crashed[mode]} crashed", *crash_run(mode))
+        if c["states"][crashed[mode]] != "offline" or c["migrated_batches"] < 1:
+            raise AssertionError(f"(a) {mode}: {crashed[mode]} is {c['states'][crashed[mode]]}"
+                                 f" with {c['migrated_batches']} migrated batches")
+    read("faults (a) launches, sync + async", ("fidelity",))
+    idle("(a) async", lambda: crash_run("async"))
+    zero_counts(K)
+
+    # (b) a flaky worker: p = 0.3, two in-place retries.  The hash of seed 0
+    # drops w2's attempts 0, 1, 3, 4, 5 and 6: a retried batch first, then
+    # three drops in a row, which trip the breaker (threshold 3) and migrate
+    log("faults (b): w2 flaky, p = 0.3, retry_limit 2")
+    flaky = FaultSpec(kind="flaky", p=0.3)
+
+    def flaky_run(mode):
+        inj = counting_injector({"w2": flaky})
+        return (*serve_fig6(clients, mode, fault_injector=inj,
+                            fault_tolerance=FaultToleranceConfig(retry_limit=2)), inj)
+
+    for mode in ("sync", "async"):
+        c = check(f"(b) {mode}", *flaky_run(mode))
+        if c["retries"] < 1:
+            raise AssertionError(f"(b) {mode}: no retry")
+    read("faults (b) launches, sync + async", ("fidelity",))
+    idle("(b) async", lambda: flaky_run("async"))
+    zero_counts(K)
+
+    # (c) hedging: SLOWED slowed SLOW_FACTOR times; the healthy batches' spread
+    # (a traced fault-free run) against HEDGE_K first
+    _, _, rt = serve_fig6(clients, "async", observability=ObservabilityConfig())
+    spans = sorted(s.end - s.start for s in rt.telemetry.trace.buffer.records(WorkerSpan))
+    med = spans[len(spans) // 2]
+    log(f"faults (c): healthy async batches (fault-free, traced): {len(spans)}, p50 "
+        f"{med * 1e3:.3f} ms, max {spans[-1] * 1e3:.3f} ms (x{spans[-1] / med:.2f} the p50); "
+        f"{SLOWED} slowed x{SLOW_FACTOR}, hedge_k {HEDGE_K} [{card}]")
+    hedge_ft = FaultToleranceConfig(hedge_k=HEDGE_K)
+    control = check(f"(c) control, hedge_k {HEDGE_K} and no slowdown",
+                    *serve_fig6(clients, "async", fault_tolerance=hedge_ft), None)
+    zero_counts(K)
+
+    def hedge_run(**kw):
+        inj = counting_injector({SLOWED: FaultSpec(kind="slowdown", factor=SLOW_FACTOR)},
+                                after=FAULT_AFTER)
+        return (*serve_fig6(clients, "async", fault_tolerance=hedge_ft, fault_injector=inj,
+                            **kw), inj)
+
+    c = check(f"(c) async, {SLOWED} slowed", *hedge_run())
+    log(f"  (c): batches whose result {SLOWED} gave, slowed {c['slowed_won']}, control "
+        f"{control['slowed_won']}")
+    if c["hedges"] < 1 or c["slowed_won"] >= control["slowed_won"]:
+        raise AssertionError(f"(c): {c['hedges']} hedges, and the slowed {SLOWED} gave "
+                             f"{c['slowed_won']} batches' results, {control['slowed_won']} "
+                             "unslowed")
+    slowed_hedges = c["slowed_hedges"]  # gated over (c) and (f)'s (c)
+    read("faults (c) launches", ("fidelity",))
+    idle("(c) async", hedge_run)
+    zero_counts(K)
+
+    # (d) live membership: drain w4 and register a fresh 20-qubit w5 once
+    # half the rows are in; later batches run on the survivors
+    log("faults (d): w4 drained and w5 (20 qubits) registered halfway")
+
+    def membership(mode, mark, rt):
+        if mode == "sync":
+            rt.dispatcher.drain()  # sync runs batches in drain(): run the first half
+        rt.dispatcher.drain_worker("w4")
+        rt.dispatcher.register_worker(WorkerConfig("w5", 20))
+        mark["n"] = len(rt.dispatcher.batch_log)
+
+    for mode in ("sync", "async"):
+        mark = {}
+        got, seconds, rt = serve_fig6(clients, mode,
+                                      halfway=lambda rt: membership(mode, mark, rt))
+        check(f"(d) {mode}", got, seconds, rt, None)
+        later = [w for w, _, _ in rt.dispatcher.batch_log[mark["n"]:]]
+        log(f"  (d) {mode}: batches after the drain by worker "
+            f"{ {w: later.count(w) for w in sorted(set(later))} }, fleet "
+            f"{rt.dispatcher.fleet.workers()}")
+        if "w4" in later or "w4" in rt.dispatcher.fleet.workers() or not later:
+            raise AssertionError(f"(d) {mode}: a batch ran on the drained w4, or none after it")
+        if mode == "async" and rt.dispatcher._pool._max_workers != 5 * 2 + 1:
+            raise AssertionError("(d): register_worker did not grow the slot pool")
+    read("faults (d) launches, sync + async", ("fidelity",))
+    idle("(d) async", lambda: serve_fig6(clients, "async",
+                                         halfway=lambda rt: membership("async", {}, rt)))
+    zero_counts(K)
+
+    # (e) two tenants training quclassi-7q-3l while w2 crashes and recovers:
+    # Algorithm 2 places a 7-qubit batch on w2 unless w2 is loaded (the
+    # lowest id among equally loaded workers that fit), so w2 is the worker
+    # sure to take more than FAULT_AFTER batches
+    cfg, one_batch, test_set, inits, seeds, kw = tenant_runs(dev)
+    train_tenants(dev, fig6_workers(), cfg, one_batch, test_set, inits, seeds, kw)  # warm
+    free_rt, free_reps, free_s = train_tenants(dev, fig6_workers(), cfg, one_batch, test_set,
+                                               inits, seeds, kw)
+    log(f"faults (e): 2 tenants x 3 steps of quclassi-7q-3l, fault-free {free_s:.4f} s = "
+        f"{6 / free_s:.3f} steps/s, {len(free_rt.dispatcher.batch_log)} batches "
+        f"({free_rt.telemetry.multibank_launches} multi-bank); w2 down from its batch "
+        f"{FAULT_AFTER + 1} for {RECOVER_S} of that time [{card}]")
+    zero_counts(K)
+
+    def crash_train():
+        inj = counting_injector({"w2": FaultSpec(kind="crash_recover",
+                                                 recover_at=RECOVER_S * free_s)},
+                                after=FAULT_AFTER)
+        ft = FaultToleranceConfig(retry_limit=0, breaker_threshold=1, breaker_cooldown_s=0.05)
+        return (*train_tenants(dev, fig6_workers(), cfg, one_batch, test_set, inits, seeds,
+                               kw, fault_tolerance=ft, fault_injector=inj), inj)
+
+    rt, reps, seconds, inj = crash_train()
+    read("faults (e) launches", ("shiftbank",))
+    fleet = rt.dispatcher.fleet.snapshot()
+    failures = sum(v["failures"] for v in fleet.values())
+    migrations = sum(v["migrations"] for v in fleet.values())
+    log(f"  (e): {seconds:.4f} s = {6 / seconds:.3f} steps/s, {len(rt.dispatcher.batch_log)} "
+        f"batches ({rt.telemetry.multibank_launches} multi-bank), failures {failures}, refused "
+        f"{inj.refused} (fault onset {inj.onset} s, attempts by worker {inj.seen}), "
+        f"migrations {migrations}, w2 "
+        f"{fleet['w2']['state']} [{card}]")
+    if failures != inj.refused or inj.refused < 1:
+        raise AssertionError(f"(e): {failures} failures against {inj.refused} refused attempts")
+    for cid, rep in reps.items():
+        same = [a.loss == b.loss for a, b in zip(rep.epochs, free_reps[cid].epochs)]
+        params = all(torch.equal(rep.params[k], free_reps[cid].params[k]) for k in rep.params)
+        log(f"  (e) {cid}: losses {[e.loss for e in rep.epochs]}, equal to the fault-free "
+            f"run's: losses {same}, parameters {params}")
+        if not (all(same) and params):
+            raise AssertionError(f"(e) {cid}: the run under the crash differs from the "
+                                 "fault-free run")
+    idle("(e)", crash_train)
+    zero_counts(K)
+
+    # (f) (a) and (c) again with the trace on
+    log("faults (f): (a) async and (c) traced")
+    stages = set()
+    for label, run in (("(a)", lambda: crash_run("async", observability=ObservabilityConfig())),
+                       ("(c)", lambda: hedge_run(observability=ObservabilityConfig()))):
+        got, seconds, rt, inj = run()
+        c = check(f"(f) {label} traced", got, seconds, rt, inj)
+        if label == "(c)":
+            slowed_hedges += c["slowed_hedges"]
+        records = rt.telemetry.trace.buffer.records(CircuitTrace)
+        bad = validate_trace(records)
+        seen = {s for r in records for s, _ in r.stages}
+        log(f"  (f) {label}: {len(records)} trace records, {len(bad)} violations, recovery "
+            f"stages {sorted(seen & {'retried', 'hedged', 'worker_offline', 'migrated', 'requeue'})}")
+        if bad or len(records) != n_rows:
+            raise AssertionError(f"(f) {label}: {len(records)} records, violations {bad[:5]}")
+        stages |= seen
+    if not {"migrated", "hedged"} <= stages:
+        raise AssertionError(f"(f): the traces hold no migrated or hedged stage: {stages}")
+    if slowed_hedges < 1:
+        raise AssertionError(f"(c), (f): the slowed {SLOWED}'s batches were never hedged")
+    read("faults (f) launches", ("fidelity",))
+    log(f"faults: phase 12 took {time.perf_counter() - t_phase:.2f} s wall")
     return counts
 
 
@@ -1848,17 +2223,7 @@ def cluster_phase(dev, card: str) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels import vqc_statevector as K
 
-    counts = {key: 0 for key in K.LAUNCHES}
-
-    def read(label: str, wanted) -> None:
-        torch.cuda.synchronize()
-        got = dict(K.LAUNCHES)
-        log(f"  {label}: launches {got} [{card}]")
-        for key in wanted:
-            if got[key] <= 0:
-                raise AssertionError(f"{label}: the {key} kernel was never launched")
-        for key, n in got.items():
-            counts[key] += n
+    counts, read = launch_reader(K, card)
 
     cfg = get_quclassi("quclassi-7q-3l")
     spec = cfg.spec
@@ -2625,7 +2990,8 @@ def main() -> int:
 
     # ----------------------------------------------------------- 6. gateway
     t0 = time.perf_counter()
-    for key, n in serve_gateway(dev, card).items():
+    gateway_counts, fig6_baseline = serve_gateway(dev, card)
+    for key, n in gateway_counts.items():
         launches[key] += n
     log(f"gateway: phase 6 took {time.perf_counter() - t0:.2f} s wall")
 
@@ -2650,6 +3016,10 @@ def main() -> int:
 
     # ------------------------------------------------------------ 11. dry-runs
     for key, n in dryrun_phase(dev, card).items():
+        launches[key] += n
+
+    # ------------------------------------------------------------ 12. faults
+    for key, n in fault_phase(dev, card, fig6_baseline).items():
         launches[key] += n
 
     kernels = [

@@ -32,6 +32,7 @@ from repro_torch.kernels.vqc_statevector import (
     shift_cost_info,
     shift_execution_info,
     shift_plan_fits,
+    use_shift_plan,
 )
 from repro_torch.serve.coalescer import LANES
 
@@ -91,10 +92,9 @@ class CostModel:
         if not isinstance(bank, shift_rule.ShiftBank) or not self.shiftbank:
             n = bank.n_circuits
             return self._materialized_units(spec, n) / self.n_shards
-        cost = shift_cost_info(spec, bank.four_term)
-        if not cost["use_implicit"]:  # no structure / replay dearer: materialize
+        if not use_shift_plan(spec, bank.four_term):  # no structure / replay dearer
             return self._materialized_units(spec, bank.n_circuits) / self.n_shards
-        gate_apps = cost["gate_apps_implicit"]
+        gate_apps = shift_cost_info(spec, bank.four_term)["gate_apps_implicit"]
         return float(gate_apps * self._lanes(bank.n_samples)) / self.n_shards
 
     def bank_smem_bytes(self, spec: CircuitSpec, bank) -> int:

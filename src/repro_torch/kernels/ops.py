@@ -87,7 +87,7 @@ def _notify_launch(spec, n_lanes, four_term, groups, banks=1):
 
 # ------------------------------------------------- shift-structured banks
 def _shiftgroups(spec, theta, data, four_term=False, groups=None) -> torch.Tensor:
-    if K.use_shift_plan(spec, four_term, groups):
+    if K.use_shift_plan(spec, four_term):
         return torch.clamp(
             K.vqc_shift_fidelity(spec, theta, data, four_term=four_term, groups=groups),
             0.0,
@@ -123,8 +123,10 @@ def vqc_fidelity_shiftgroups(
     ``theta (B, P)`` / ``data (B, D)`` are the IMPLICIT bank — base angles
     only.  Uses the prefix-reuse kernel when the circuit matches the
     SWAP-test product structure AND the analytic suffix-replay cost beats
-    materializing the requested groups (``K.shift_cost_info``); otherwise
-    materializes just the requested groups and runs the fused kernel.
+    materializing the whole bank (``K.use_shift_plan``); otherwise
+    materializes just the requested groups and runs the fused kernel.  The
+    route is the bank's whichever groups are asked for, so each row equals
+    the whole bank's row bit for bit.
     """
     _notify_launch(spec, theta.shape[0], four_term, groups)
     return _shiftgroups(spec, theta, data, four_term, groups)
@@ -163,14 +165,15 @@ def vqc_fidelity_shiftgroups_multibank(
     per lane, so different banks share the one launch, which computes the
     union of the requested groups.  Returns a tuple of
     (len(group_sets[k]), B_k) fidelity blocks, each bit-identical per lane
-    to the per-bank path.  Circuits without the product structure (or whose
-    replay cost for the union exceeds materializing it) run per bank.
+    to the per-bank path and to the whole bank's call.  Circuits without
+    the product structure (or whose bank's replay cost exceeds
+    materializing it) run per bank.
     """
     union = tuple(sorted({g for gs in group_sets for g in gs}))
     if _launch_observer is not None:
         lanes = sum(t.shape[0] + (-t.shape[0]) % K.LANES for t in thetas)
         _notify_launch(spec, lanes, four_term, union, banks=len(thetas))
-    if not K.use_shift_plan(spec, four_term, union):
+    if not K.use_shift_plan(spec, four_term):
         return tuple(
             _shiftgroups(spec, t, d, four_term, tuple(gs))
             for t, d, gs in zip(thetas, datas, group_sets)

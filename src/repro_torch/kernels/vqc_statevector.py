@@ -678,7 +678,7 @@ def vqc_state(spec: CircuitSpec, theta: torch.Tensor, data: torch.Tensor):
 #
 # Circuits without that structure return ``None`` from ``build_shift_plan``;
 # plans whose replay cost exceeds the materialized bank's route to the
-# materialized path (``shift_cost_info``).
+# materialized path (``use_shift_plan``, priced by ``shift_cost_info``).
 
 ROT_GATES = ("rx", "ry", "rz", "ryy", "rzz", "cry", "crz")
 
@@ -879,9 +879,10 @@ def shift_cost_info(
     four_term: bool = False,
     groups: tuple[int, ...] | None = None,
 ) -> dict:
-    """Analytic per-lane cost of executing a shift bank implicitly (prefix
-    reuse + suffix replay) vs materialized ((1+2P)x full-circuit rows), and
-    the mode the ops layer selects."""
+    """Analytic per-lane cost of executing the requested groups of a shift
+    bank implicitly (prefix reuse + suffix replay) vs materialized (a
+    full-circuit row per group).  The route is the bank's, not the
+    request's: ``use_shift_plan``."""
     n_shifts = 4 if four_term else 2
     n_groups = 1 + n_shifts * spec.n_theta
     if groups is None:
@@ -893,7 +894,6 @@ def shift_cost_info(
             "gate_apps_implicit": None,
             "gate_apps_materialized": materialized,
             "replay_depth_max": 0,
-            "use_implicit": False,
         }
     shifts = tuple(float(s) for s in shift_values(four_term))
     implicit = plan_gate_apps(plan, shifts, groups, spec.n_theta)
@@ -902,18 +902,25 @@ def shift_cost_info(
         "gate_apps_implicit": implicit,
         "gate_apps_materialized": materialized,
         "replay_depth_max": depth,
-        "use_implicit": implicit < materialized,
     }
 
 
-def use_shift_plan(
-    spec: CircuitSpec,
-    four_term: bool = False,
-    groups: tuple[int, ...] | None = None,
-) -> bool:
+def use_shift_plan(spec: CircuitSpec, four_term: bool = False) -> bool:
     """True when the implicit prefix-reuse path analytically beats
-    materializing the requested groups (requires a plan to exist)."""
-    return shift_cost_info(spec, four_term, groups)["use_implicit"]
+    materializing the whole bank (requires a plan to exist).
+
+    The route is decided per bank, never per request: the reference decides
+    on the requested groups, so a request of one group (group 1 of 5q-1l:
+    13 gate applications implicit, 12 materialized) ran on the fidelity
+    kernel while the rest of its bank ran the prefix-reuse sweep, and the
+    two round differently.  The serving layer coalesces any subset of a
+    bank's groups into a launch, so a group's bits then depended on which
+    groups shared its batch.  Decided here, every group of a bank takes one
+    route, and ``vqc_fidelity_shiftgroups(..., groups)`` gives the rows of
+    the whole bank's call bit for bit."""
+    cost = shift_cost_info(spec, four_term)
+    implicit = cost["gate_apps_implicit"]
+    return implicit is not None and implicit < cost["gate_apps_materialized"]
 
 
 def walk_table_bytes(plan: ShiftPlan, n_variants: int) -> int:
@@ -1044,7 +1051,7 @@ def shift_plan_fits(
     if groups is None:
         groups = tuple(range(1 + (4 if four_term else 2) * spec.n_theta))
     groups = tuple(groups)
-    if build_shift_plan(spec) is None or not use_shift_plan(spec, four_term, groups):
+    if build_shift_plan(spec) is None or not use_shift_plan(spec, four_term):
         return True  # the materialized rows run on the fidelity kernel's routes
     return bool(_walk_table(spec, four_term, groups, smem_budget, False).tb
                 or _walk_table(spec, four_term, groups, smem_budget, True).tb)
@@ -1078,7 +1085,7 @@ def shift_execution_info(
         "replay_depth_max": cost["replay_depth_max"],
         "smem_budget": smem_budget,
     }
-    if plan is None or not cost["use_implicit"]:
+    if plan is None or not use_shift_plan(spec, four_term):
         warps, smem = fused_geometry(spec.n_qubits, n_samples * len(groups), smem_budget)
         return {"mode": "materialize", "launches": 1, "n_tiles": 0, "tb": warps,
                 "smem_bytes": smem, **base}
@@ -1500,12 +1507,11 @@ def shift_bank_stats(spec: CircuitSpec, n_samples: int, four_term: bool = False)
     n_groups = 1 + (4 if four_term else 2) * p
     mat_gates = n_groups * len(spec.ops) * n_samples
     mat_angle_floats = n_groups * n_samples * (p + d)
-    cost = shift_cost_info(spec, four_term)
-    if not cost["use_implicit"]:  # fallback executes the same work
+    if not use_shift_plan(spec, four_term):  # fallback executes the same work
         impl_gates = mat_gates
         impl_angle_floats = mat_angle_floats
     else:
-        impl_gates = cost["gate_apps_implicit"] * n_samples
+        impl_gates = shift_cost_info(spec, four_term)["gate_apps_implicit"] * n_samples
         impl_angle_floats = n_samples * (p + d)
     return {
         "n_groups": n_groups,

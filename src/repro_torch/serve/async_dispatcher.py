@@ -212,7 +212,7 @@ class AsyncDispatcher(Dispatcher):
         with self._cv:
             self._pumping = True
         try:
-            batches = self.gateway.pump(self.clock())
+            batches = self._at_now(self.gateway.pump)
             with self._cv:
                 self._ready.extend(batches)
         finally:
@@ -221,6 +221,15 @@ class AsyncDispatcher(Dispatcher):
                 self._cv.notify_all()
         self._place_ready()
         self._maybe_hedge()
+
+    def _at_now(self, pump):
+        """``pump(now)`` with the clock read under the gateway's lock.  The
+        pump loop and ``drain`` both pump; a caller that read its clock
+        first but took the lock second would coalesce circuits at a time
+        before the other one admitted them, and their traces would run
+        backwards."""
+        with self.gateway._lock:
+            return pump(self.clock())
 
     def _expired(self, batch: CoalescedBatch, now: float) -> bool:
         """True when EVERY member's SLO budget has fully elapsed: the batch
@@ -298,6 +307,7 @@ class AsyncDispatcher(Dispatcher):
                         "t0": now,
                         "est": est,
                         "hedged": False,
+                        "started": False,
                     }
                     launch = (batch, task, wid, est)
                     break
@@ -387,10 +397,15 @@ class AsyncDispatcher(Dispatcher):
         tel = self.gateway.telemetry
         tr = tel.trace
         seqs = [m.seq for m in batch.members]
-        t0 = self.clock()
-        if tr.enabled and not hedge:
-            tr.batch_stage(seqs, "dispatched", t0)
-            tr.batch_stage(seqs, "kernel_start", t0)
+        if not hedge:
+            # under the lock a hedge decides under, which waits for this:
+            # its stamp then follows the runner's
+            with self._cv:
+                t0 = self.clock()
+                if tr.enabled:
+                    tr.batch_stage(seqs, "dispatched", t0)
+                    tr.batch_stage(seqs, "kernel_start", t0)
+                self._runners[id(batch)]["started"] = True
         err: BaseException | None = None
         fids = None
         attempts = 0
@@ -525,15 +540,18 @@ class AsyncDispatcher(Dispatcher):
     def _maybe_hedge(self) -> None:
         """Hedged duplicate dispatch: an in-flight batch whose slot has
         exceeded ``hedge_k x`` its ServiceModel estimate is duplicated onto
-        a free surviving worker; first result wins."""
+        a free surviving worker; first result wins.  A runner whose thread
+        has not started yet is not hedged: the clock is read under the lock
+        its start is stamped under, so a ``hedged`` stage never precedes its
+        batch's ``kernel_start``."""
         k = self.ft.hedge_k
         if k is None:
             return
-        now = self.clock()
         launches = []
         with self._cv:
+            now = self.clock()
             for entry in self._runners.values():
-                if entry["hedged"] or entry["winner"] is not None:
+                if entry["hedged"] or entry["winner"] is not None or not entry["started"]:
                     continue
                 if now - entry["t0"] < k * max(entry["est"], 1e-9):
                     continue
@@ -584,7 +602,7 @@ class AsyncDispatcher(Dispatcher):
         self.start()
         n0 = len(self.batch_log)
         while True:
-            batches = self.gateway.flush(self.clock())
+            batches = self._at_now(self.gateway.flush)
             with self._cv:
                 if self._pump_errors:
                     raise self._pump_errors[0]

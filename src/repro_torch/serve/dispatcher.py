@@ -63,6 +63,7 @@ from repro_torch.kernels.vqc_statevector import (
     shift_cost_info,
     shift_execution_info,
     shift_plan_fits,
+    use_shift_plan,
 )
 from repro_torch.serve.coalescer import LANES, CoalescedBatch
 from repro_torch.serve.fleet import FaultInjector, FleetHealth
@@ -198,10 +199,11 @@ def batch_cost_units(batch: CoalescedBatch) -> float:
 
     Row batches pay the full gate sequence over their padded lane tile.
     Shift-group batches pay the analytic cost of the path the ops layer
-    will actually take (``kernels.shift_cost_info`` on the UNION group
-    set): the fused prefix-reuse cost — data-register pass, forward pass,
-    backward pass down to the shallowest anchor, and each variant's suffix
-    replay (one gate for single-use parameters, the [first, last] span for
+    will actually take (the bank's route, ``kernels.use_shift_plan``,
+    priced by ``kernels.shift_cost_info`` of the UNION group set): the
+    fused prefix-reuse cost — data-register pass, forward pass, backward
+    pass down to the shallowest anchor, and each variant's suffix replay
+    (one gate for single-use parameters, the [first, last] span for
     multi-use ones) — over the sum of the banks' padded lane segments,
     since the fused launch computes the union groups for every lane; or,
     when no plan exists / replay is analytically dearer, the per-bank
@@ -212,10 +214,7 @@ def batch_cost_units(batch: CoalescedBatch) -> float:
         pad = batch.padded(LANES)
         return float(len(spec.ops) * pad)
     banks, group_sets, _ = bank_partition(batch)
-    pad_b = sum(math.ceil(b.n_samples / LANES) * LANES for b in banks)
-    union = tuple(sorted({g for gs in group_sets for g in gs}))
-    cost = shift_cost_info(spec, batch.key.four_term, union)
-    if not cost["use_implicit"]:
+    if not use_shift_plan(spec, batch.key.four_term):
         # fallback materializes each bank's requested groups separately
         return float(
             len(spec.ops)
@@ -224,6 +223,9 @@ def batch_cost_units(batch: CoalescedBatch) -> float:
                 for b, gs in zip(banks, group_sets)
             )
         )
+    pad_b = sum(math.ceil(b.n_samples / LANES) * LANES for b in banks)
+    union = tuple(sorted({g for gs in group_sets for g in gs}))
+    cost = shift_cost_info(spec, batch.key.four_term, union)
     return float(cost["gate_apps_implicit"] * pad_b)
 
 

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
+import math
 import threading
 from collections import deque
 from typing import Any, Hashable, Optional
@@ -204,6 +205,9 @@ class Gateway:
         # dispatcher's pump + completion threads; re-entrant because flush()
         # pumps and submit() may auto-register under the same lock.
         self._lock = threading.RLock()
+        # the latest time a submission or requeue was stamped with: see
+        # _not_before
+        self._latest = -math.inf
 
     # ---------------------------------------------------------- admission
     def register_client(
@@ -349,6 +353,7 @@ class Gateway:
                 )
             )
             self._seq += 1
+            self._latest = max(self._latest, now)
             self._pending_total += 1
             self._tier_outstanding[st.priority] = (
                 self._tier_outstanding.get(st.priority, 0) + 1
@@ -395,6 +400,7 @@ class Gateway:
         """Move admitted circuits into the coalescer in priority-then-fair
         order, then collect size-triggered and deadline-due batches."""
         with self._lock:
+            now = self._not_before(now)
             tr = self.telemetry.trace
             batches: list[CoalescedBatch] = []
             while True:
@@ -431,6 +437,7 @@ class Gateway:
     def flush(self, now: float) -> list[CoalescedBatch]:
         """pump() then force-drain every partial buffer (end of a bank)."""
         with self._lock:
+            now = self._not_before(now)
             batches = self.pump(now)
             forced = self.coalescer.flush_all(now)
             tr = self.telemetry.trace
@@ -443,6 +450,16 @@ class Gateway:
                 if tr.enabled:
                     tr.batch_stage((m.seq for m in b.members), "coalesced", now)
             return batches + forced
+
+    def _not_before(self, now: float) -> float:
+        """``now``, raised to the latest submission or requeue time (caller
+        holds the lock).  The async pump reads its clock before it takes the
+        lock, so a circuit submitted or requeued from another thread in
+        between carries a later time than the pump's: without the raise it
+        would be admitted or re-coalesced before it arrived, and its trace
+        would run backwards.  Callers on one thread with a monotone clock
+        never see a difference."""
+        return max(now, self._latest)
 
     # ------------------------------------------------------------ results
     def complete(self, batch: CoalescedBatch, values, now: float) -> None:
@@ -514,6 +531,8 @@ class Gateway:
         dropped and the deadline policy re-emits them promptly.  They remain
         counted in-flight: they never went back through admission."""
         with self._lock:
+            if now is not None:
+                self._latest = max(self._latest, now)
             self.coalescer.requeue(batch)
             self.telemetry.on_requeue(len(batch.members))
             tr = self.telemetry.trace

@@ -294,6 +294,127 @@ def test_async_runtime_matches_sync_on_card(cuda):
         assert torch.equal(fs, ops.vqc_fidelity(spec, th, dt))
 
 
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_crash_migration_replays_bit_for_bit_on_card(cuda, mode):
+    """w1 crashed from the start, no retry, one failure trips it: every
+    batch placed on it migrates to w2 through the coalescer (re-coalesced,
+    and in async on another slot's stream), and rows and an implicit bank's
+    groups come back as a fault-free launch gives them, bit for bit."""
+    from repro_torch.comanager.faults import FaultSpec, FaultToleranceConfig
+    from repro_torch.comanager.worker import WorkerConfig
+    from repro_torch.core import shift_rule
+    from repro_torch.serve import GatewayRuntime
+    from repro_torch.serve.fleet import FaultInjector
+
+    rt = GatewayRuntime(
+        workers=[WorkerConfig("w1", 10), WorkerConfig("w2", 10)], target=8, lanes=8,
+        deadline=0.05, mode=mode,
+        fault_tolerance=FaultToleranceConfig(retry_limit=0, breaker_threshold=1,
+                                             breaker_cooldown_s=3600.0),
+        fault_injector=FaultInjector({"w1": FaultSpec(kind="crash", at=0.0)}))
+    s5, s7 = circuits.build_quclassi_circuit(5, 1), circuits.build_quclassi_circuit(7, 1)
+    t5, d5 = _angles(s5, 40, cuda, seed=1)
+    t7, d7 = _angles(s7, 40, cuda, seed=2)
+    bank = shift_rule.build_shift_bank(t7[0], d7[:16])
+    try:
+        rows5 = rt.executor(s5, "alice")(t5, d5)
+        rows7 = rt.executor(s7, "bob")(t7, d7)
+        groups = rt.shift_executor(s7, "carol")(bank)
+        summary = rt.telemetry.summary()
+        state = rt.dispatcher.fleet.state("w1")
+    finally:
+        rt.close()
+    assert state == "offline" and summary["migrated_batches"] >= 1
+    assert rows5.is_cuda and torch.equal(rows5, ops.vqc_fidelity(s5, t5, d5))
+    assert torch.equal(rows7, ops.vqc_fidelity(s7, t7, d7))
+    assert torch.equal(groups, ops.vqc_fidelity_shiftbank(s7, bank.theta, bank.data))
+
+
+@pytest.mark.parametrize("n_banks", [1, 3])
+def test_shift_group_bits_do_not_depend_on_batch_composition_on_card(cuda, n_banks):
+    """``test_torch_serve``'s pinned composition on the card: a sync
+    runtime whose target is ``n_banks`` members, fed one group of every
+    bank at a time, so each batch is group g of each bank alone and runs
+    ``shiftbank_kernel`` with that subset's own walk table (single-bank
+    launches for one bank, multibank for three).  Each group comes back as
+    the whole bank's launch gives it, bit for bit."""
+    import itertools
+
+    from repro_torch.comanager.worker import WorkerConfig
+    from repro_torch.core import shift_rule
+    from repro_torch.serve import GatewayRuntime, ShiftGroupKey
+
+    spec = circuits.build_quclassi_circuit(5, 1)
+    ticks = itertools.count(1)
+    rt = GatewayRuntime(workers=[WorkerConfig("w1", 10)], target=n_banks, lanes=1,
+                        deadline=1e9, mode="sync", clock=lambda: next(ticks) * 1e-3)
+    key = ShiftGroupKey(spec, False)
+    banks = []
+    for k in range(n_banks):
+        th, dt = _angles(spec, 5, cuda, seed=40 + k)
+        banks.append(shift_rule.build_shift_bank(th[0], dt))
+    n_groups = banks[0].n_groups
+    futs = [[] for _ in banks]
+    before = K.LAUNCHES["shiftbank"]
+    try:
+        for g in range(n_groups):
+            for k, bank in enumerate(banks):
+                futs[k].append(rt.gateway.submit(f"c{k}", key, (bank, g),
+                                                 rt.dispatcher.clock(), lanes=bank.n_samples))
+            rt.dispatcher.pump()
+        rt.dispatcher.drain()
+        log = rt.dispatcher.batch_log
+    finally:
+        rt.close()
+    assert [n for _, n, _ in log] == [n_banks] * n_groups
+    assert K.LAUNCHES["shiftbank"] == before + n_groups
+    for bank, fs in zip(banks, futs):
+        got = torch.stack([f.result(timeout=1.0) for f in fs])
+        whole = ops.vqc_fidelity_shiftbank(spec, bank.theta, bank.data).reshape(n_groups, -1)
+        assert got.is_cuda and torch.equal(got, whole)
+
+
+def test_hedge_first_result_wins_on_card(cuda):
+    """A stalled slot past hedge_k x its estimate gets a duplicate on the
+    other worker's slot stream; the duplicate's launch resolves the futures
+    while the straggler is held, and the straggler's launch, run once it is
+    let go, is dropped without touching them."""
+    import threading
+
+    from repro_torch.comanager.faults import FaultToleranceConfig
+    from repro_torch.comanager.worker import WorkerConfig
+    from repro_torch.serve import GatewayRuntime
+
+    gate, calls = threading.Event(), {"n": 0}
+
+    def stall_first_kernel(spec, theta, data):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            assert gate.wait(timeout=30.0)
+        return ops.vqc_fidelity(spec, theta, data)
+
+    spec = circuits.build_quclassi_circuit(5, 1)
+    th, dt = _angles(spec, 8, cuda, seed=3)
+    rt = GatewayRuntime(
+        workers=[WorkerConfig("w1", 10), WorkerConfig("w2", 10)], target=8, lanes=8,
+        deadline=0.05, mode="async", kernel=stall_first_kernel,
+        fault_tolerance=FaultToleranceConfig(hedge_k=0.05, breaker_threshold=10))
+    futs = []
+    try:
+        futs = [rt.gateway.submit("alice", spec, (th[i], dt[i]), rt.dispatcher.clock())
+                for i in range(8)]
+        rt.dispatcher.kick()
+        got = torch.stack([f.result(timeout=60.0) for f in futs])
+        assert not gate.is_set()
+        hedges = sum(ev["hedges"] for ev in rt.telemetry.summary()["fleet"].values())
+    finally:
+        gate.set()
+        rt.close()
+    assert all(f.done for f in futs) and calls["n"] == 2
+    assert hedges >= 1
+    assert got.is_cuda and torch.equal(got, ops.vqc_fidelity(spec, th, dt))
+
+
 def test_worker_pool_streams_on_card(cuda):
     """One thread and one CUDA stream per worker: the same bits as the
     sequential per-worker executor, for rows and an implicit bank."""

@@ -41,12 +41,17 @@ def test_plan_and_costs_equal_reference(qc, nl, tied):
         shifts = tsr.shift_values(four)
         assert shifts == jsr.shift_values(four)
         for groups in (None, tuple(range(0, n_groups, 3)), (0,), (n_groups - 1,)):
-            assert TK.shift_cost_info(ts, four, groups) == JK.shift_cost_info(js, four, groups)
+            want = JK.shift_cost_info(js, four, groups)
+            assert TK.shift_cost_info(ts, four, groups) == {
+                k: v for k, v in want.items() if k != "use_implicit"}
             gs = groups or tuple(range(n_groups))
             assert TK.plan_gate_apps(tp, shifts, gs, ts.n_theta) == JK.plan_gate_apps(
                 jp, shifts, gs, js.n_theta)
             assert TK._collect_variants(tp, shifts, gs, ts.n_theta) == JK._collect_variants(
                 jp, shifts, gs, js.n_theta)
+        # the port decides the route per bank (use_shift_plan): the
+        # reference's decision for the whole bank
+        assert TK.use_shift_plan(ts, four) == JK.shift_cost_info(js, four)["use_implicit"]
         for n in (1, 7, 576):
             assert TK.shift_bank_stats(ts, n, four) == JK.shift_bank_stats(js, n, four)
 

@@ -1,5 +1,5 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` never import
-JAX or the JAX package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and ``phase12_probe.py`` never
+import JAX or the JAX package ``repro``."""
 import os
 import re
 import subprocess
@@ -59,7 +59,7 @@ def test_every_module_imports_with_jax_blocked():
 
 def test_no_jax_or_reference_imports_in_source():
     pattern = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro[.\s])", re.M)
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "phase12_probe.py"]
     hits = []
     for path in files:
         for m in pattern.finditer(path.read_text()):

@@ -206,6 +206,109 @@ def test_gateway_matches_reference_on_fake_clock(scenario):
     assert repr(scenario(tserve)) == repr(scenario(jserve))
 
 
+def test_pump_never_stamps_a_circuit_before_its_submission():
+    """The async pump reads its clock before it takes the gateway's lock, so
+    a submission or a requeue from another thread can carry a later time
+    than the pump's.  The port raises the pump's time to the latest such
+    time: every trace stays monotone (``validate_trace``).  The reference
+    stamps the stale time, and its traces run backwards."""
+    from repro import obs as jobs
+    from repro_torch import obs as tobs
+
+    bad = {}
+    for mod, obs in ((jserve, jobs), (tserve, tobs)):
+        tel = mod.Telemetry(lanes=2, observability=obs.ObservabilityConfig())
+        gw = mod.Gateway(target=2, lanes=2, deadline=10.0, telemetry=tel)
+        futs = [gw.submit("a", "k", i, now=2.0) for i in range(2)]
+        (batch,) = gw.pump(now=1.0)  # the pump read its clock before the submissions
+        gw.requeue(batch, now=5.0)
+        (again,) = gw.flush(now=4.0)  # ... and before the requeue
+        gw.complete(again, [10, 11], now=6.0)
+        assert [f.value for f in futs] == [10, 11]
+        bad[mod] = obs.validate_trace(tel.trace.buffer.records(obs.CircuitTrace))
+    assert bad[tserve] == []
+    assert len(bad[jserve]) == 2 and "non-monotone" in bad[jserve][0]
+
+
+def test_drain_never_coalesces_a_circuit_before_its_admission():
+    """The async pump loop and ``drain`` both pump the gateway.  Here the
+    drainer reads its clock, stalls, and the pump loop, kicked meanwhile,
+    would admit the circuits at a later time than the drainer then
+    coalesces them at.  Each reads its clock under the gateway's lock, so
+    every trace stays monotone (``validate_trace``)."""
+    from repro_torch import obs as tobs
+
+    main, stall = threading.main_thread(), {"armed": False}
+
+    def clock():
+        t = time.perf_counter()
+        if stall["armed"] and threading.current_thread() is main:
+            stall["armed"] = False
+            threading.Timer(0.02, rt.dispatcher.kick).start()
+            time.sleep(0.3)
+        return t
+
+    spec = circuits.build_quclassi_circuit(5, 1)
+    rt = tserve.GatewayRuntime(workers=[TWorker("w1", 10)], target=8, lanes=8, deadline=10.0,
+                               mode="async", clock=clock,
+                               observability=tobs.ObservabilityConfig())
+    th, dt = (torch.from_numpy(a) for a in _angles(spec, 2, 5))
+    try:
+        futs = [rt.gateway.submit("a", spec, (th[i], dt[i]), clock()) for i in range(2)]
+        stall["armed"] = True
+        rt.dispatcher.drain()
+        got = torch.stack([f.result(timeout=10.0) for f in futs])
+        records = rt.telemetry.trace.buffer.records(tobs.CircuitTrace)
+    finally:
+        rt.close()
+    assert not stall["armed"]
+    assert torch.equal(got, ops.vqc_fidelity(spec, th, dt))
+    assert len(records) == 2 and tobs.validate_trace(records) == []
+
+
+def test_hedge_never_stamps_before_its_runner_starts():
+    """A placed batch whose slot thread is slow to start (here: it stalls
+    in its first clock read) is past ``hedge_k`` x its estimate before its
+    runner stamps ``kernel_start``.  A hedge then (its kernel held 0.5 s)
+    would put ``hedged`` before the runner's later stamps of an earlier
+    time.  The port hedges a runner only once its start is stamped, so the
+    trace stays monotone; the futures are the direct call's bits."""
+    from repro_torch import obs as tobs
+    from repro_torch.comanager.faults import FaultToleranceConfig
+
+    stalled = []
+
+    def clock():
+        t = time.perf_counter()
+        if threading.current_thread().name.startswith("serve-slot") and not stalled:
+            stalled.append(threading.current_thread())
+            time.sleep(0.3)
+        return t
+
+    def kernel(spec, theta, data):
+        if threading.current_thread() is not stalled[0]:
+            time.sleep(0.5)  # the hedge's runner
+        return ops.vqc_fidelity(spec, theta, data)
+
+    spec = circuits.build_quclassi_circuit(5, 1)
+    rt = tserve.GatewayRuntime(workers=[TWorker("w1", 10), TWorker("w2", 10)], target=4,
+                               lanes=4, deadline=10.0, mode="async", clock=clock,
+                               kernel=kernel, fault_tolerance=FaultToleranceConfig(hedge_k=0.01),
+                               observability=tobs.ObservabilityConfig())
+    th, dt = (torch.from_numpy(a) for a in _angles(spec, 4, 6))
+    try:
+        futs = [rt.gateway.submit("a", spec, (th[i], dt[i]), clock()) for i in range(4)]
+        rt.dispatcher.kick()
+        got = torch.stack([f.result(timeout=10.0) for f in futs])
+        rt.dispatcher.drain()
+        records = rt.telemetry.trace.buffer.records(tobs.CircuitTrace)
+    finally:
+        rt.close()
+    assert stalled
+    assert torch.equal(got, ops.vqc_fidelity(spec, th, dt))
+    assert len(records) == 4 and tobs.validate_trace(records) == []
+
+
 def test_futures_and_service_model_match():
     for mod in (jserve, tserve):
         g = mod.Gateway(target=4, lanes=4, deadline=100.0)
@@ -438,6 +541,39 @@ def test_concurrent_submitters_and_kernel_counters():
     finally:
         K.LAUNCHES.update(before)
         K._DEVICE_TABLES.pop((("counter-test",), torch.device("cpu")), None)
+
+
+@pytest.mark.parametrize("n_banks", [1, 3])
+def test_shift_group_bits_do_not_depend_on_batch_composition(n_banks):
+    """A shift group's fidelities are the whole bank's call's, bit for bit,
+    whichever groups share its batch.  The composition is pinned: a sync
+    runtime on a fake clock whose target is ``n_banks`` members, fed one
+    group of every bank at a time, so each batch holds group g of each bank
+    alone (single-bank launches for one bank, multibank for three).  The
+    reference routes each request by its own groups, and groups 1, 2, 5
+    and 6 of 5q-1l alone cost less materialized, so they ran on the
+    fidelity kernel and came back in other bits than the bank's sweep: the
+    async runtime's deadline flushes made such batches under load."""
+    spec = circuits.build_quclassi_circuit(5, 1)
+    rt = tserve.GatewayRuntime(workers=[TWorker("w1", 10)], target=n_banks, lanes=1,
+                               deadline=1e9, mode="sync", clock=FakeClock())
+    key = tserve.ShiftGroupKey(spec, False)
+    banks = []
+    for k in range(n_banks):
+        th, dt = (torch.from_numpy(a) for a in _angles(spec, 5, 40 + k))
+        banks.append(tsr.build_shift_bank(th[0], dt))
+    futs = [[] for _ in banks]
+    for g in range(banks[0].n_groups):
+        for k, bank in enumerate(banks):
+            futs[k].append(rt.gateway.submit(f"c{k}", key, (bank, g), rt.dispatcher.clock(),
+                                             lanes=bank.n_samples))
+        rt.dispatcher.pump()
+    rt.dispatcher.drain()
+    assert [n for _, n, _ in rt.dispatcher.batch_log] == [n_banks] * banks[0].n_groups
+    assert rt.telemetry.fused_launches == banks[0].n_groups
+    for bank, fs in zip(banks, futs):
+        whole = ops.vqc_fidelity_shiftbank(spec, bank.theta, bank.data).reshape(bank.n_groups, -1)
+        assert torch.equal(torch.stack([f.result(timeout=1.0) for f in fs]), whole)
 
 
 def test_first_build_from_several_threads_gives_one_library(monkeypatch):

@@ -52,7 +52,7 @@ def _angles(spec, batch, seed):
 def test_shift_rows_match_reference(qc, nl, batch, four, groups, tied):
     js, ts = _specs(qc, nl, tied)
     theta, data = _angles(ts, batch, seed=qc + nl + batch)
-    assert K.use_shift_plan(ts, four, groups)
+    assert K.use_shift_plan(ts, four)
     got = tops.vqc_fidelity_shiftgroups(ts, torch.from_numpy(theta), torch.from_numpy(data),
                                         four, groups)
     want = jops.vqc_fidelity_shiftgroups(js, jnp.asarray(theta), jnp.asarray(data),
