@@ -469,6 +469,10 @@ def time_flash(dev, card: str, label: str, b: int, h: int, kv: int, s: int, hd: 
     simt_call = lambda: FA.flash_attention(q32, k32, v32, groups=g)  # noqa: E731
     simt_ms = time_ms(simt_call, iters=10)
     simt_dev = device_ms(simt_call, "flash_fwd_kernel", iters=5)
+    f4 = q32.view(b, h, s, hd), k32.view(b, kv, s, hd), v32.view(b, kv, s, hd)
+    library32 = lambda: sdpa(*f4, is_causal=True, scale=1.0, enable_gqa=True)  # noqa: E731
+    library32_ms = time_ms(library32, iters=10)
+    lib32_diff = float((library32().reshape(b * h, s, hd) - simt_call()).abs().max())
     flops = 4 * b * h * hd * s * (s + 1) // 2          # visible (query, key) pairs
     nbytes = 2 * (2 * b * h + 2 * b * kv) * s * hd     # q and o at h heads, k and v at kv
     bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
@@ -479,43 +483,19 @@ def time_flash(dev, card: str, label: str, b: int, h: int, kv: int, s: int, hd: 
         f"({bound_by}; {flops} flops, {nbytes} bytes) [{card}]")
     log(f"  time flash_simt    {label}: the same inputs in float32: kernel {simt_ms:.4f} ms "
         f"(device {simt_dev}), bound {simt_bound_ms:.6f} ms ({simt_bound_by} at float32's "
-        f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), wgmma route {simt_ms / ms:.1f}x faster [{card}]")
+        f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), float32 scaled_dot_product_attention "
+        f"{library32_ms:.4f} ms (the kernel takes {simt_ms / library32_ms:.2f}x its time; max|diff| "
+        f"{lib32_diff:.3e}), wgmma route {simt_ms / ms:.1f}x faster [{card}]")
     return {"shape": label, "bh": b * h, "s": s, "hd": hd, "groups": g, "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "library_max_abs_diff": lib_diff,
             "simt": {"ms": simt_ms, "device_ms": simt_dev, "bound_ms": simt_bound_ms,
-                     "bound_by": simt_bound_by}}
+                     "bound_by": simt_bound_by, "library_ms": library32_ms,
+                     "library_max_abs_diff": lib32_diff}}
 
 
 def ops_flops(ops, n: int) -> int:
     return sum(FLOPS_PER_AMP[op.gate] for op in ops) * 2**n
-
-
-def dmem_pass_bytes(spec, want_state: bool) -> int:
-    """Bytes of state one circuit of the device-memory route moves through
-    device memory: the |0..0> write, then each gate's read and write of the
-    32-byte sectors of re and im that hold an amplitude it changes (all of
-    them for H, one-qubit and two-qubit rotations; those with the control
-    set for CRY / CRZ; those with the ancilla set and the swapped bits
-    unequal for CSWAP), then, for P0, the read of the first half."""
-    n = spec.n_qubits
-    idx = np.arange(2**n)
-
-    def bit(q):
-        return (idx >> (n - 1 - q)) & 1
-
-    total = 8 * 2**n
-    for op in spec.ops:
-        if op.gate in ("cry", "crz"):
-            touched = bit(op.qubits[0]) == 1
-        elif op.gate == "cswap":
-            a, b, c = op.qubits
-            touched = (bit(a) == 1) & (bit(b) != bit(c))
-        else:
-            touched = np.ones(2**n, dtype=bool)
-        sectors = int(touched.reshape(-1, 8).any(1).sum())
-        total += 2 * 2 * 32 * sectors  # re and im, read and written
-    return total + (0 if want_state else 8 * 2 ** (n - 1))
 
 
 def shift_flops(K, plan, groups, n_params: int) -> int:
@@ -2775,12 +2755,13 @@ def main() -> int:
     }
     # the device-memory route at 17q-1l, C = 256.  Its bound is the
     # function's (angles in, P0 or the state out, against its flops); the
-    # state's traffic over device memory, one pass a gate (``pass_bytes``),
-    # is logged beside it as that scheme's own bound
+    # state's traffic over device memory in the route's passes
+    # (``K.dmem_traffic_bytes``) is logged beside it as that scheme's own
+    # bound
     spec17 = wide[17]
     th17, dt17 = angles(spec17, DMEM_ROWS)
     p17, d17, ops17 = spec17.n_theta, spec17.n_data, len(spec17.ops)
-    pass_bytes = {}
+    pass_bytes, n_passes = {}, {}
     for kname, want_state in (("fidelity_dmem", False), ("state_dmem", True)):
         kern = K.vqc_state if want_state else K.vqc_p0
         timed[kname] = (
@@ -2790,7 +2771,8 @@ def main() -> int:
             DMEM_ROWS * (4 * (p17 + d17) + (8 * 2**17 if want_state else 4)),
             f"17q-1l C={DMEM_ROWS} circuits ({ops17} gates a circuit)",
         )
-        pass_bytes[kname] = DMEM_ROWS * dmem_pass_bytes(spec17, want_state)
+        n_passes[kname], per_circuit = K.dmem_traffic_bytes(spec17, want_state)
+        pass_bytes[kname] = DMEM_ROWS * per_circuit
     records = {}
     for kname, (kern, plain, flops, nbytes, shape) in timed.items():
         slow = kname.endswith("_dmem")
@@ -2801,9 +2783,14 @@ def main() -> int:
         records[kname] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by}
         if kname in pass_bytes:
-            records[kname]["pass_bound_ms"] = pass_bytes[kname] / PEAK_BYTES_PER_S * 1e3
-            log(f"  {kname}: one pass a gate moves {pass_bytes[kname]} bytes of state "
-                f"({pass_bytes[kname] / (DMEM_ROWS * 16 * 2**17):.3f} full read-and-write "
+            cluster = K.dmem_geometry(spec17, DMEM_ROWS, K._sm_count(dev))[0]
+            records[kname].update(
+                passes=n_passes[kname], pass_bytes=pass_bytes[kname], cluster=cluster,
+                pass_bound_ms=pass_bytes[kname] / PEAK_BYTES_PER_S * 1e3)
+            log(f"  {kname}: {n_passes[kname]} passes of k = {K.DMEM_LOCAL_QUBITS} local "
+                f"qubits ({ops17} gates), {cluster} block(s) a circuit, move "
+                f"{pass_bytes[kname]} bytes of state ("
+                f"{pass_bytes[kname] / (DMEM_ROWS * 16 * 2**17):.3f} full read-and-write "
                 f"passes a circuit): {records[kname]['pass_bound_ms']:.6f} ms at "
                 f"{PEAK_BYTES_PER_S / 1e12} TB/s [{card}]")
         shown = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"

@@ -4,7 +4,7 @@
 // its gates through warp_apply and, for the prefix-reuse shift walk,
 // ShiftWalk below; the device-memory route of the fidelity and state
 // kernels (vqc_fused.cu) runs the same gate passes, strided_apply, over a
-// block's state in device memory.
+// block's chunk of a state held in device memory.
 //
 // Qubit q is the q-th MOST significant bit of the amplitude index: its pair
 // stride is 2^(n-q-1).  Rotation matrices, sign conventions and the
@@ -21,8 +21,7 @@ enum : int { kNoParam = 0, kTheta = 1, kData = 2, kConst = 3 };
 // An op-table row: gate, q0, q1, q2, param kind, param index.
 constexpr int kOpFields = 6;
 
-// i with a zero bit inserted at position b (Idx: int for a state in shared
-// memory, long long for one in device memory).
+// i with a zero bit inserted at position b.
 template <typename Idx>
 __device__ __forceinline__ Idx insert0(Idx i, int b) {
   return ((i >> b) << (b + 1)) | (i & ((Idx(1) << b) - 1));
@@ -175,7 +174,8 @@ __device__ __forceinline__ float warp_inner(WarpState chi, WarpState phi, int di
 // H and CSWAP) to the state (re, im) of an n-qubit register: this thread's
 // amplitude pairs (quads, cswap pairs) first, first + step, ...  No barrier:
 // warp_apply (a warp's state in shared memory) ends it with __syncwarp and
-// block_apply (a block's state in device memory) with __syncthreads.
+// the device-memory route (a block's chunk in shared memory) with
+// __syncthreads.
 template <typename Idx>
 __device__ __forceinline__ void strided_apply(const int* op, float c, float sn, float* re,
                                               float* im, int n, Idx first, Idx step) {

@@ -38,26 +38,46 @@
 // same two functions at the widths where one circuit's state does not fit a
 // block's 227 KB of shared memory (from 15 qubits: 256 KB; fused_geometry
 // gives (0, 0)), which the reference's kernels accept and its serving
-// system routes to MeshSpillExecutor.  One block per circuit (DMEM_THREADS
-// threads); the state's (re, im) float32 amplitudes live in device memory (a
-// workspace of the wrapper's for the fidelity, the output rows themselves
-// for the state): 1 MB a circuit at 17 qubits.  All the batch's blocks run
-// at once, so their states exceed the 50 MB L2 and each gate's pass streams
-// from device memory; chunks of the batch small enough for L2 were timed
-// slower (a chunk of k circuits keeps only k SMs busy).  The block first
-// computes every op's cos / sin of its half angle into shared memory
-// (op_angle: the same arithmetic as warp_evolve, so the gates apply with
-// the same bits as the warp kernels'), then walks the op list: each gate
-// is one block-stride pass over its amplitude pairs (quads, cswap pairs)
-// with 64-bit indices (strided_apply<long long>), ended by
-// __syncthreads().  P(0) is a block reduction.  A gate's pass reads and
-// writes the 32-byte sectors that hold an amplitude it changes: the whole
-// state for H and the one- and two-qubit rotations, half for CRY / CRZ
-// (all where the control bit is one of an index's three lowest), a quarter
-// (half where a swapped bit is one of the three lowest) for CSWAP;
-// 37.5 full passes a circuit at 17q-1l.  That traffic over device memory
-// bounds this scheme; the function's own bound (angles in, P(0) out, about
-// 6 flops an amplitude a rotation) is the float32 arithmetic, far below it.
+// system routes to MeshSpillExecutor.  The state's (re, im) float32
+// amplitudes live in device memory (a workspace of the wrapper's for the
+// fidelity, the output rows themselves for the state): 1 MB a circuit at
+// 17 qubits.  The op table runs in passes (dmem_plan in
+// vqc_statevector.py): each pass's gates act on at most k = 13 local qubits,
+// so the state splits into 2^(n - k) chunks of 2^k amplitudes (64 KB), the
+// local bits varying and the others fixed.  A block loads a chunk into
+// shared memory, applies the pass's gates one after another with
+// __syncthreads between them, and stores it back; the next pass reads what
+// this one stored.  Each amplitude meets the same gates in the same order
+// with the same arithmetic (rot1, rot2, dot2, op_angle) as in the warp
+// kernels, so the state is theirs.  Every pass keeps the three lowest-order
+// qubits local, so four local neighbours are four neighbours in device
+// memory: loads and stores move float4s and cover whole 32-byte sectors, a
+// gate on local bits >= 2 moves four amplitudes a shared load
+// (strided_apply4), consecutive rotations of one qubit share one sweep over
+// the chunk (rot1_run4), and one-qubit gates on local bits 0 and 1 run
+// inside each float4 (low_run4).  Amplitudes no earlier pass had local are
+// still 0 (the pass's zero mask): the first pass makes |0...0> in shared
+// memory and computes only the chunk that holds it, later passes do not
+// read such amplitudes and skip chunks made only of them (the state
+// kernel's last pass stores their zeros), and the fidelity's last pass
+// stores nothing: it writes one partial P(0) a chunk over the chunk's
+// ancilla-0 half (in the chunk's first amplitude, which only its own block
+// reads), and the circuit's first block sums them in chunk order.  At
+// 17q-1l (42 gates) that is 3 passes and 2.2 MB of state traffic a circuit
+// for P(0) (3.3 MB for the state), where the per-gate scheme this replaced
+// made one block-stride pass over the state a gate, 37.5 full passes (some
+// 75 MB).  A circuit is one thread-block cluster (dmem_geometry: up to 8
+// blocks, fewer as the batch fills the card); its blocks take a pass's
+// chunks in turn, cluster.sync() sits between passes, and device memory is
+// read and written through L2 (ld.global.cg, st.global.cg), so a pass sees
+// its cluster's stores.  P(0) and the state do not depend on the cluster
+// size.  What bounds it now: the gates' sweeps over the chunk in shared
+// memory (each reads and writes the chunk; two- and three-qubit gates on
+// the two lowest bits a float at a time), which kept it at 6 times the
+// function's own float32 bound and 3.6 times the route's device-memory
+// traffic at 17q-1l and C = 256 on an H100.
+#include <cooperative_groups.h>
+
 #include "statevector.cuh"
 
 namespace vqc {
@@ -118,92 +138,425 @@ state_kernel(const float* __restrict__ theta, const float* __restrict__ data,
 }
 
 // --------------------------------------------------- device-memory route
-// The block's state (re, im) in device memory evolved from |0...0> through
-// the op table; angles: 2 * n_ops floats of dynamic shared memory.
-__device__ __forceinline__ void block_evolve(const float* th, const float* dt, const int* ops,
-                                             const float* consts, int n_ops, int n_qubits,
-                                             float* re, float* im, float* angles) {
-  const long long dim = 1LL << n_qubits;
-  for (int k = threadIdx.x; k < n_ops; k += blockDim.x) {
-    op_angle(ops + k * kOpFields, consts[k], th, dt, 0.f, angles[2 * k], angles[2 * k + 1]);
+constexpr int kPassFields = 6;  // op lo, op hi, local mask, zero mask (two halves each)
+constexpr int kDepLo = 256;     // deposit table of local bits 0-7
+constexpr int kDepHi = 64;      // of local bits 8-13 (k <= 14)
+
+__device__ __forceinline__ unsigned long long mask_at(const int* row) {
+  return static_cast<unsigned>(row[0]) | static_cast<unsigned long long>(static_cast<unsigned>(row[1]))
+                                             << 32;
+}
+
+// x's bits, lowest first, placed at the set bits of mask, lowest first.
+__device__ __forceinline__ long long deposit(long long x, unsigned long long mask) {
+  long long out = 0;
+  for (int b = 0; mask; ++b, mask >>= 1) {
+    if (mask & 1) {
+      out |= (x & 1) << b;
+      x >>= 1;
+    }
   }
+  return out;
+}
+
+// strided_apply on a chunk seen as 2^n float4 elements (n = k - 2), for a
+// gate whose qubits all sit at local bits >= 2: it acts alike on the four
+// amplitudes of an element, so each component goes through the gate
+// arithmetic of strided_apply (rot1, rot2, the H sums) and a shared load
+// moves four amplitudes.
+__device__ __forceinline__ float4 h_sum(float4 a, float4 b, float inv) {
+  return make_float4((a.x + b.x) * inv, (a.y + b.y) * inv, (a.z + b.z) * inv, (a.w + b.w) * inv);
+}
+
+__device__ __forceinline__ float4 h_diff(float4 a, float4 b, float inv) {
+  return make_float4((a.x - b.x) * inv, (a.y - b.y) * inv, (a.z - b.z) * inv, (a.w - b.w) * inv);
+}
+
+__device__ __forceinline__ void rot1_4(int g, float c, float sn, float4& r0, float4& m0,
+                                       float4& r1, float4& m1) {
+  rot1(g, c, sn, r0.x, m0.x, r1.x, m1.x);
+  rot1(g, c, sn, r0.y, m0.y, r1.y, m1.y);
+  rot1(g, c, sn, r0.z, m0.z, r1.z, m1.z);
+  rot1(g, c, sn, r0.w, m0.w, r1.w, m1.w);
+}
+
+__device__ __forceinline__ void rot2_4(int g, float c, float sn, float4& r00, float4& m00,
+                                       float4& r01, float4& m01, float4& r10, float4& m10,
+                                       float4& r11, float4& m11) {
+  rot2(g, c, sn, r00.x, m00.x, r01.x, m01.x, r10.x, m10.x, r11.x, m11.x);
+  rot2(g, c, sn, r00.y, m00.y, r01.y, m01.y, r10.y, m10.y, r11.y, m11.y);
+  rot2(g, c, sn, r00.z, m00.z, r01.z, m01.z, r10.z, m10.z, r11.z, m11.z);
+  rot2(g, c, sn, r00.w, m00.w, r01.w, m01.w, r10.w, m10.w, r11.w, m11.w);
+}
+
+__device__ __forceinline__ void strided_apply4(const int* op, float c, float sn, float4* re,
+                                               float4* im, int n, int first, int step) {
+  const int g = op[0];
+  if (g == kH) {
+    const int b = n - op[1] - 1, st = 1 << b;
+    const float inv = 0.7071067811865476f;
 #pragma unroll 1
-  for (long long a = threadIdx.x; a < dim; a += blockDim.x) {
-    re[a] = a == 0 ? 1.f : 0.f;
-    im[a] = 0.f;
+    for (int i = first; i < (1 << (n - 1)); i += step) {
+      const int i0 = insert0(i, b), i1 = i0 | st;
+      const float4 r0 = re[i0], r1 = re[i1], m0 = im[i0], m1 = im[i1];
+      re[i0] = h_sum(r0, r1, inv);
+      re[i1] = h_diff(r0, r1, inv);
+      im[i0] = h_sum(m0, m1, inv);
+      im[i1] = h_diff(m0, m1, inv);
+    }
+  } else if (g == kCSwap) {
+    const int ba = n - op[1] - 1, bb = n - op[2] - 1, bc = n - op[3] - 1;
+#pragma unroll 1
+    for (int i = first; i < (1 << (n - 3)); i += step) {
+      const int base = insert0(insert0(insert0(i, bc), bb), ba) | (1 << ba);
+      const int a01 = base | (1 << bc), a10 = base | (1 << bb);
+      const float4 r = re[a01], m = im[a01];
+      re[a01] = re[a10];
+      im[a01] = im[a10];
+      re[a10] = r;
+      im[a10] = m;
+    }
+  } else if (g == kRX || g == kRY || g == kRZ) {
+    const int b = n - op[1] - 1, st = 1 << b;
+#pragma unroll 1
+    for (int i = first; i < (1 << (n - 1)); i += step) {
+      const int i0 = insert0(i, b), i1 = i0 | st;
+      float4 r0 = re[i0], r1 = re[i1], m0 = im[i0], m1 = im[i1];
+      rot1_4(g, c, sn, r0, m0, r1, m1);
+      re[i0] = r0; im[i0] = m0;
+      re[i1] = r1; im[i1] = m1;
+    }
+  } else {
+    const int ba = n - op[1] - 1, bb = n - op[2] - 1;
+#pragma unroll 1
+    for (int i = first; i < (1 << (n - 2)); i += step) {
+      const int i00 = insert0(insert0(i, bb), ba);
+      const int i01 = i00 | (1 << bb), i10 = i00 | (1 << ba), i11 = i10 | (1 << bb);
+      float4 r10 = re[i10], r11 = re[i11], m10 = im[i10], m11 = im[i11];
+      if (g == kCRY || g == kCRZ) {
+        rot1_4(g, c, sn, r10, m10, r11, m11);
+      } else {
+        float4 r00 = re[i00], r01 = re[i01], m00 = im[i00], m01 = im[i01];
+        rot2_4(g, c, sn, r00, m00, r01, m01, r10, m10, r11, m11);
+        re[i00] = r00; im[i00] = m00;
+        re[i01] = r01; im[i01] = m01;
+      }
+      re[i10] = r10; im[i10] = m10;
+      re[i11] = r11; im[i11] = m11;
+    }
   }
+}
+
+// A run of one-qubit rotations, ops [j0, j1), on the same qubit, as
+// strided_apply4 would apply them one after another, each element pair
+// loaded once: every amplitude meets the same rot1 calls in the same order.
+__device__ __forceinline__ void rot1_run4(const int* ops, const float* angles, int j0, int j1,
+                                          float4* re, float4* im, int n, int first, int step) {
+  const int b = n - ops[j0 * kOpFields + 1] - 1, st = 1 << b;
+#pragma unroll 1
+  for (int i = first; i < (1 << (n - 1)); i += step) {
+    const int i0 = insert0(i, b), i1 = i0 | st;
+    float4 r0 = re[i0], r1 = re[i1], m0 = im[i0], m1 = im[i1];
+#pragma unroll 1
+    for (int j = j0; j < j1; ++j) {
+      rot1_4(ops[j * kOpFields], angles[2 * j], angles[2 * j + 1], r0, m0, r1, m1);
+    }
+    re[i0] = r0; im[i0] = m0;
+    re[i1] = r1; im[i1] = m1;
+  }
+}
+
+__device__ __forceinline__ bool is_rot1(int g) { return g == kRX || g == kRY || g == kRZ; }
+
+// H or a one-qubit rotation on the amplitude pair (r0 + i m0, r1 + i m1),
+// with strided_apply's arithmetic.
+__device__ __forceinline__ void one_qubit(int g, float c, float sn, float& r0, float& m0,
+                                          float& r1, float& m1) {
+  if (g == kH) {
+    const float inv = 0.7071067811865476f;
+    const float a = r0, b = m0;
+    r0 = (a + r1) * inv;
+    r1 = (a - r1) * inv;
+    m0 = (b + m1) * inv;
+    m1 = (b - m1) * inv;
+  } else {
+    rot1(g, c, sn, r0, m0, r1, m1);
+  }
+}
+
+// A run of one-qubit gates (H, RX, RY, RZ), ops [j0, j1), on local bit 0
+// or 1, where both pairs of a gate lie inside one float4 (bit 0: (x, y) and
+// (z, w); bit 1: (x, z) and (y, w)): each element loaded once, every
+// amplitude meeting the same gates in the same order.
+__device__ __forceinline__ void low_run4(const int* ops, const float* angles, int j0, int j1,
+                                         int bit, float4* re, float4* im, int n4, int first,
+                                         int step) {
+#pragma unroll 1
+  for (int e = first; e < n4; e += step) {
+    float4 r = re[e], m = im[e];
+#pragma unroll 1
+    for (int j = j0; j < j1; ++j) {
+      const int g = ops[j * kOpFields];
+      const float c = angles[2 * j], sn = angles[2 * j + 1];
+      if (bit == 0) {
+        one_qubit(g, c, sn, r.x, m.x, r.y, m.y);
+        one_qubit(g, c, sn, r.z, m.z, r.w, m.w);
+      } else {
+        one_qubit(g, c, sn, r.x, m.x, r.z, m.z);
+        one_qubit(g, c, sn, r.y, m.y, r.w, m.w);
+      }
+    }
+    re[e] = r;
+    im[e] = m;
+  }
+}
+
+// The op's highest local qubit (its qubits are ascending): the gate leaves
+// local bits 0 and 1 alone when it is at most k - 3.
+__device__ __forceinline__ int top_qubit(const int* op) {
+  return op[0] == kCSwap ? op[3] : op[0] >= kRYY ? op[2] : op[1];
+}
+
+// Sum over the block (every thread gets it): warp sums, then the warps'
+// partials in order.
+__device__ __forceinline__ float block_sum(float x, float* partial) {
+  x = warp_sum(x);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // partial is free
+  if (lane == 0) partial[warp] = x;
   __syncthreads();
+  x = lane < static_cast<int>(blockDim.x >> 5) ? partial[lane] : 0.f;
+  return warp_sum(x);
+}
+
+// A chunk's amplitudes between device memory (through L2: ld.global.cg,
+// st.global.cg) and shared memory, a float4 at a time: local bits 0 and 1
+// are the index's bits 0 and 1 (every pass keeps the lowest-order qubits
+// local), so four local neighbours are four neighbours in device memory
+// and share the index's other bits.
+struct Chunk {
+  long long base;            // the chunk's fixed bits
+  const long long* dep_lo;   // amplitude offset of local bits 0-7
+  const long long* dep_hi;   // of local bits 8-13
+  int size;                  // 2^k amplitudes
+
+  __device__ long long at(int l) const { return base | dep_lo[l & 255] | dep_hi[l >> 8]; }
+};
+
+// The chunk into shared memory: |0...0> made there in the first pass, an
+// amplitude under the zero mask read as 0.
+__device__ __forceinline__ void load_chunk(const Chunk& ch, float4* sre, float4* sim,
+                                           const float* re, const float* im,
+                                           unsigned long long zero, bool first) {
 #pragma unroll 1
-  for (int k = 0; k < n_ops; ++k) {
-    strided_apply<long long>(ops + k * kOpFields, angles[2 * k], angles[2 * k + 1], re, im,
-                             n_qubits, threadIdx.x, blockDim.x);
+  for (int e = threadIdx.x; e < ch.size / 4; e += blockDim.x) {
+    const long long g = ch.at(4 * e);
+    float4 r{}, m{};
+    if (first) {
+      if (g == 0) r.x = 1.f;
+    } else if (!(g & zero)) {
+      r = __ldcg(reinterpret_cast<const float4*>(re + g));
+      m = __ldcg(reinterpret_cast<const float4*>(im + g));
+    }
+    sre[e] = r;
+    sim[e] = m;
+  }
+}
+
+// The chunk back to device memory (sre == nullptr: zeros).
+__device__ __forceinline__ void store_chunk(const Chunk& ch, const float4* sre,
+                                            const float4* sim, float* re, float* im) {
+#pragma unroll 1
+  for (int e = threadIdx.x; e < ch.size / 4; e += blockDim.x) {
+    const long long g = ch.at(4 * e);
+    __stcg(reinterpret_cast<float4*>(re + g), sre ? sre[e] : float4{});
+    __stcg(reinterpret_cast<float4*>(im + g), sim ? sim[e] : float4{});
+  }
+}
+
+// This thread's share of the chunk's P(0): the amplitudes with the ancilla
+// (bit n - 1) at 0.
+__device__ __forceinline__ float chunk_p0(const Chunk& ch, const float4* sre, const float4* sim,
+                                          int n) {
+  float acc = 0.f;
+#pragma unroll 1
+  for (int e = threadIdx.x; e < ch.size / 4; e += blockDim.x) {
+    if (ch.at(4 * e) >> (n - 1) & 1) continue;
+    const float4 r = sre[e], m = sim[e];
+    acc += r.x * r.x + m.x * m.x + r.y * r.y + m.y * m.y + r.z * r.z + m.z * m.z + r.w * r.w +
+           m.w * m.w;
+  }
+  return acc;
+}
+
+// Ops [lo, hi) on the chunk in shared memory, a float4 at a time: gates on
+// local bits >= 2 through strided_apply4, consecutive one-qubit rotations of
+// one such qubit in one sweep, runs of one-qubit gates on local bit 0 or 1
+// inside each float4; the rest (two- and three-qubit gates on bit 0 or 1)
+// through strided_apply.
+__device__ __noinline__ void chunk_gates(const int* ops, const float* angles, int lo, int hi,
+                                         float* sre, float* sim, int k) {
+  float4* sre4 = reinterpret_cast<float4*>(sre);
+  float4* sim4 = reinterpret_cast<float4*>(sim);
+  const int tid = threadIdx.x, nt = blockDim.x;
+#pragma unroll 1
+  for (int j = lo, j1; j < hi; j = j1) {
+    const int* op = ops + j * kOpFields;
+    j1 = j + 1;
+    if (top_qubit(op) > k - 3 && (is_rot1(op[0]) || op[0] == kH)) {
+      while (j1 < hi && ops[j1 * kOpFields + 1] == op[1] &&
+             (is_rot1(ops[j1 * kOpFields]) || ops[j1 * kOpFields] == kH)) {
+        ++j1;
+      }
+      low_run4(ops, angles, j, j1, k - 1 - op[1], sre4, sim4, 1 << (k - 2), tid, nt);
+    } else if (top_qubit(op) > k - 3) {
+      strided_apply<int>(op, angles[2 * j], angles[2 * j + 1], sre, sim, k, tid, nt);
+    } else if (is_rot1(op[0])) {
+      while (j1 < hi && is_rot1(ops[j1 * kOpFields]) && ops[j1 * kOpFields + 1] == op[1]) ++j1;
+      rot1_run4(ops, angles, j, j1, sre4, sim4, k - 2, tid, nt);
+    } else {
+      strided_apply4(op, angles[2 * j], angles[2 * j + 1], sre4, sim4, k - 2, tid, nt);
+    }
     __syncthreads();
   }
 }
 
-__global__ void __launch_bounds__(1024)
-fidelity_dmem_kernel(const float* __restrict__ theta, const float* __restrict__ data,
-                     int n_theta, int n_data, const int* __restrict__ ops,
-                     const float* __restrict__ consts, int n_ops, int n_qubits,
-                     float* __restrict__ work, float* __restrict__ p0_out) {
-  extern __shared__ float smem[];  // angles, then one partial sum a warp
-  const long long c = blockIdx.x, dim = 1LL << n_qubits;
-  float* re = work + c * 2 * dim;
-  block_evolve(theta + c * n_theta, data + c * n_data, ops, consts, n_ops, n_qubits, re,
-               re + dim, smem);
-  const float* im = re + dim;
-  float p0 = 0.f;  // ancilla = MSB: the first half of the amplitudes
-#pragma unroll 1
-  for (long long a = threadIdx.x; a < dim / 2; a += blockDim.x) {
-    p0 += re[a] * re[a] + im[a] * im[a];
+// One circuit's evolution on the device-memory route, by the blocks of its
+// cluster; P(0) into *p0 (fidelity) or the state left in (re, im).
+template <bool kState>
+__device__ __forceinline__ void dmem_evolve(const float* th, const float* dt, const int* ops,
+                                            const float* consts, int n_ops, const int* passes,
+                                            int n_passes, int n, int k, float* re, float* im,
+                                            float* p0) {
+  extern __shared__ float smem[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n_blocks = static_cast<int>(cluster.num_blocks());
+  const int tid = threadIdx.x, nt = blockDim.x, size = 1 << k;
+  float* sre = smem;                                    // [2^k]
+  float* sim = sre + size;                              // [2^k]
+  float4* sre4 = reinterpret_cast<float4*>(sre);
+  float4* sim4 = reinterpret_cast<float4*>(sim);
+  float* angles = sim + size;                           // [2 * n_ops]
+  long long* dep_lo = reinterpret_cast<long long*>(angles + 2 * n_ops);
+  long long* dep_hi = dep_lo + kDepLo;
+  float* partial = reinterpret_cast<float*>(dep_hi + kDepHi);  // one a warp
+  const long long n_chunks = 1LL << (n - k);
+  const unsigned long long all = (n == 64 ? ~0ULL : (1ULL << n) - 1);
+
+  for (int j = tid; j < n_ops; j += nt) {
+    op_angle(ops + j * kOpFields, consts[j], th, dt, 0.f, angles[2 * j], angles[2 * j + 1]);
   }
-  p0 = warp_sum(p0);
-  float* partial = smem + 2 * n_ops;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) partial[warp] = p0;
-  __syncthreads();
-  if (warp == 0) {
-    p0 = lane < static_cast<int>(blockDim.x >> 5) ? partial[lane] : 0.f;
-    p0 = warp_sum(p0);
-    if (lane == 0) p0_out[c] = p0;
+  unsigned long long zero = 0;
+#pragma unroll 1
+  for (int p = 0; p < n_passes; ++p) {
+    const int* row = passes + p * kPassFields;
+    const unsigned long long local = mask_at(row + 2);
+    zero = mask_at(row + 4);
+    const bool last = p == n_passes - 1;
+    __syncthreads();  // the last pass's chunk is done with the deposit tables
+    for (int e = tid; e < kDepLo + kDepHi; e += nt) {
+      if (e < kDepLo) dep_lo[e] = deposit(e, local);
+      else dep_hi[e - kDepLo] = deposit(static_cast<long long>(e - kDepLo) << 8, local);
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (long long c = rank; c < n_chunks; c += n_blocks) {
+      const Chunk ch{deposit(c, all & ~local), dep_lo, dep_hi, size};
+      if (ch.base & zero) {  // every amplitude of the chunk is 0, before and after
+        if (kState && last) store_chunk(ch, nullptr, nullptr, re, im);
+        continue;
+      }
+      if (!kState && last && (ch.base >> (n - 1) & 1)) continue;  // the ancilla-1 half
+      load_chunk(ch, sre4, sim4, re, im, zero, p == 0);
+      __syncthreads();
+      chunk_gates(ops, angles, row[0], row[1], sre, sim, k);
+      if (!kState && last) {
+        const float acc = block_sum(chunk_p0(ch, sre4, sim4, n), partial);
+        if (tid == 0) __stcg(re + ch.base, acc);  // this chunk's first amplitude, read
+      } else {
+        store_chunk(ch, sre4, sim4, re, im);
+      }
+      __syncthreads();  // the chunk in shared memory is free
+    }
+    cluster.sync();  // this pass's stores before the next pass's loads
+  }
+  if (!kState && rank == 0) {
+    // the live chunks' partials of the last pass, in chunk order
+    const unsigned long long local = mask_at(passes + (n_passes - 1) * kPassFields + 2);
+    float acc = 0.f;
+#pragma unroll 1
+    for (long long c = tid; c < n_chunks; c += nt) {
+      const long long base = deposit(c, all & ~local);
+      if (!(base & zero) && !(base >> (n - 1) & 1)) acc += __ldcg(re + base);
+    }
+    acc = block_sum(acc, partial);
+    if (tid == 0) *p0 = acc;
   }
 }
 
+// Circuit blockIdx.x / cluster size; its state at re + c * stride (and im).
 __global__ void __launch_bounds__(1024)
-state_dmem_kernel(const float* __restrict__ theta, const float* __restrict__ data,
-                  int n_theta, int n_data, const int* __restrict__ ops,
-                  const float* __restrict__ consts, int n_ops, int n_qubits,
-                  float* __restrict__ re_out, float* __restrict__ im_out) {
-  extern __shared__ float smem[];
-  const long long c = blockIdx.x, dim = 1LL << n_qubits;
-  block_evolve(theta + c * n_theta, data + c * n_data, ops, consts, n_ops, n_qubits,
-               re_out + c * dim, im_out + c * dim, smem);
+fidelity_dmem_kernel(const float* __restrict__ theta, const float* __restrict__ data,
+                     int n_theta, int n_data, const int* __restrict__ ops,
+                     const float* __restrict__ consts, int n_ops, const int* __restrict__ passes,
+                     int n_passes, int n_qubits, int k, float* re, float* im, long long stride,
+                     float* __restrict__ p0_out) {
+  const long long c = blockIdx.x / cooperative_groups::this_cluster().num_blocks();
+  dmem_evolve<false>(theta + c * n_theta, data + c * n_data, ops, consts, n_ops, passes,
+                     n_passes, n_qubits, k, re + c * stride, im + c * stride, p0_out + c);
+}
+
+__global__ void __launch_bounds__(1024)
+state_dmem_kernel(const float* __restrict__ theta, const float* __restrict__ data, int n_theta,
+                  int n_data, const int* __restrict__ ops, const float* __restrict__ consts,
+                  int n_ops, const int* __restrict__ passes, int n_passes, int n_qubits, int k,
+                  float* re, float* im, long long stride) {
+  const long long c = blockIdx.x / cooperative_groups::this_cluster().num_blocks();
+  dmem_evolve<true>(theta + c * n_theta, data + c * n_data, ops, consts, n_ops, passes, n_passes,
+                    n_qubits, k, re + c * stride, im + c * stride, nullptr);
 }
 
 }  // namespace vqc
 
-extern "C" int vqc_fidelity_dmem_launch(const float* theta, const float* data, int n_circuits,
-                                        int n_theta, int n_data, const int* ops,
-                                        const float* consts, int n_ops, int n_qubits,
-                                        float* work, float* p0_out, int threads,
-                                        int smem_bytes, void* stream) {
-  const cudaError_t err = vqc::allow_smem(vqc::fidelity_dmem_kernel, smem_bytes);
+// The device-memory route: fidelity (P(0) into p0_out, the states in a
+// workspace) or state (into re, im); circuit c's state at re + c * stride
+// and im + c * stride; one cluster of `cluster` blocks a circuit.
+extern "C" int vqc_dmem_launch(int want_state, const float* theta, const float* data,
+                               int n_circuits, int n_theta, int n_data, const int* ops,
+                               const float* consts, int n_ops, const int* passes, int n_passes,
+                               int n_qubits, int k, float* re, float* im, long long stride,
+                               float* p0_out, int cluster, int threads, int smem_bytes,
+                               void* stream) {
+  if (k < 3 || k > 14 || k > n_qubits || cluster < 1 || n_circuits < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_circuits) * static_cast<unsigned>(cluster));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err;
+  if (want_state) {
+    err = vqc::allow_smem(vqc::state_dmem_kernel, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaLaunchKernelEx(&cfg, vqc::state_dmem_kernel, theta, data, n_theta, n_data, ops,
+                             consts, n_ops, passes, n_passes, n_qubits, k, re, im, stride);
+  } else {
+    err = vqc::allow_smem(vqc::fidelity_dmem_kernel, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaLaunchKernelEx(&cfg, vqc::fidelity_dmem_kernel, theta, data, n_theta, n_data, ops,
+                             consts, n_ops, passes, n_passes, n_qubits, k, re, im, stride, p0_out);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  vqc::fidelity_dmem_kernel<<<n_circuits, threads, smem_bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-      theta, data, n_theta, n_data, ops, consts, n_ops, n_qubits, work, p0_out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int vqc_state_dmem_launch(const float* theta, const float* data, int n_circuits,
-                                     int n_theta, int n_data, const int* ops,
-                                     const float* consts, int n_ops, int n_qubits, float* re_out,
-                                     float* im_out, int threads, int smem_bytes, void* stream) {
-  const cudaError_t err = vqc::allow_smem(vqc::state_dmem_kernel, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  vqc::state_dmem_kernel<<<n_circuits, threads, smem_bytes,
-                           static_cast<cudaStream_t>(stream)>>>(
-      theta, data, n_theta, n_data, ops, consts, n_ops, n_qubits, re_out, im_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,8 +32,11 @@ to the other or to the plain version:
     pair against 2·(BH + 2·BH/g)·S·hd bytes); every pointer must be 16-byte
     aligned;
   * float32 -> ``csrc/flash_attn.cu`` ``flash_fwd_kernel``: float32 FMAs in
-    the CUDA cores (no tensor-core type holds the float32 tolerance), bound
-    by its shared-memory loads.
+    the CUDA cores (no tensor-core type holds the float32 tolerance), 4 x 4
+    register micro-tiles of scores from float4 fragments, the head dim of
+    the accumulator split over a half warp, K and V tiles staged by
+    ``cp.async`` while the other half of a tile's work runs; bound by the
+    float32 rate and, below it, by its shared-memory loads.
 Both skip kv tiles that the mask hides from a whole block (their terms are
 exactly 0, so the function is the same).  ``_flash_plain`` is the same
 computation in PyTorch, 64-row by 64-key tiles in the reference's order
@@ -181,6 +184,8 @@ def _flash_cuda(q, k, v, causal: bool, window: int, groups: int) -> torch.Tensor
     route = ROUTES[q.dtype]
     if route == "flash_wgmma":
         check_tma_aligned(q, k, v, out)
+    else:  # cp.async copies 16 bytes: a view off that alignment is copied
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     dev = q.device
     launch, error = _lib(route)
     with torch.cuda.device(dev):

@@ -14,9 +14,10 @@ training path reaches:
     same evolution, writes the final (re, im) state.
   * ``vqc_fused.cu`` ``fidelity_dmem_kernel`` and ``state_dmem_kernel``
     are the same two functions' device-memory route, for rows of 15 or
-    more qubits, whose state no block's shared memory holds: one block per
-    circuit, the state in device memory (``_fidelity_dmem_cuda``,
-    ``_state_dmem_cuda``).
+    more qubits, whose state no block's shared memory holds: the state in
+    device memory, the op table in passes over 64 KB chunks of it
+    (``dmem_plan``), one thread-block cluster per circuit
+    (``_fidelity_dmem_cuda``, ``_state_dmem_cuda``).
   * ``vqc_shiftbank.cu`` ``shiftbank_kernel`` replaces ``_shiftbank_kernel``
     (the single-sweep branch of ``vqc_shift_fidelity``): prefix reuse on
     the two m-qubit registers of the SWAP-test product structure.
@@ -121,11 +122,20 @@ SPILL_LAUNCH_WARPS = 4
 #: at 19q-3l (0.987 / 0.578).
 SWEEP_MIN_WARPS = 4
 
-#: threads a block of the device-memory route (one block per circuit).
-#: Timed on an H100 (PERF.md), 1-layer QuClassi, P0: 1,024 against 512 took
-#: 0.74 / 1.66 ms at 15q (C = 256), 7.87 / 7.72 ms at 17q (C = 256) and
-#: 10.6 / 15.1 ms at 19q (C = 64); 256 was slower everywhere.
-DMEM_THREADS = 1024
+#: threads a block of the device-memory route (``dmem_geometry``: a
+#: cluster of blocks per circuit, each block taking its share of a pass's
+#: chunks).  The kernels are bounded at 1,024 threads (at most 64 registers
+#: a thread), so 512 fits two blocks an SM.
+DMEM_THREADS = 512
+#: local qubits of a device-memory chunk (``dmem_plan``): 2**13 (re, im)
+#: float32 amplitudes, 64 KB of a block's shared memory.
+DMEM_LOCAL_QUBITS = 13
+#: lowest-order qubits every pass keeps local: 2**3 float32 amplitudes are
+#: one 32-byte sector, so a chunk's loads and stores cover whole sectors.
+DMEM_SECTOR_QUBITS = 3
+#: the largest thread-block cluster of the device-memory route (the
+#: portable cluster size on Hopper).
+DMEM_MAX_CLUSTER = 8
 #: device memory the fidelity kernel's device-memory route holds for its
 #: circuits' states at once: a batch runs in chunks of at most this many
 #: bytes of states (a chunk of one circuit where one state is larger).
@@ -441,14 +451,11 @@ def _declare(name: str, lib):
             [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, vp]
         )
         lib.vqc_state_launch.restype = i32
-        lib.vqc_fidelity_dmem_launch.argtypes = (
-            [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, vp]
+        lib.vqc_dmem_launch.argtypes = (
+            [i32, vp, vp, i32, i32, i32, vp, vp, i32, vp, i32, i32, i32, vp, vp,
+             ctypes.c_longlong, vp, i32, i32, i32, vp]
         )
-        lib.vqc_fidelity_dmem_launch.restype = i32
-        lib.vqc_state_dmem_launch.argtypes = (
-            [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, vp]
-        )
-        lib.vqc_state_dmem_launch.restype = i32
+        lib.vqc_dmem_launch.restype = i32
     elif name == "vqc_shiftbank":
         lib.vqc_shiftbank_launch.argtypes = (
             [vp, vp, i32, i32, i32, vp, vp, i32, i32, i32, i32, i32, i32, vp, i32, i32, vp]
@@ -565,6 +572,196 @@ def _state_cuda(spec: CircuitSpec, theta, data):
 
 
 # ------------------------------------ kernels 1 and 2: device-memory route
+# From 15 qubits no block holds a circuit's state: it lives in device memory
+# and the op table runs in passes (``dmem_plan``).  A pass's gates act on at
+# most k local qubits, so the state splits into 2**(n - k) chunks of 2**k
+# amplitudes (the local bits vary, the others are fixed); a block loads a
+# chunk into shared memory, applies the pass's gates one after another with
+# the per-gate arithmetic (``strided_apply``, as the warp kernels), and
+# stores it back.  Amplitudes that no earlier pass had local are still 0:
+# the first pass makes |0...0> in shared memory, and no pass reads such an
+# amplitude or touches a chunk made only of them (the zero masks of
+# ``_dmem_tables``).  ``_dmem_plain`` runs the same tables on the CPU.
+
+
+@dataclasses.dataclass(frozen=True)
+class DmemPass:
+    """Ops [lo, hi) of the op table on the local qubits ``qubits``
+    (ascending)."""
+
+    lo: int
+    hi: int
+    qubits: tuple[int, ...]
+
+
+#: qubits an op-table row acts on, by gate code (H, CSWAP, RX, RY, RZ, RYY,
+#: RZZ, CRY, CRZ)
+_ARITY = (1, 3, 1, 1, 1, 2, 2, 2, 2)
+
+
+def dmem_plan(spec: CircuitSpec, k: int = DMEM_LOCAL_QUBITS) -> tuple[DmemPass, ...]:
+    """The op table cut, in program order, into passes of at most k local
+    qubits (k capped at n): a pass takes ops while their qubits and the
+    DMEM_SECTOR_QUBITS lowest-order qubits fit k, then is padded to k with
+    the lowest-order qubits it lacks, so a chunk's loads and stores cover
+    whole 32-byte sectors.  At 17q-1l and k = 13: 3 passes (42 ops), where
+    the per-gate scheme made 42."""
+    n = spec.n_qubits
+    k = min(k, n)
+    if k < n and k < DMEM_SECTOR_QUBITS + 3:
+        raise ValueError(f"k = {k}: a pass needs room for {DMEM_SECTOR_QUBITS} sector "
+                         "qubits and a three-qubit gate")
+    low = set(range(n - min(DMEM_SECTOR_QUBITS, k), n))
+
+    def padded(qs: set) -> tuple[int, ...]:
+        for q in range(n - 1, -1, -1):
+            if len(qs) == k:
+                break
+            qs.add(q)
+        return tuple(sorted(qs))
+
+    passes, lo, held = [], 0, set(low)
+    for i, op in enumerate(spec.ops):
+        need = held | set(op.qubits)
+        if len(need) > k:
+            passes.append(DmemPass(lo, i, padded(held)))
+            lo, need = i, low | set(op.qubits)
+        held = need
+    passes.append(DmemPass(lo, len(spec.ops), padded(held)))
+    return tuple(passes)
+
+
+def _halves(x: int) -> tuple[int, int]:
+    return x & 0xFFFFFFFF, x >> 32
+
+
+def _mask(row, at: int) -> int:
+    """A 64-bit mask from its (low, high) 32-bit halves at ``row[at:at + 2]``."""
+    return (int(row[at]) & 0xFFFFFFFF) | (int(row[at + 1]) & 0xFFFFFFFF) << 32
+
+
+@functools.lru_cache(maxsize=None)
+def _dmem_tables(spec: CircuitSpec, k: int = DMEM_LOCAL_QUBITS):
+    """The device-memory kernels' tables: (pass rows (P, 6) int32 of op lo,
+    op hi, local mask and zero mask, each mask as its (low, high) 32-bit
+    halves; the op table with each op's qubits replaced by their rank among
+    its pass's local qubits, as a kernel applies it to a chunk; the constant
+    angles).  Masks are over amplitude-index bits (qubit q is bit n - 1 -
+    q).  A pass's zero mask holds the bits no earlier pass had local (every
+    bit for the first): an amplitude with one of them set is still 0."""
+    n = spec.n_qubits
+    ints, consts = _spec_table(spec)
+    local_ops = ints.copy()
+    rows, reached = [], 0
+    for p in dmem_plan(spec, k):
+        rank = {q: i for i, q in enumerate(p.qubits)}
+        for r in range(p.lo, p.hi):
+            a = _ARITY[int(ints[r, 0])]
+            local_ops[r, 1:1 + a] = [rank[int(q)] for q in ints[r, 1:1 + a]]
+        local = sum(1 << (n - 1 - q) for q in p.qubits)
+        rows.append([p.lo, p.hi, *_halves(local), *_halves(((1 << n) - 1) & ~reached)])
+        reached |= local
+    table = np.array(rows, np.int64).astype(np.uint32).view(np.int32).reshape(-1, 6)
+    return table, local_ops, consts
+
+
+def _chunk_offsets(n: int, local: int) -> np.ndarray:
+    """Amplitude index of each local index 0 .. 2**k - 1 of a chunk with
+    its fixed bits at 0: local bit j is the j-th lowest bit of ``local``."""
+    bits = [b for b in range(n) if local >> b & 1]
+    lidx = np.arange(1 << len(bits), dtype=np.int64)
+    out = np.zeros_like(lidx)
+    for j, b in enumerate(bits):
+        out |= (lidx >> j & 1) << b
+    return out
+
+
+def _chunk_bases(n: int, local: int) -> np.ndarray:
+    """The fixed bits of each chunk, in chunk order: chunk ch's bit j is
+    the j-th lowest bit outside ``local``."""
+    return _chunk_offsets(n, ((1 << n) - 1) & ~local)
+
+
+def _dmem_chunks(spec: CircuitSpec, k: int, want_state: bool):
+    """Per pass: (pass row, chunk bases, chunk offsets, live chunks, last),
+    where a live chunk is one the kernel loads and computes: not under the
+    zero mask and, in the fidelity's last pass, with the ancilla (the most
+    significant bit) at 0 (the ancilla-1 half adds nothing to P(0))."""
+    n = spec.n_qubits
+    rows = _dmem_tables(spec, k)[0]
+    for p, row in enumerate(rows):
+        local, zero = _mask(row, 2), _mask(row, 4)
+        bases, offs = _chunk_bases(n, local), _chunk_offsets(n, local)
+        last = p == len(rows) - 1
+        live = (bases & zero) == 0
+        if last and not want_state:
+            live &= (bases >> (n - 1) & 1) == 0
+        yield row, bases, offs, live, last
+
+
+def dmem_traffic_bytes(spec: CircuitSpec, want_state: bool,
+                       k: int = DMEM_LOCAL_QUBITS) -> tuple[int, int]:
+    """(passes, bytes of state one circuit moves through device memory on
+    the device-memory route): each live chunk's loads (none in the first
+    pass, none under the zero mask) and stores (none in the fidelity's last
+    pass, which stores and reads one partial sum a chunk instead); the
+    state's last pass also writes the zeros of the chunks it skips."""
+    n_pass, total = 0, 0
+    for row, _, offs, live, last in _dmem_chunks(spec, k, want_state):
+        n_pass += 1
+        zero, n_live = _mask(row, 4), int(live.sum())
+        if n_pass > 1:
+            total += 8 * n_live * int(((offs & zero) == 0).sum())
+        if last and not want_state:
+            total += 8 * n_live
+        else:
+            total += 8 * (live.size if last else n_live) * offs.size
+    return n_pass, total
+
+
+def _dmem_plain(spec: CircuitSpec, theta, data, want_state: bool,
+                k: int = DMEM_LOCAL_QUBITS):
+    """The device-memory kernels' order in plain PyTorch, for the CPU tests:
+    the same tables, passes, chunks and zero masks, each pass's ops applied
+    to a chunk as a k-qubit state with ``_apply_one``'s arithmetic.  Its
+    state equals ``_fused_plain``'s (each amplitude meets the same gates in
+    the same order; a skipped chunk holds zeros); P0 sums in float64."""
+    n, c = spec.n_qubits, theta.shape[0]
+    _, local_ops, _ = _dmem_tables(spec, k)
+    # device memory: NaN where nothing was written, so a read of it shows
+    re = torch.full((2**n, c), float("nan"), dtype=torch.float32)
+    im = torch.full((2**n, c), float("nan"), dtype=torch.float32)
+    p0 = torch.zeros(c, dtype=torch.float64)
+    th, dt = theta.T, data.T
+    for p, (row, bases, offs, live, last) in enumerate(_dmem_chunks(spec, k, want_state)):
+        zero, kk = _mask(row, 4), int(offs.size).bit_length() - 1
+        ops = [dataclasses.replace(
+            spec.ops[r], qubits=tuple(int(q) for q in local_ops[r, 1:1 + len(spec.ops[r].qubits)]))
+            for r in range(row[0], row[1])]
+        keep = torch.from_numpy((offs & zero) == 0)[:, None]
+        for base, is_live in zip(bases, live):
+            idx = torch.from_numpy(base | offs)
+            if not is_live:
+                if last and want_state:
+                    re[idx], im[idx] = 0.0, 0.0
+                continue
+            if p == 0:
+                cre, cim = _zero_tile(offs.size, c, theta.device)
+            else:
+                cre = torch.where(keep, re[idx], 0.0)
+                cim = torch.where(keep, im[idx], 0.0)
+            for op in ops:
+                cre, cim = _apply_one(op, cre, cim, kk, th, dt)
+            if last and not want_state:
+                anc0 = torch.from_numpy(((base | offs) >> (n - 1) & 1) == 0)
+                p0 += (cre[anc0].double() ** 2 + cim[anc0].double() ** 2).sum(0)
+            else:
+                re[idx], im[idx] = cre, cim
+    if want_state:
+        return re.T.contiguous(), im.T.contiguous()
+    return p0.float()
+
+
 def dmem_max_qubits(device) -> int:
     """The widest circuit whose (re, im) float32 state fits the device
     memory of ``device``'s card: the device-memory route's limit."""
@@ -582,56 +779,91 @@ def _require_card(n: int, device) -> None:
         )
 
 
-def _dmem_smem(spec: CircuitSpec) -> int:
-    """Shared memory of a device-memory block: every op's cos and sin, and
-    one partial sum a warp for the P(0) reduction."""
-    return 4 * (2 * len(spec.ops) + DMEM_THREADS // 32)
+def _dmem_smem(spec: CircuitSpec, k: int = DMEM_LOCAL_QUBITS) -> int:
+    """Shared memory of a device-memory block: a chunk's (re, im), every
+    op's cos and sin (rounded up to 8 bytes), the chunk's two deposit
+    tables (256 + 64 amplitude offsets of 8 bytes) and one partial sum a
+    warp."""
+    kk = min(k, spec.n_qubits)
+    return 8 * 2**kk + 8 * len(spec.ops) + 8 * (256 + 64) + 4 * 32
+
+
+def dmem_geometry(spec: CircuitSpec, c: int, sm_count: int,
+                  k: int = DMEM_LOCAL_QUBITS) -> tuple[int, int]:
+    """(blocks a circuit, shared-memory bytes) of a device-memory launch of
+    ``c`` circuits: one thread-block cluster a circuit, its blocks taking a
+    pass's chunks in turn, of the largest power of two up to
+    DMEM_MAX_CLUSTER and to the chunks of a pass whose ``c`` clusters the
+    card holds at once (``1024 // DMEM_THREADS`` blocks an SM, the
+    kernels' register bound).  One block a circuit once the batch fills the
+    card (C = 256 at 17 qubits); P(0) and the state do not depend on it."""
+    per_sm = max(1, 1024 // DMEM_THREADS)
+    chunks = 2 ** (spec.n_qubits - min(k, spec.n_qubits))
+    cs = 1
+    while (2 * cs <= min(DMEM_MAX_CLUSTER, chunks)
+           and max(c, 1) * 2 * cs <= sm_count * per_sm):
+        cs *= 2
+    return cs, _dmem_smem(spec, k)
+
+
+def _dmem_launch(spec: CircuitSpec, theta, data, want_state: bool, re, im, stride, p0):
+    """One launch of ``fidelity_dmem_kernel`` or ``state_dmem_kernel`` over
+    the rows of ``theta``: circuit c's state at re + c * stride (and im),
+    its P(0) (fidelity) into p0[c].  The kernels move four amplitudes at a
+    time, so a circuit needs 3 qubits at least (the route takes 15 and
+    more)."""
+    if spec.n_qubits < DMEM_SECTOR_QUBITS:
+        raise NotImplementedError(f"the device-memory route needs {DMEM_SECTOR_QUBITS} "
+                                  f"qubits or more, got {spec.n_qubits}")
+    dev, c, k = theta.device, theta.shape[0], DMEM_LOCAL_QUBITS
+    rows, local_ops, consts = _dmem_tables(spec, k)
+    passes, ops_i, ops_f = _on_device(("dmem", spec, k), (rows, local_ops, consts), dev)
+    cs, smem = dmem_geometry(spec, c, _sm_count(dev), k)
+    lib = _lib("vqc_fused")
+    with torch.cuda.device(dev):
+        rc = lib.vqc_dmem_launch(
+            int(want_state), _ptr(theta), _ptr(data), c, theta.shape[1], data.shape[1], _ptr(ops_i), _ptr(ops_f),
+            len(spec.ops), _ptr(passes), len(rows), spec.n_qubits, min(k, spec.n_qubits),
+            _ptr(re), _ptr(im),
+            stride, _ptr(p0), cs, DMEM_THREADS, smem, _stream(dev),
+        )
+    _check_launch(lib, rc, f"device-memory {'state' if want_state else 'fidelity'}")
+    _count("state_dmem" if want_state else "fidelity_dmem")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _fidelity_dmem_cuda(spec: CircuitSpec, theta, data):
-    """Launch ``fidelity_dmem_kernel`` (one block per circuit, its state in
-    a device-memory workspace) over the batch in chunks whose states take at
-    most DMEM_WORKSPACE_BYTES (one circuit a chunk where one state is
-    larger): -> P0 (C,)."""
+    """Launch ``fidelity_dmem_kernel`` (a cluster of blocks per circuit,
+    its state in a device-memory workspace) over the batch in chunks whose
+    states take at most DMEM_WORKSPACE_BYTES (one circuit a chunk where one
+    state is larger): -> P0 (C,)."""
     c, n, dev = theta.shape[0], spec.n_qubits, theta.device
     _require_card(n, dev)
-    ops_i, ops_f = _on_device(spec, _spec_table(spec), dev)
     p0 = torch.empty((c,), dtype=torch.float32, device=dev)
     if c:
         chunk = max(1, DMEM_WORKSPACE_BYTES // _state_bytes(n, 1))
         work = torch.empty((min(chunk, c), 2, 2**n), dtype=torch.float32, device=dev)
-        lib = _lib("vqc_fused")
         for c0 in range(0, c, chunk):
             k = min(chunk, c - c0)
-            with torch.cuda.device(dev):
-                rc = lib.vqc_fidelity_dmem_launch(
-                    _ptr(theta[c0:]), _ptr(data[c0:]), k, theta.shape[1], data.shape[1],
-                    _ptr(ops_i), _ptr(ops_f), len(spec.ops), n, _ptr(work), _ptr(p0[c0:]),
-                    DMEM_THREADS, _dmem_smem(spec), _stream(dev),
-                )
-            _check_launch(lib, rc, "device-memory fidelity")
-            _count("fidelity_dmem")
+            _dmem_launch(spec, theta[c0:c0 + k], data[c0:c0 + k], False, work[:, 0],
+                         work[:, 1], 2 * 2**n, p0[c0:])
     return p0
 
 
 def _state_dmem_cuda(spec: CircuitSpec, theta, data):
-    """Launch ``state_dmem_kernel``: one block per circuit, each evolving
-    its state in its own rows of the output (re, im), each (C, 2**n)."""
+    """Launch ``state_dmem_kernel``: a cluster of blocks per circuit, each
+    evolving its state in its own rows of the output (re, im), each
+    (C, 2**n)."""
     c, n, dev = theta.shape[0], spec.n_qubits, theta.device
     _require_card(n, dev)
-    ops_i, ops_f = _on_device(spec, _spec_table(spec), dev)
     re = torch.empty((c, 2**n), dtype=torch.float32, device=dev)
     im = torch.empty((c, 2**n), dtype=torch.float32, device=dev)
     if c:
-        lib = _lib("vqc_fused")
-        with torch.cuda.device(dev):
-            rc = lib.vqc_state_dmem_launch(
-                _ptr(theta), _ptr(data), c, theta.shape[1], data.shape[1],
-                _ptr(ops_i), _ptr(ops_f), len(spec.ops), n, _ptr(re), _ptr(im),
-                DMEM_THREADS, _dmem_smem(spec), _stream(dev),
-            )
-        _check_launch(lib, rc, "device-memory state")
-        _count("state_dmem")
+        _dmem_launch(spec, theta, data, True, re, im, 2**n, None)
     return re, im
 
 
@@ -639,10 +871,11 @@ def vqc_p0(spec: CircuitSpec, theta: torch.Tensor, data: torch.Tensor) -> torch.
     """Batched ancilla-P0 for a circuit bank. theta: (C,P), data: (C,D) -> (C,).
 
     On the card, circuits whose state fits a block's shared memory (up to 14
-    qubits, ``fused_geometry``) run one warp each; wider ones run one block
-    each with the state in device memory, at most DMEM_WORKSPACE_BYTES (1
-    GiB) of states at a time, up to the widest state the card holds
-    (``dmem_max_qubits``: 33 qubits on an 80 GB card)."""
+    qubits, ``fused_geometry``) run one warp each; wider ones run one
+    cluster of blocks each with the state in device memory (``dmem_plan``),
+    at most DMEM_WORKSPACE_BYTES (1 GiB) of states at a time, up to the
+    widest state the card holds (``dmem_max_qubits``: 33 qubits on an 80 GB
+    card)."""
     _spec_table(spec)  # rejects unsupported gates on every device
     theta, data, kind = _prepare(spec, theta, data)
     if kind == "cpu":

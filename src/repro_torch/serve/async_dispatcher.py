@@ -454,11 +454,13 @@ class AsyncDispatcher(Dispatcher):
                 continue
             break
         dt = self.clock() - t0
-        now = self.clock()
         # settle against the (possibly hedged) runner set: the first
         # successful runner claims the batch, the LAST failed runner with
-        # no winner owns migration/terminal failure.
+        # no winner owns migration/terminal failure.  The settle time is
+        # read under the lock a hedge decides and stamps under, so a
+        # ``hedged`` stage never follows its batch's earlier ``complete``.
         with self._cv:
+            now = self.clock()
             entry = self._runners.get(id(batch))
             if entry is not None:
                 entry["outstanding"] -= 1
@@ -541,13 +543,16 @@ class AsyncDispatcher(Dispatcher):
         """Hedged duplicate dispatch: an in-flight batch whose slot has
         exceeded ``hedge_k x`` its ServiceModel estimate is duplicated onto
         a free surviving worker; first result wins.  A runner whose thread
-        has not started yet is not hedged: the clock is read under the lock
-        its start is stamped under, so a ``hedged`` stage never precedes its
-        batch's ``kernel_start``."""
+        has not started yet is not hedged: the clock is read, and ``hedged``
+        stamped, under the lock its start is stamped and its winner's settle
+        time read under, so a ``hedged`` stage never precedes its batch's
+        ``kernel_start`` nor follows its ``complete``."""
         k = self.ft.hedge_k
         if k is None:
             return
         launches = []
+        tel = self.gateway.telemetry
+        tr = tel.trace
         with self._cv:
             now = self.clock()
             for entry in self._runners.values():
@@ -576,16 +581,14 @@ class AsyncDispatcher(Dispatcher):
                 self._in_flight += 1
                 self._charge(wid2, entry["est"])
                 self.fleet.on_dispatch(wid2)
+                if tr.enabled:
+                    tr.batch_stage(
+                        (m.seq for m in batch.members), "hedged", now, worker=wid2
+                    )
                 launches.append((batch, entry["wid"], wid2, entry["est"]))
-        tel = self.gateway.telemetry
-        tr = tel.trace
         for batch, straggler, wid2, est in launches:
             self.fleet.record_hedge(straggler)
             tel.on_worker_hedge(straggler)
-            if tr.enabled:
-                tr.batch_stage(
-                    (m.seq for m in batch.members), "hedged", now, worker=wid2
-                )
             self._pool.submit(self._run, batch, None, wid2, est, True)
 
     # ------------------------------------------------------------- control

@@ -271,6 +271,63 @@ def test_device_memory_route_chunks_its_workspace(cuda, monkeypatch):
     assert torch.equal(chunked, whole)
 
 
+@pytest.mark.parametrize("name", ["13q-3l", "14q-1l"])
+def test_device_memory_route_equals_warp_route(cuda, name):
+    """At widths both routes run, the device-memory kernels (one pass of a
+    single chunk at 13q-3l, two chunks a pass at 14q) give the warp
+    kernels' state bit for bit, and P(0) within 1e-6 (another summation
+    order)."""
+    if name == "13q-3l":
+        spec = circuits.build_quclassi_circuit(13, 3)
+    else:  # 13q-1l with one idle lowest-order qubit
+        spec = dataclasses.replace(circuits.build_quclassi_circuit(13, 1), n_qubits=14)
+    th, dt = _angles(spec, 40, cuda, seed=spec.n_qubits)
+    before = dict(K.LAUNCHES)
+    re, im = K._state_dmem_cuda(spec, th, dt)
+    p0 = K._fidelity_dmem_cuda(spec, th, dt)
+    assert K.LAUNCHES["state_dmem"] == before["state_dmem"] + 1
+    assert K.LAUNCHES["fidelity_dmem"] == before["fidelity_dmem"] + 1
+    wre, wim = K.vqc_state(spec, th, dt)
+    wp0 = K.vqc_p0(spec, th, dt)
+    assert K.LAUNCHES["state"] == before["state"] + 1
+    assert K.LAUNCHES["fidelity"] == before["fidelity"] + 1
+    assert torch.equal(re, wre) and torch.equal(im, wim)
+    torch.testing.assert_close(p0, wp0, rtol=0, atol=1e-6)
+
+
+def test_device_memory_route_19q(cuda):
+    """19q-1l (3 passes of 64 chunks, a cluster of 8 blocks a circuit at
+    C = 8) against the plain version."""
+    spec = circuits.build_quclassi_circuit(19, 1)
+    th, dt = _angles(spec, 8, cuda, seed=19)
+    assert K.dmem_geometry(spec, 8, torch.cuda.get_device_properties(cuda)
+                           .multi_processor_count)[0] == K.DMEM_MAX_CLUSTER
+    before = dict(K.LAUNCHES)
+    p0 = K.vqc_p0(spec, th, dt)
+    re, im = K.vqc_state(spec, th, dt)
+    assert K.LAUNCHES["fidelity_dmem"] == before["fidelity_dmem"] + 1
+    assert K.LAUNCHES["state_dmem"] == before["state_dmem"] + 1
+    torch.testing.assert_close(p0, K._fused_plain(spec, th, dt, False), rtol=0, atol=ATOL)
+    pre, pim = K._fused_plain(spec, th, dt, True)
+    torch.testing.assert_close(re, pre, rtol=0, atol=ATOL)
+    torch.testing.assert_close(im, pim, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("qc,c", [(15, 8), (17, 3)])
+def test_device_memory_bits_do_not_depend_on_the_cluster(cuda, qc, c, monkeypatch):
+    """P(0) and the state are the same bits with one block a circuit as
+    with a cluster of several (the chunks' partial sums are added in chunk
+    order by the circuit's first block)."""
+    spec = circuits.build_quclassi_circuit(qc, 1)
+    th, dt = _angles(spec, c, cuda, seed=qc + c)
+    p0, (re, im) = K.vqc_p0(spec, th, dt), K.vqc_state(spec, th, dt)
+    monkeypatch.setattr(K, "DMEM_MAX_CLUSTER", 1)
+    assert K.dmem_geometry(spec, c, 132)[0] == 1
+    assert torch.equal(K.vqc_p0(spec, th, dt), p0)
+    re1, im1 = K.vqc_state(spec, th, dt)
+    assert torch.equal(re1, re) and torch.equal(im1, im)
+
+
 def test_async_runtime_matches_sync_on_card(cuda):
     """The Fig-6 client mix through the sync and the async runtime (one
     CUDA stream per slot): bit-identical, and equal to direct launches."""
@@ -534,6 +591,47 @@ def test_flash_wgmma_pipeline_edges(cuda, bh, s, hd, groups, causal, window):
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=FLASH_ATOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("bh,s,hd,groups,causal,window", [
+    (6, 100, 192, 3, True, 48),      # hd 192: windows, ragged S
+    (6, 1000, 192, 3, True, 130),
+    (4, 333, 192, 1, False, 65),
+    (3, 577, 192, 1, True, 0),
+    (96, 257, 64, 48, True, 0),      # MQA: 48 query heads a kv head
+    (48, 200, 128, 48, True, 64),
+    (96, 130, 16, 48, False, 0),
+    (9, 130, 96, 3, False, 0),       # groups 3
+    (9, 1025, 32, 3, True, 1),       # a window of one key: the diagonal alone
+    (6, 1, 32, 3, True, 0),
+    (12, 2047, 64, 3, True, 0),
+    (4, 65, 128, 1, True, 63),
+    (4, 190, 96, 1, False, 100),
+])
+def test_flash_simt_tile_edges(cuda, bh, s, hd, groups, causal, window):
+    """The float32 route at S that no 64-row tile divides, at hd 192 with
+    windows, and with groups 1, 3 and 48, one launch each."""
+    q, k, v = _qkv(bh, s, hd, torch.float32, cuda, groups=groups, seed=s + hd + window)
+    before = dict(F.LAUNCHES)
+    got = F.flash_attention(q, k, v, causal=causal, window=window, groups=groups)
+    _assert_one_launch(before, torch.float32)
+    want = F._flash_plain(q, k, v, causal=causal, window=window, groups=groups)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=FLASH_ATOL[torch.float32])
+
+
+def test_flash_simt_copies_unaligned_views(cuda):
+    """cp.async copies 16 bytes: a view one element into its storage is
+    copied to an aligned tensor first and gives the aligned inputs' result."""
+    q, k, v = _qkv(3, 70, 64, torch.float32, cuda, groups=3)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16
+    before = dict(F.LAUNCHES)
+    got = F.flash_attention(shifted, k, v, groups=3)
+    _assert_one_launch(before, torch.float32)
+    assert torch.equal(got, F.flash_attention(q, k, v, groups=3))
 
 
 def test_flash_wgmma_rejects_unaligned_tensors(cuda):

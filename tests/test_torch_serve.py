@@ -309,6 +309,57 @@ def test_hedge_never_stamps_before_its_runner_starts():
     assert len(records) == 4 and tobs.validate_trace(records) == []
 
 
+def test_hedge_never_stamps_after_its_batch_completes():
+    """The primary's kernel returns at once and its settle-time clock read
+    stalls (0.3 s).  A hedge decided meanwhile (its kernel held 0.5 s) would
+    stamp ``hedged`` after the primary's ``complete`` of an earlier time.
+    The port reads the settle time, and stamps ``hedged``, under the lock
+    the hedge decides under, so the trace stays monotone; the futures are
+    the direct call's bits."""
+    from repro_torch import obs as tobs
+    from repro_torch.comanager.faults import FaultToleranceConfig
+
+    primary, reads = [], {}
+
+    def clock():
+        t = time.perf_counter()
+        me = threading.current_thread()
+        if me in reads:
+            reads[me] += 1
+            if reads[me] == 2:  # the settle time (the first read after the kernel is dt's)
+                time.sleep(0.3)
+        return t
+
+    def kernel(spec, theta, data):
+        me = threading.current_thread()
+        if not primary:
+            primary.append(me)
+        elif me is not primary[0]:
+            time.sleep(0.5)  # the hedge's runner
+        out = ops.vqc_fidelity(spec, theta, data)
+        if me is primary[0]:
+            reads[me] = 0
+        return out
+
+    spec = circuits.build_quclassi_circuit(5, 1)
+    rt = tserve.GatewayRuntime(workers=[TWorker("w1", 10), TWorker("w2", 10)], target=4,
+                               lanes=4, deadline=10.0, mode="async", clock=clock,
+                               kernel=kernel, fault_tolerance=FaultToleranceConfig(hedge_k=0.01),
+                               observability=tobs.ObservabilityConfig())
+    th, dt = (torch.from_numpy(a) for a in _angles(spec, 4, 7))
+    try:
+        futs = [rt.gateway.submit("a", spec, (th[i], dt[i]), clock()) for i in range(4)]
+        rt.dispatcher.kick()
+        got = torch.stack([f.result(timeout=10.0) for f in futs])
+        rt.dispatcher.drain()
+        records = rt.telemetry.trace.buffer.records(tobs.CircuitTrace)
+    finally:
+        rt.close()
+    assert primary and reads[primary[0]] >= 2
+    assert torch.equal(got, ops.vqc_fidelity(spec, th, dt))
+    assert len(records) == 4 and tobs.validate_trace(records) == []
+
+
 def test_futures_and_service_model_match():
     for mod in (jserve, tserve):
         g = mod.Gateway(target=4, lanes=4, deadline=100.0)
