@@ -200,6 +200,32 @@ Phases, in order; any failure exits non-zero before the result line:
                the attempts the faulted worker ran before its first refusal
                and each part's async idle share are logged; counts are
                zeroed before each part and read after.
+ 13. examples — the ten example programs (``repro_torch.examples``), each
+               run in this process through ``main([..., "--device",
+               "cuda"])`` at the reference's default arguments, counts
+               zeroed just before each program and read just after (one
+               line each, with its wall time; a program that runs circuits
+               must launch the kernels ``EXAMPLES`` names), its output kept
+               in ``chiprun_out/examples/card/``; the comparison runs on the
+               CPU in ``chiprun_out/examples/cpu/``: (a)
+               ``multitenant_serving``, ``scale_storm``, ``trace_demo``
+               (the virtual clock): output equal to the CPU run's, and
+               ``trace_demo.json`` byte for byte; (b) ``quickstart``:
+               fidelities within 1e-5 of the CPU run's on the same seeded
+               angles, the shift-vs-autodiff gap <= 1e-4; (c)
+               ``failure_injection``: the scenes' own bit-identity asserts,
+               and every failure the fleet records one the injector raised;
+               (d) ``gateway_serving``: gateway gradients within 1e-5 of
+               local ones; (e) ``cluster_api``: the five backend families
+               within 1e-5 of ``batched``, the session gradient equal to the
+               legacy one bit for bit; (f) ``distributed_training``, 12
+               epochs: the co-Manager's spread equal to the CPU run's and the
+               first epoch's loss within 1e-4 of one CPU epoch's, the final
+               accuracy logged; (g) ``federated_dql``: scene 1's accuracy by
+               round equal to the CPU run's, scenes 2-3's output equal; (h)
+               ``transformer_train``, 200 steps at full width (the program
+               asserts that the loss falls): the checkpoint round trip bit
+               for bit, tokens/s logged.
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Needs CUDA; without it, or without the
 repository around it, it exits non-zero and prints no result.
@@ -2432,6 +2458,172 @@ def cluster_phase(dev, card: str) -> dict:
     return counts
 
 
+#: phase 13: the example programs (``repro_torch.examples``), in the order
+#: they run, each with the kernels it must launch on the card (federated_dql
+#: trains by exact autodiff through the dense simulator, transformer_train
+#: through naive attention, and the rest run on the virtual clock)
+EXAMPLES = {"multitenant_serving": (), "scale_storm": (), "trace_demo": (),
+            "quickstart": ("fidelity",), "failure_injection": ("fidelity",),
+            "gateway_serving": ("fidelity",), "cluster_api": ("fidelity", "shiftbank"),
+            "distributed_training": ("fidelity",), "federated_dql": (),
+            "transformer_train": ()}
+#: phase 13: distributed_training's first-epoch loss, card against CPU
+EXAMPLE_LOSS_TOL = 1e-4
+
+
+def examples_phase(dev, card: str) -> dict:
+    """Phase 13: the ten example programs, each run in this process through
+    ``main([..., "--device", "cuda"])`` at the reference's default arguments
+    (its standard output kept in ``chiprun_out/examples/``, its working
+    directory there too), counts zeroed just before and read just after;
+    the gates compare with the same program on the CPU.  Returns the
+    counts' sum."""
+    import contextlib
+    import importlib
+    import io
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import vqc_statevector as K
+    from repro_torch.serve.fleet import FaultInjector, InjectedWorkerFault
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out" / "examples"
+    counts, read = launch_reader(K, card)
+
+    def run(name: str, where: str, *argv: str):
+        """-> (result, standard output) of one program's ``main`` on the card
+        (``where="card"``: ``dev``) or on the CPU."""
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        work = out_dir / where
+        work.mkdir(parents=True, exist_ok=True)
+        zero_counts(K)
+        zero_flash_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.chdir(work), contextlib.redirect_stdout(buf):
+            out = mod.main([*argv, "--device", dev.type if where == "card" else "cpu"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        text = buf.getvalue()
+        (work / f"{name}.txt").write_text(text)
+        if where == "card":
+            if FA.LAUNCHES["flash"]:
+                raise AssertionError(f"examples {name}: {FA.LAUNCHES['flash']} flash launches")
+            read(f"{' '.join(('examples', name, *argv))} ({seconds:.2f} s wall)", EXAMPLES[name])
+        else:
+            log(f"  {' '.join(('examples', name, *argv))} on the CPU: {seconds:.2f} s wall")
+        return out, text
+
+    def same_lines(name: str, got: str, want: str) -> None:
+        if got.splitlines() != want.splitlines():
+            raise AssertionError(f"examples {name}: the card's output differs from the CPU's "
+                                 f"(chiprun_out/examples/{{card,cpu}}/{name}.txt)")
+
+    # (a) the virtual clock: the same lines as on the CPU
+    for name in ("multitenant_serving", "scale_storm", "trace_demo"):
+        same_lines(name, run(name, "card")[1], run(name, "cpu")[1])
+    json_cuda, json_cpu = (out_dir / d / "trace_demo.json" for d in ("card", "cpu"))
+    if json_cuda.read_bytes() != json_cpu.read_bytes():
+        raise AssertionError("examples trace_demo: trace_demo.json differs from the CPU's")
+    log(f"examples (a): virtual-clock output equal to the CPU's [{card}]")
+
+    # (b) quickstart: the same theta (a seeded generator) on both devices
+    q, _ = run("quickstart", "card")
+    q_cpu, _ = run("quickstart", "cpu")
+    err = float((q["fidelities"].cpu() - q_cpu["fidelities"]).abs().max())
+    log(f"examples (b) quickstart: fidelities vs the CPU's max|diff| = {err:.3e}, "
+        f"shift-vs-autodiff gap {q['grad_gap']:.3e}, loss {q['loss_shift']:.6f} "
+        f"(CPU {q_cpu['loss_shift']:.6f}) [{card}]")
+    if err > TOL or q["grad_gap"] > 1e-4:
+        raise AssertionError(f"examples quickstart: fidelities {err:.3e}, gap {q['grad_gap']:.3e}")
+
+    # (c) failure_injection: the scenes' own bit-identity asserts; every
+    # failure the fleet records is one the injector raised
+    injectors = []
+
+    class CountingInjector(FaultInjector):
+        def __init__(self, failures):
+            super().__init__(failures)
+            self.refused = 0
+            injectors.append(self)
+
+        def check(self, worker_id, now):
+            try:
+                super().check(worker_id, now)
+            except InjectedWorkerFault:
+                with self._lock:
+                    self.refused += 1
+                raise
+
+    fi = importlib.import_module("repro_torch.examples.failure_injection")
+    fi.FaultInjector = CountingInjector
+    try:
+        f, _ = run("failure_injection", "card")
+    finally:
+        fi.FaultInjector = FaultInjector
+    for scene, inj in zip(("crash", "flaky"), injectors):
+        failures = sum(v["failures"] for v in f[scene]["fleet"].values())
+        if failures != inj.refused:
+            raise AssertionError(f"examples failure_injection {scene}: the fleet recorded "
+                                 f"{failures} failures, the injector refused {inj.refused}")
+    log(f"examples (c) failure_injection: crash {f['crash']['fleet']}, flaky "
+        f"{f['flaky']['fleet']}, refused {[inj.refused for inj in injectors]}, fleet after "
+        f"membership {f['membership']['fleet']}; bit-identical migration held [{card}]")
+
+    # (d) gateway_serving: gateway gradients against local ones
+    g, _ = run("gateway_serving", "card")
+    tr = g["training"]
+    errs = {k: float((tr["grads_gateway"][k] - tr["grads_local"][k]).abs().max())
+            for k in tr["grads_local"]}
+    log(f"examples (d) gateway_serving: batches {[n for _, n, _ in g['streaming']['batch_log']]}, "
+        f"gateway vs local gradients max|diff| {errs}, {tr['launches']} training launches "
+        f"[{card}]")
+    if max(errs.values()) > TOL:
+        raise AssertionError(f"examples gateway_serving: gradients {errs}")
+
+    # (e) cluster_api: five backend families against batched; the session
+    # gradient equal to the legacy one (the program asserts it)
+    c, _ = run("cluster_api", "card")
+    diffs = {kind: b["diff_vs_batched"] for kind, b in c["backends"].items()}
+    log(f"examples (e) cluster_api: backends vs batched {diffs}, session vs legacy gradient "
+        f"{c['training']['diff']}, implicit {c['training']['implicit_err']:.3e} [{card}]")
+    if len(diffs) != 5 or max(diffs.values()) > TOL or c["training"]["diff"] != 0.0:
+        raise AssertionError(f"examples cluster_api: {diffs}, {c['training']['diff']}")
+
+    # (f) distributed_training: 12 epochs on the card; its first epoch
+    # against one epoch on the CPU (the same seeds give the same batches)
+    d, _ = run("distributed_training", "card")
+    d_cpu, _ = run("distributed_training", "cpu", "--epochs", "1")
+    first, first_cpu = d["report"].epochs[0], d_cpu["report"].epochs[0]
+    log(f"examples (f) distributed_training: spread {d['spread']}, first-epoch loss "
+        f"{first.loss:.6f} (CPU {first_cpu.loss:.6f}), final test accuracy "
+        f"{d['report'].final_test_accuracy:.4f} after {len(d['report'].epochs)} epochs, "
+        f"{d['circuits']} circuits in {d['seconds']:.2f} s [{card}]")
+    if d["spread"] != d_cpu["spread"] or abs(first.loss - first_cpu.loss) > EXAMPLE_LOSS_TOL:
+        raise AssertionError(f"examples distributed_training: spread {d['spread']} vs "
+                             f"{d_cpu['spread']}, loss {first.loss} vs {first_cpu.loss}")
+
+    # (g) federated_dql: scene 1's accuracies as on the CPU; scenes 2-3 equal
+    fd, text = run("federated_dql", "card")
+    fd_cpu, text_cpu = run("federated_dql", "cpu")
+    acc, acc_cpu = fd["happy"].accuracy_by_round, fd_cpu["happy"].accuracy_by_round
+    log(f"examples (g) federated_dql: accuracy by round {acc} (CPU {acc_cpu}), update norms "
+        f"{[r.update_norm for r in fd['happy'].rounds]} [{card}]")
+    scene2 = "\n-- scene 2"
+    if acc != acc_cpu or text.split(scene2)[1] != text_cpu.split(scene2)[1]:
+        raise AssertionError("examples federated_dql: the card's rounds differ from the CPU's")
+
+    # (h) transformer_train: 200 steps (the program asserts the loss falls)
+    t, _ = run("transformer_train", "card", "--ckpt", str(out_dir / "transformer.npz"))
+    log(f"examples (h) transformer_train: {t['params'] / 1e6:.1f}M params, loss "
+        f"{t['losses'][0]:.4f} -> {t['losses'][-1]:.4f} over {len(t['losses'])} steps, "
+        f"{t['tokens_per_s']:.1f} tokens/s, checkpoint bit-equal {t['checkpoint_ok']} [{card}]")
+    if not t["checkpoint_ok"]:
+        raise AssertionError("examples transformer_train: the checkpoint round trip differs")
+    log(f"examples: phase 13 took {time.perf_counter() - t_phase:.2f} s wall")
+    return counts
+
+
 def quclassi13():
     """The spill slice: 13-qubit, 3-layer QuClassi (m = 6, P = 32) trained
     on 2 workers, the paper's segmentation on 8x8 images (9 patches).
@@ -3007,6 +3199,10 @@ def main() -> int:
 
     # ------------------------------------------------------------ 12. faults
     for key, n in fault_phase(dev, card, fig6_baseline).items():
+        launches[key] += n
+
+    # ---------------------------------------------------------- 13. examples
+    for key, n in examples_phase(dev, card).items():
         launches[key] += n
 
     kernels = [

@@ -1002,3 +1002,19 @@ def test_meta_model_allocates_nothing_on_card(cuda):
     model = transformer.Model(cfg_base.get("smollm-360m"), device="meta")
     assert transformer.param_count(model) == 409_007_040
     assert torch.cuda.memory_allocated() == before
+
+
+def test_quickstart_example_on_card_matches_cpu(cuda, capsys):
+    """``python -m repro_torch.examples.quickstart`` on the card: the same
+    seeded angles through the fidelity kernel as through its plain version
+    on the CPU."""
+    from repro_torch.examples import quickstart
+    before = K.LAUNCHES["fidelity"]
+    card = quickstart.main(["--device", "cuda"])
+    assert K.LAUNCHES["fidelity"] > before
+    cpu = quickstart.main(["--device", "cpu"])
+    assert card["fidelities"].device.type == "cuda"
+    torch.testing.assert_close(card["fidelities"].cpu(), cpu["fidelities"], rtol=0, atol=ATOL)
+    assert abs(card["loss_shift"] - cpu["loss_shift"]) <= ATOL
+    assert card["grad_gap"] <= 1e-4
+    assert capsys.readouterr().out.count("quickstart OK") == 2
