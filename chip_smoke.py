@@ -226,6 +226,26 @@ Phases, in order; any failure exits non-zero before the result line:
                ``transformer_train``, 200 steps at full width (the program
                asserts that the loss falls): the checkpoint round trip bit
                for bit, tokens/s logged.
+ 14. wide    — shift plans of m >= 13 on the shift walk's device-memory
+               route (``shift_dmem_kernel`` of vqc_shift_dmem.cu): (a) the
+               kernel against its plain version within 1e-5 at 27q-1l,
+               27q-3l, 29q-1l and 33q-1l (B = 100; whole banks and each
+               worker's groups of the 2-worker round robin) and 27q-3l at
+               B = 1,152 (a training step's samples), then timed there
+               beside its plain version, its operations bound and its
+               passes' traffic; (b) 21q-3l and 25q-1l forced onto it (a
+               64-byte budget) against the spill pair within 1e-6, the
+               bit-equal rows counted, both timed in turns; (c) one
+               Algorithm-1 step of 27-qubit, 3-layer QuClassi (batch 64, 9
+               patches, no dense layer) through the 2-worker implicit
+               executor: 3 timed steps (steps/s, launches, peak memory),
+               one profiled (idle share), the first bank against the plain
+               version, the loss and gradients against the same step on the
+               CPU within 1e-5 x the largest chain factor; (d) a 27q-1l
+               implicit bank of 64 samples through ``GatewayRuntime`` sync
+               and async on workers of 27 and 33 qubits: no mesh spill,
+               sync == async == ``ops.vqc_fidelity_shiftgroups`` bit for
+               bit.  Counts are zeroed before (c) and (d) and read after.
 The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Needs CUDA; without it, or without the
 repository around it, it exits non-zero and prints no result.
@@ -356,6 +376,7 @@ NO_SPILL_KERNELS = {"vqc_fused": ("fidelity_kernel", "state_kernel", "fidelity_d
                                   "state_dmem_kernel"),
                     "vqc_shiftbank": ("shiftbank_kernel",),
                     "vqc_spill": ("shift_forward_kernel", "shift_tile_kernel"),
+                    "vqc_shift_dmem": ("shift_dmem_kernel",),
                     "flash_attn": ("flash_fwd_kernel",),
                     "flash_attn_sm90": ("flash_wgmma_kernel",)}
 
@@ -2624,6 +2645,313 @@ def examples_phase(dev, card: str) -> dict:
     return counts
 
 
+#: phase 14: a training step's shift samples (2 classes x 9 patches x batch
+#: 64) and the widths of the shift walk's device-memory route
+WIDE_B = 1152
+#: phase 14's other sizes: samples of the checks in (a), of the forced
+#: plans in (b), images of the step in (c), samples of the served bank (d)
+WIDE_CHECK_B, WIDE_FORCED_B, WIDE_BATCH, WIDE_SERVE_B = 100, 576, 64, 64
+WIDE_SHAPES = (("27q-1l", 27, 1), ("27q-3l", 27, 3), ("29q-1l", 29, 1), ("33q-1l", 33, 1))
+#: a budget that holds no block of the shared-memory shift routes: it
+#: forces an m <= 12 plan onto the device-memory walk
+FORCE_DMEM_BUDGET = 64
+#: phase 14's rows are also held to their own size, row by row:
+#: |got - want| <= ROW_RTOL |want| + ROW_ATOL.  At m = 13-16 a row is a
+#: product of 13-16 factors in [0, 1], most of them far below TOL, which
+#: alone passes a kernel that is wrong on every row.
+ROW_RTOL, ROW_ATOL = 1e-4, 1e-10
+#: the 27q step's gradients within GRAD_RTOL of the largest CPU gradient:
+#: R2's chain-scaled tolerance lies far above the gradients themselves
+GRAD_RTOL = 1e-4
+#: phase 14(b)'s timing of the walk against the route an m <= 12 plan takes
+#: at 227 KB: QuClassi widths (m = 7-12), layers and batch sizes
+ROUTE_SWEEP_QC, ROUTE_SWEEP_LAYERS, ROUTE_SWEEP_B = (15, 17, 19, 21, 23, 25), (1, 3), (64, 576)
+
+
+def hold_rows(label: str, got, want, tol: float = TOL) -> float:
+    """Hold shift rows ``got`` against ``want``: within ``tol``, and row by
+    row within ROW_RTOL of the row's size (ROW_ATOL where it is ~0).  Logs
+    max|diff|, max|want| and the worst row's share of its relative limit;
+    raises where either limit fails (NaN fails both).  Returns max|diff|."""
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    diff, size = (got - want).abs(), want.abs()
+    err, share = float(diff.max()), float((diff / (ROW_ATOL + ROW_RTOL * size)).max())
+    log(f"  shift_dmem    {label:52s} max|diff| = {err:.3e} (limit {tol}), max|want| = "
+        f"{float(size.max()):.3e}, worst row at {share:.4f} of {ROW_RTOL} |want| + {ROW_ATOL}")
+    if not (err <= tol and share <= 1.0):
+        raise AssertionError(f"shift_dmem {label}: max|diff| {err} > {tol}, or a row off by "
+                             f"{share} x ({ROW_RTOL} |want| + {ROW_ATOL})")
+    return err
+
+
+def quclassi27():
+    """The wide slice: 27-qubit, 3-layer QuClassi (m = 13, P = 74) on 2
+    workers, the paper's segmentation on 8x8 images (9 patches), the
+    patches encoded without the dense layer (whose gradient both packages
+    take by autodiff through the dense simulator: 2**27 amplitudes a
+    sample).  Returns the config, the round-robin assignment and each
+    worker's groups."""
+    from repro_torch.comanager import dataplane
+    from repro_torch.core import quclassi, segmentation
+
+    cfg = quclassi.QuClassiConfig(
+        qc=27, n_layers=3,
+        seg=segmentation.SegmentationConfig(filter_width=4, stride=2, n_filters=4),
+        image_size=(8, 8), use_dense=False)
+    n_groups = 1 + 2 * cfg.n_theta
+    assign = dataplane.round_robin_assignment(n_groups, 2)
+    return cfg, assign, [tuple(g for g in range(n_groups) if assign[g] == w) for w in range(2)]
+
+
+def wide_shift_phase(dev, card: str) -> tuple[dict, float, dict]:
+    """Phase 14: shift plans of m >= 13 on the shift walk's device-memory
+    route (``shift_dmem_kernel``).  (a) the kernel against its plain version
+    at 27q-1l, 27q-3l, 29q-1l and 33q-1l (B = 100, whole banks and each
+    worker's groups of the 2-worker round robin) and 27q-3l at B = 1,152,
+    then timed there; (b) m <= 12 plans (21q-3l, 25q-1l) forced onto it
+    against the spill pair they take, and timed against the route each
+    plan of m = 7-12 takes at 227 KB (ROUTE_SWEEP_*); (c) one Algorithm-1 step of 27q-3l
+    QuClassi through the 2-worker implicit executor at batch 64: its first
+    bank against the plain version on the card, its loss and gradients
+    against the same step on the CPU; (d) a tenant's 27q-1l implicit bank
+    through ``GatewayRuntime`` sync and async on workers wide enough for
+    it.  Counts are zeroed just before (c) and (d) and read just after.
+    Returns those counts, the kernel's max |diff| to its plain version and
+    its record for the kernels line."""
+    from repro_torch.api.capabilities import declare
+    from repro_torch.comanager import dataplane
+    from repro_torch.comanager.worker import WorkerConfig
+    from repro_torch.core import circuits, fidelity, quclassi, shift_rule
+    from repro_torch.data.mnist import make_pair_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vqc_statevector as K
+    from repro_torch.serve import GatewayRuntime
+
+    t_phase = time.perf_counter()
+    counts, read = launch_reader(K, card)
+    rng = np.random.default_rng(14)
+    worst = [0.0]
+
+    def angles(spec, b):
+        th = rng.uniform(-np.pi, np.pi, (b, spec.n_theta))
+        dt = rng.uniform(0.0, np.pi, (b, spec.n_data))
+        return (torch.tensor(th, dtype=torch.float32, device=dev),
+                torch.tensor(dt, dtype=torch.float32, device=dev))
+
+    def check(label: str, got, want, tol: float = TOL, plain: bool = True) -> float:
+        err = hold_rows(label, got, want, tol)
+        if plain:
+            worst[0] = max(worst[0], err)
+        return err
+
+    # (a) the kernel against its plain version
+    log("wide (a): the shift walk's device-memory kernel against its plain version")
+    for label, qc, nl in WIDE_SHAPES:
+        spec = circuits.build_quclassi_circuit(qc, nl)
+        n_groups = 1 + 2 * spec.n_theta
+        assign = dataplane.round_robin_assignment(n_groups, 2)
+        sets = [tuple(range(n_groups))] + [
+            tuple(g for g in range(n_groups) if assign[g] == w) for w in range(2)]
+        for b in (WIDE_CHECK_B, WIDE_B) if label == "27q-3l" else (WIDE_CHECK_B,):
+            th, dt = angles(spec, b)
+            for gs in sets:
+                walk = K._shift_route(spec, False, gs, K.SMEM_BUDGET_BYTES)
+                if walk.route != "dmem":
+                    raise AssertionError(f"{label} G={len(gs)} takes {walk.route}, not dmem")
+                before = K.LAUNCHES["shift_dmem"]
+                got = K.vqc_shift_fidelity(spec, th, dt, groups=gs)
+                launched = K.LAUNCHES["shift_dmem"] - before
+                check(f"{label} B={b} G={len(gs)} m={walk.m}, {len(walk.passes)} passes, "
+                      f"{launched} launch(es)", got, K._shift_dmem_plain(walk, th, dt))
+            del th, dt
+
+    spec = circuits.build_quclassi_circuit(27, 3)
+    plan, gs = K.build_shift_plan(spec), tuple(range(1 + 2 * spec.n_theta))
+    walk = K._shift_route(spec, False, gs, K.SMEM_BUDGET_BYTES)
+    th, dt = angles(spec, WIDE_B)
+
+    def kern():
+        return K.vqc_shift_fidelity(spec, th, dt)
+
+    ms = time_ms(kern, iters=5, warmup=1)
+    dev_ms = device_ms(kern, "shift_dmem_kernel", iters=5)
+    plain_ms = time_ms(lambda: K._shift_dmem_plain(walk, th, dt), iters=2, warmup=1)
+    flops = WIDE_B * shift_flops(K, plan, gs, spec.n_theta)
+    nbytes = WIDE_B * (4 * (spec.n_theta + spec.n_data) + 4 * len(gs))
+    bound_ms, bound_by = bound(flops, nbytes)
+    traffic = WIDE_B * K.shift_dmem_traffic_bytes(walk)
+    _, smem, sample, per = K.shift_dmem_geometry(walk, WIDE_B)
+    record = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "passes": len(walk.passes), "pass_bytes": traffic,
+              "pass_bound_ms": traffic / PEAK_BYTES_PER_S * 1e3,
+              "shape": f"27q-3l B={WIDE_B}, G={len(gs)}"}
+    shown = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    log(f"  time shift_dmem 27q-3l B={WIDE_B}, G={len(gs)} ({len(walk.passes)} passes, "
+        f"{smem} B of shared memory a block, {sample} B of scratch a sample, {per} samples a "
+        f"launch): kernel {ms:.4f} ms (events; device time {shown}), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.6f} ms ({bound_by}; {flops} flops, {nbytes} bytes); the route's "
+        f"passes move {traffic} bytes: {record['pass_bound_ms']:.4f} ms at "
+        f"{PEAK_BYTES_PER_S / 1e12} TB/s [{card}]")
+    del th, dt
+
+    # (b) m <= 12 plans forced onto the route, against the spill pair
+    log(f"wide (b): m <= 12 plans forced onto the route (budget {FORCE_DMEM_BUDGET} B) "
+        f"against the route they take, B = {WIDE_FORCED_B}")
+    for label, qc, nl in (("21q-3l", 21, 3), ("25q-1l", 25, 1)):
+        spec = circuits.build_quclassi_circuit(qc, nl)
+        gs = tuple(range(1 + 2 * spec.n_theta))
+        taken = K._shift_route(spec, False, gs, K.SMEM_BUDGET_BYTES).route
+        if K._shift_route(spec, False, gs, FORCE_DMEM_BUDGET).route != "dmem" or taken != "pair":
+            raise AssertionError(f"{label}: not the spill pair at 227 KB, or not forced")
+        th, dt = angles(spec, WIDE_FORCED_B)
+
+        def pair(spec=spec, th=th, dt=dt):
+            return K.vqc_shift_fidelity(spec, th, dt)
+
+        def forced(spec=spec, th=th, dt=dt):
+            return K.vqc_shift_fidelity(spec, th, dt, smem_budget=FORCE_DMEM_BUDGET)
+
+        got, want = forced(), pair()
+        check(f"{label} forced vs spill pair", got, want, tol=1e-6, plain=False)
+        same = [r for r in range(got.shape[0]) if torch.equal(got[r], want[r])]
+        turns = [time_ms(pair, 5, 1), time_ms(forced, 5, 1), time_ms(forced, 5, 1),
+                 time_ms(pair, 5, 1)]
+        log(f"  {label}: rows {same} of {got.shape[0]} bit-equal (the states are the same "
+            f"bits; the inner products sum in another order); spill pair {turns[0]:.4f} / "
+            f"{turns[3]:.4f} ms, device-memory walk {turns[1]:.4f} / {turns[2]:.4f} ms "
+            f"[{card}]")
+        del th, dt
+    log(f"wide (b): the walk timed against the route each m <= 12 plan takes at 227 KB, "
+        f"QuClassi {ROUTE_SWEEP_QC} qubits x {ROUTE_SWEEP_LAYERS} layers, B = {ROUTE_SWEEP_B}")
+    for qc in ROUTE_SWEEP_QC:
+        for nl in ROUTE_SWEEP_LAYERS:
+            spec = circuits.build_quclassi_circuit(qc, nl)
+            taken = K._shift_route(spec, False, tuple(range(1 + 2 * spec.n_theta)),
+                                   K.SMEM_BUDGET_BYTES)
+            for b in ROUTE_SWEEP_B:
+                th, dt = angles(spec, b)
+
+                def chosen(spec=spec, th=th, dt=dt):
+                    return K.vqc_shift_fidelity(spec, th, dt)
+
+                def walked(spec=spec, th=th, dt=dt):
+                    return K.vqc_shift_fidelity(spec, th, dt, smem_budget=FORCE_DMEM_BUDGET)
+
+                check(f"{qc}q-{nl}l B={b} forced vs {taken.route}", walked(), chosen(),
+                      tol=1e-6, plain=False)
+                turns = [time_ms(chosen, 5, 1), time_ms(walked, 5, 1), time_ms(walked, 5, 1),
+                         time_ms(chosen, 5, 1)]
+                log(f"  route sweep {qc}q-{nl}l m={taken.m} B={b}: {taken.route} "
+                    f"{turns[0]:.4f} / {turns[3]:.4f} ms, walk {turns[1]:.4f} / "
+                    f"{turns[2]:.4f} ms, walk / {taken.route} "
+                    f"{(turns[1] + turns[2]) / (turns[0] + turns[3]):.3f} [{card}]")
+                del th, dt
+
+    # (c) one Algorithm-1 step of 27q-3l QuClassi on 2 workers, batch 64
+    cfg, assign, worker_groups = quclassi27()
+    n_groups = 1 + 2 * cfg.n_theta
+    run = dataplane.worker_batched_executor(cfg.spec, assign, 2)
+    x, y = make_pair_dataset(1, 5, n_per_class=WIDE_BATCH // 2, seed=0)
+    params = quclassi.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    xb, yb = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    first = []
+
+    def recording(*args):
+        out = run(*args)
+        if not first:
+            first.append((args[0], out.detach().clone()))
+        return out
+
+    executor = declare(recording, shiftbank=True)
+
+    def step():
+        return quclassi.grad_shift(cfg, params, xb, yb, executor=executor, implicit=True)
+
+    log(f"wide (c): one Algorithm-1 step of 27q-3l QuClassi without the dense layer "
+        f"(use_dense=False: its gradient is autodiff through the dense 2**27-amplitude "
+        f"simulator in both packages), m = 13, P = {cfg.n_theta}, batch {WIDE_BATCH}, "
+        f"{cfg.n_patches} patches, 2 workers, implicit banks")
+    step()  # warm-up: device tables, the first launches
+    first.clear()
+    torch.cuda.synchronize()
+    zero_counts(K)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    n_steps = 3
+    for _ in range(n_steps):
+        loss, grads, fids = step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    read(f"wide (c) {n_steps} steps", ("shift_dmem",))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"  {n_steps} steps in {wall:.4f} s = {n_steps / wall:.4f} steps/s without the dense "
+        f"layer, loss {float(loss):.6f}, peak memory {peak:.2f} GiB [{card}]")
+    wall_ms, kern, busy_ms = profile_window(step)
+    log(f"  profile: one step {wall_ms:.3f} ms host clock (profiled), device busy "
+        f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
+        f"{sum(e.count for e in kern)} kernel launches [{card}]")
+    log_top(kern, 4)
+    zero_counts(K)  # the profiled step is not counted
+    if not (math.isfinite(float(loss)) and torch.isfinite(grads["theta"]).all()):
+        raise AssertionError(f"27q step: loss {float(loss)} or gradients not finite")
+    bank, got = first[0]
+    plain = torch.empty((n_groups, bank.n_samples), dtype=torch.float32, device=dev)
+    for gs in worker_groups:
+        walk = K._shift_route(cfg.spec, False, gs, K.SMEM_BUDGET_BYTES)
+        plain[list(gs)] = torch.clamp(K._shift_dmem_plain(walk, bank.theta, bank.data), 0.0, 1.0)
+    check(f"27q-3l first bank B={bank.n_samples} vs the plain version", got, plain.reshape(-1))
+    cpu = torch.device("cpu")
+    closs, cgrads, cfids = quclassi.grad_shift(
+        cfg, {k: v.to(cpu) for k, v in params.items()}, torch.as_tensor(x), torch.as_tensor(y),
+        executor=dataplane.worker_batched_executor(cfg.spec, assign, 2), implicit=True)
+    onehot = torch.nn.functional.one_hot(torch.as_tensor(y).long(), cfg.n_classes).float()
+    chain = fidelity.bce_grad_wrt_fidelity(cfids, onehot)
+    tol = TOL * max(1.0, float(chain.abs().max()))
+    d_loss = abs(float(loss) - float(closs))
+    d_grad = float((grads["theta"].cpu() - cgrads["theta"]).abs().max())
+    g_max = float(cgrads["theta"].abs().max())
+    log(f"  card vs CPU step: |loss diff| {d_loss:.3e}, max|grad diff| {d_grad:.3e} "
+        f"(tolerance {tol:.3e}: 1e-5 x the largest chain factor; and {GRAD_RTOL} x max|grad| "
+        f"{g_max:.3e} = {GRAD_RTOL * g_max:.3e})")
+    hold_rows("27q-3l step fidelities card vs CPU", fids.cpu(), cfids)
+    if not (d_loss <= tol and d_grad <= tol and d_grad <= GRAD_RTOL * g_max):
+        raise AssertionError(f"27q step on the card differs from the CPU's: loss {d_loss}, "
+                             f"gradients {d_grad} (max|grad| {g_max})")
+
+    # (d) a tenant's 27q-1l implicit bank through the gateway, sync and async
+    spec = circuits.build_quclassi_circuit(27, 1)
+    th, dt = angles(spec, WIDE_SERVE_B)
+    bank = shift_rule.build_shift_bank(th[0], dt)
+    want = ops.vqc_fidelity_shiftgroups(spec, bank.theta, bank.data).reshape(-1)
+    workers = [WorkerConfig("w1", 27), WorkerConfig("w2", 33)]
+    log(f"wide (d): a 27q-1l implicit bank of {WIDE_SERVE_B} samples through GatewayRuntime, "
+        "workers of 27 and 33 qubits")
+    served = {}
+    for mode in ("sync", "async"):
+        rt = GatewayRuntime(workers, deadline=0.05, mode=mode)
+        try:
+            torch.cuda.synchronize()
+            zero_counts(K)
+            t0 = time.perf_counter()
+            served[mode] = rt.shift_executor(spec, "wide")(bank)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            read(f"wide (d) {mode}", ("shift_dmem",))
+        finally:
+            rt.close()
+        summ = rt.telemetry.summary()
+        if rt.telemetry.mesh_spills:
+            raise AssertionError(f"wide (d) {mode}: a batch went to the mesh")
+        log(f"  {mode}: {bank.n_groups} group subtasks in {seconds:.4f} s, {summ['batches']} "
+            f"batches, lane fill {summ['lane_fill']} [{card}]")
+    if not (torch.equal(served["sync"], served["async"]) and torch.equal(served["sync"], want)):
+        raise AssertionError("wide (d): sync, async and the direct call differ")
+    log("  sync == async == ops.vqc_fidelity_shiftgroups bit for bit")
+    log(f"wide: phase 14 took {time.perf_counter() - t_phase:.2f} s wall")
+    return counts, worst[0], record
+
+
 def quclassi13():
     """The spill slice: 13-qubit, 3-layer QuClassi (m = 6, P = 32) trained
     on 2 workers, the paper's segmentation on 8x8 images (9 patches).
@@ -2713,7 +3041,8 @@ def main() -> int:
                 torch.tensor(dt, dtype=torch.float32, device=dev))
 
     errs = {"fidelity": 0.0, "state": 0.0, "shiftbank": 0.0, "shift_forward": 0.0,
-            "shift_tile": 0.0, "fidelity_dmem": 0.0, "state_dmem": 0.0}  # against plain only
+            "shift_tile": 0.0, "fidelity_dmem": 0.0, "state_dmem": 0.0,
+            "shift_dmem": 0.0}  # against plain only
 
     def check(kernel: str, label: str, got, want, tol: float = TOL, plain: bool = True):
         torch.cuda.synchronize()
@@ -3205,6 +3534,11 @@ def main() -> int:
     for key, n in examples_phase(dev, card).items():
         launches[key] += n
 
+    # ------------------------------------------------- 14. wide shift plans
+    wide_counts, errs["shift_dmem"], records["shift_dmem"] = wide_shift_phase(dev, card)
+    for key, n in wide_counts.items():
+        launches[key] += n
+
     kernels = [
         {"name": "fidelity", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/vqc_fused.cu",
@@ -3221,6 +3555,11 @@ def main() -> int:
         {"name": "shift_tile", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/vqc_spill.cu",
          "replaces": "src/repro/kernels/vqc_statevector.py:848"},
+        # the spill pair's device-memory route (registers of 13+ qubits):
+        # one kernel for kernels 4 and 5, its own entry
+        {"name": "shift_dmem", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/vqc_shift_dmem.cu",
+         "replaces": "src/repro/kernels/vqc_statevector.py:822"},
         {"name": "flash", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:31"},

@@ -15,8 +15,9 @@
 //     seed of chi), the prefix state at each tile's first op (its
 //     boundary), and f0 to every row that takes it.  Shared memory per
 //     sample: the data and running states (the one-thread kernel it
-//     replaced needed 32 samples' and refused m >= 9; the pair now runs up
-//     to m = 12, where the tile kernel's four states of one sample fit).
+//     replaced needed 32 samples' and refused m >= 9; the pair runs up to
+//     m = 12, where the tile kernel's four states of one sample fit; wider
+//     registers take the device-memory walk of vqc_shift_dmem.cu).
 //   shift_tile_kernel (spill_tiling's tb), ONE launch for every tile,
 //     deepest first: load the tile's boundary into the running state,
 //     advance it through the tile re-deriving the tile's checkpoints, then

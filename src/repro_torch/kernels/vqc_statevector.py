@@ -5,7 +5,7 @@ gates): the parameter-shift circuit banks.  Each circuit is simulated whole
 inside one kernel, from |0...0> to the ancilla readout; up to 14 qubits
 the statevector never touches device memory.  Five CUDA kernels (``csrc/``) replace the
 five Pallas kernels of ``repro/kernels/vqc_statevector.py`` that the
-training path reaches:
+training path reaches, with device-memory routes beside three of them:
 
   * ``vqc_fused.cu`` ``fidelity_kernel`` replaces ``_fidelity_kernel``
     (launched from ``_grid_call``): evolve the full n-qubit state, write the
@@ -26,6 +26,11 @@ training path reaches:
     spilled branch): when the checkpoints do not fit one block's shared
     memory, the forward pass writes one boundary prefix state per depth
     tile to device memory and one backward launch sweeps every tile.
+  * ``vqc_shift_dmem.cu`` ``shift_dmem_kernel`` is the spilled branch's
+    device-memory route, for registers of 13 qubits and more, where not
+    one sample of the tile kernel fits a block: every state of the walk in
+    device memory, the walk in passes over 64 KB chunks of them
+    (``_shift_dmem_walk``), one block a sample (``_shift_dmem_cuda``).
 
 Design, shared by all five:
 
@@ -65,10 +70,11 @@ with the TPU tile policy (``LANES = 128``, ``kernel_tb``, a 14 MB VMEM
 budget) replaced by one Hopper memory model of 227 KB a block: each kernel
 takes its launch geometry from one function (``fused_geometry`` for the
 fidelity and state kernels, ``shift_geometry`` for the single sweep,
-``forward_geometry`` and ``spill_tiling`` for the spill pair), and
-``_shift_route`` picks single sweep or spill pair from those launches'
-blocks (``SWEEP_MIN_WARPS``); the kernel wrappers, ``shift_execution_info``
-and the launch observer all read them.
+``forward_geometry`` and ``spill_tiling`` for the spill pair,
+``shift_dmem_geometry`` for the shift walk's device-memory route), and
+``_shift_route`` picks single sweep, spill pair or device-memory walk from
+those launches' blocks (``SWEEP_MIN_WARPS``); the kernel wrappers,
+``shift_execution_info`` and the launch observer all read them.
 """
 from __future__ import annotations
 
@@ -146,10 +152,10 @@ DMEM_WORKSPACE_BYTES = 1 << 30
 
 #: kernel launches per wrapper; counted only where a CUDA kernel launches
 #: (``fidelity_dmem`` / ``state_dmem``: the device-memory route of the
-#: fidelity and state kernels).  The async dispatcher launches from several
+#: fidelity and state kernels; ``shift_dmem``: the shift walk's).  The async dispatcher launches from several
 #: threads, so every increment goes through ``_count`` under a lock.
 LAUNCHES = {"fidelity": 0, "state": 0, "shiftbank": 0, "shift_forward": 0, "shift_tile": 0,
-            "fidelity_dmem": 0, "state_dmem": 0}
+            "fidelity_dmem": 0, "state_dmem": 0, "shift_dmem": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -312,21 +318,28 @@ def _op_angle(op, theta_t, data_t, delta: float = 0.0):
     return ang + delta if delta else ang
 
 
-def _apply_one(op, re, im, n, theta_t, data_t, delta: float = 0.0, invert: bool = False):
-    """Apply one gate (optionally angle-shifted by ``delta`` or inverted).
-    ``theta_t`` / ``data_t`` are (P, TB) / (D, TB) angle blocks."""
+def _apply_cs(op, re, im, n, c, s):
+    """Apply one gate given the per-lane cos / sin of its half angle
+    (ignored by H and CSWAP, which are self-inverse)."""
     if op.gate == "h":
-        return _h(re, im, op.qubits[0], n)  # self-inverse
+        return _h(re, im, op.qubits[0], n)
     if op.gate == "cswap":
-        return _cswap(re, im, *op.qubits, n)  # self-inverse
-    ang = _op_angle(op, theta_t, data_t, delta)
-    if invert:  # rotation: g(t)^dagger = g(-t)
-        ang = -ang
-    c, s = torch.cos(ang / 2), torch.sin(ang / 2)
+        return _cswap(re, im, *op.qubits, n)
     if op.gate in ("rx", "ry", "rz"):
         return _rot1(re, im, op.qubits[0], n, c, s, op.gate)
     qa, qb = sorted(op.qubits)  # _op_row rejected descending cry/crz
     return _rot2(re, im, qa, qb, n, c, s, op.gate)
+
+
+def _apply_one(op, re, im, n, theta_t, data_t, delta: float = 0.0, invert: bool = False):
+    """Apply one gate (optionally angle-shifted by ``delta`` or inverted).
+    ``theta_t`` / ``data_t`` are (P, TB) / (D, TB) angle blocks."""
+    if op.gate in ("h", "cswap"):
+        return _apply_cs(op, re, im, n, None, None)
+    ang = _op_angle(op, theta_t, data_t, delta)
+    if invert:  # rotation: g(t)^dagger = g(-t)
+        ang = -ang
+    return _apply_cs(op, re, im, n, torch.cos(ang / 2), torch.sin(ang / 2))
 
 
 def _zero_tile(dim: int, tb: int, device):
@@ -342,6 +355,16 @@ def _rowsum(x):
     for a in range(1, x.shape[0]):
         acc = acc + x[a]
     return acc
+
+
+def _halving_sum(x):
+    """Sum over the amplitude rows of ``x`` (2**k, B) in float64 by halves,
+    rounded once: elementwise, so no lane depends on the batch."""
+    acc = x.double()
+    while acc.shape[0] > 1:
+        h = acc.shape[0] // 2
+        acc = acc[:h] + acc[h:]
+    return acc[0].float()
 
 
 def _inner_fidelity(chi, phi):
@@ -461,6 +484,13 @@ def _declare(name: str, lib):
             [vp, vp, i32, i32, i32, vp, vp, i32, i32, i32, i32, i32, i32, vp, i32, i32, vp]
         )
         lib.vqc_shiftbank_launch.restype = i32
+    elif name == "vqc_shift_dmem":
+        i64 = ctypes.c_longlong
+        lib.vqc_shift_dmem_launch.argtypes = (
+            [vp, vp, i32, i32, i32, vp, vp, i32, vp, vp, i32, vp, i32, vp, vp, i32, vp, i32,
+             i32, i32, vp, i64, vp, i64, i64, i32, i32, vp]
+        )
+        lib.vqc_shift_dmem_launch.restype = i32
     else:
         lib.vqc_shift_forward_launch.argtypes = (
             [vp, vp, i32, i32, i32, vp, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp, i32, i32, vp]
@@ -519,13 +549,9 @@ def _fused_plain(spec: CircuitSpec, theta, data, want_state: bool):
         return _rowsum(probs)
     # from 15 qubits (the device-memory route) one sequential float32 sum
     # over 2**14 or more amplitudes drifts by up to 1.6e-5, so sum in
-    # float64 by halves (elementwise, so no lane depends on the batch) and
-    # round once: the value the kernel's reduction is held to.
-    acc = probs.double()
-    while acc.shape[0] > 1:
-        h = acc.shape[0] // 2
-        acc = acc[:h] + acc[h:]
-    return acc[0].float()
+    # float64 by halves and round once: the value the kernel's reduction is
+    # held to.
+    return _halving_sum(probs)
 
 
 def _fidelity_cuda(spec: CircuitSpec, theta, data):
@@ -1248,12 +1274,14 @@ def _shift_route(
     spec: CircuitSpec, four_term: bool, groups: tuple[int, ...], smem_budget: int
 ) -> "_WalkTable":
     """How an implicit shift bank runs, as the table of the kernel(s) that
-    run it: the single sweep (no tiles) when a block of at least
-    SWEEP_MIN_WARPS samples holds its checkpoints, else the spill pair
-    where its tile launch fits, else the single sweep where one sample's
-    block fits.  Raises, naming the budget, when no block of either route
-    holds the plan.  A function of the plan and the budget alone (not of
-    the batch), so per-bank and multibank launches take the same route;
+    run it (``route``): the single sweep ("sweep", no tiles) when a block
+    of at least SWEEP_MIN_WARPS samples holds its checkpoints, else the
+    spill pair ("pair") where its tile launch fits, else the single sweep
+    where one sample's block fits, else the device-memory walk ("dmem",
+    ``_shift_dmem_walk``: from m = 13 at 227 KB, where one checkpoint and
+    the walk's three states take 256 KB), whose block stages one chunk
+    whatever the budget.  A function of the plan and the budget alone (not
+    of the batch), so per-bank and multibank launches take the same route;
     the wrapper, ``shift_execution_info`` and through it the launch
     observer all read this."""
     sweep = _walk_table(spec, four_term, groups, smem_budget, False)
@@ -1264,10 +1292,7 @@ def _shift_route(
         return spill
     if sweep.tb:
         return sweep
-    raise NotImplementedError(
-        f"not even one sample of this {sweep.m}-qubit register plan fits the "
-        f"{smem_budget}-byte shared-memory budget of one block of the shift kernels"
-    )
+    return _shift_dmem_walk(spec, four_term, groups)
 
 
 def shift_plan_fits(
@@ -1275,19 +1300,29 @@ def shift_plan_fits(
     four_term: bool = False,
     groups: tuple[int, ...] | None = None,
     smem_budget: int = SMEM_BUDGET_BYTES,
+    device=None,
 ) -> bool:
-    """True unless the bank's shift plan has no route: neither a block of
-    the single sweep nor one of the spill tile kernel holds one sample (a
-    register of m = 13 or more qubits at 227 KB, where one checkpoint and
-    the walk's three states take 256 KB).  ``_shift_route`` raises for
-    exactly these plans; the serving layer refuses them at admission."""
+    """True unless the bank's shift plan has no route.  Every plan whose
+    register holds DMEM_SECTOR_QUBITS qubits or more has one (from m = 13
+    the device-memory walk, whatever the shared-memory budget), so this is
+    False only where that route refuses: one sample's scratch beyond the
+    device memory of ``device``'s card (checked where a CUDA ``device`` is
+    given), or a register too narrow for it that no block of the
+    shared-memory routes holds.  The serving layer refuses exactly these
+    banks at admission."""
     if groups is None:
         groups = tuple(range(1 + (4 if four_term else 2) * spec.n_theta))
     groups = tuple(groups)
     if build_shift_plan(spec) is None or not use_shift_plan(spec, four_term):
         return True  # the materialized rows run on the fidelity kernel's routes
-    return bool(_walk_table(spec, four_term, groups, smem_budget, False).tb
-                or _walk_table(spec, four_term, groups, smem_budget, True).tb)
+    try:
+        tab = _shift_route(spec, four_term, groups, smem_budget)
+    except NotImplementedError:
+        return False
+    if tab.route != "dmem" or device is None or torch.device(device).type != "cuda":
+        return True
+    sample = shift_dmem_geometry(tab, 1)[2]
+    return sample <= torch.cuda.get_device_properties(device).total_memory
 
 
 def shift_execution_info(
@@ -1301,11 +1336,17 @@ def shift_execution_info(
     """Static execution-mode report: which path a shift bank takes, the
     block size its launch gets and the shared memory it asks for.  ``mode``
     is "materialize" (the fidelity kernel over the n_samples x G rows),
-    "fused" (single-sweep shift kernel) or "spill" (the spill pair: one
-    forward launch, then one tile launch over every depth tile, deepest
-    first; ``tb`` / ``smem_bytes`` are the tile launch's, ``forward_tb`` /
-    ``forward_smem_bytes`` the forward launch's).  ``tb`` counts circuits
-    (samples) per block, one warp each."""
+    "fused" (single-sweep shift kernel, ``route`` "sweep") or "spill", as
+    the reference reports every plan whose checkpoints do not fit one
+    block, with ``route`` "pair" (the spill pair: one forward launch, then
+    one tile launch over every depth tile, deepest first; ``tb`` /
+    ``smem_bytes`` are the tile launch's, ``forward_tb`` /
+    ``forward_smem_bytes`` the forward launch's) or "dmem" (the
+    device-memory walk, no depth tiles: ``launches`` of at most
+    ``samples_per_launch`` samples, one block of ``smem_bytes`` a sample,
+    ``scratch_bytes`` of device memory a launch, ``passes`` passes).
+    ``tb`` counts circuits (samples) per block, one warp each on the
+    shared-memory routes."""
     plan = build_shift_plan(spec)
     n_shifts = 4 if four_term else 2
     if groups is None:
@@ -1323,11 +1364,18 @@ def shift_execution_info(
         return {"mode": "materialize", "launches": 1, "n_tiles": 0, "tb": warps,
                 "smem_bytes": smem, **base}
     tab = _shift_route(spec, four_term, groups, smem_budget)
-    if not tab.tiles:
-        return {"mode": "fused", "launches": 1, "n_tiles": 0, "tb": tab.tb,
+    if tab.route == "sweep":
+        return {"mode": "fused", "route": "sweep", "launches": 1, "n_tiles": 0, "tb": tab.tb,
                 "smem_bytes": tab.smem_bytes, **base}
+    if tab.route == "dmem":
+        _, smem, sample, per = shift_dmem_geometry(tab, n_samples)
+        return {"mode": "spill", "route": "dmem", "launches": -(-max(n_samples, 1) // per),
+                "n_tiles": 0, "tiles": (), "tb": 1, "smem_bytes": smem,
+                "scratch_bytes": sample * per, "samples_per_launch": per,
+                "passes": len(tab.passes), **base}
     return {
         "mode": "spill",
+        "route": "pair",
         "launches": 2,
         "n_tiles": len(tab.tiles),
         "tiles": tab.tiles,
@@ -1428,6 +1476,10 @@ class _WalkTable:
     @property
     def n_tiles(self) -> int:
         return len(self.tiles)
+
+    @property
+    def route(self) -> str:
+        return "pair" if self.tiles else "sweep"
 
 
 def _variant_table(plan: ShiftPlan, variants, groups):
@@ -1687,6 +1739,285 @@ def _shift_spilled_cuda(tab: _WalkTable, theta, data):
     return _shift_tile_cuda(tab, theta, data, d_state, boundaries, out)
 
 
+# ------------------------- kernels 4 and 5 at m >= 13: the device-memory route
+#
+# From m = 13 (27-qubit QuClassi) no block holds one sample of either
+# shift-walk kernel: one checkpoint and the walk's three live states take
+# 256 KB.  The walk then keeps every state in device memory
+# (``vqc_shift_dmem.cu``, one block a sample): the host cuts it into a
+# program of passes (``_shift_dmem_walk``), each a run of gates over chunks
+# of at most DMEM_LOCAL_QUBITS local qubits, cut as ``dmem_plan`` cuts a
+# circuit; ``_shift_dmem_plain`` runs the same program on the CPU.
+
+#: scratch slots of a sample besides its checkpoints (slot 2 + i): chi
+#: (seeded with the data state) and the variant of a multi-pass replay.
+_DMEM_CHI, _DMEM_VARIANT, _DMEM_FIRST_CKPT = 0, 1, 2
+#: a pass row's output row that stands for every base-fidelity row
+_ALL_F0_ROWS = -2
+#: device memory the route's scratch takes at once: a batch whose samples
+#: need more runs in launches of fewer samples (1 GiB holds 212 samples of
+#: 27q-3l; 8 GiB all 1,152 of a training step).
+SHIFT_DMEM_WORKSPACE_BYTES = 8 << 30
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _DmemWalk:
+    """The shift walk as a program of device-memory passes.  ``passes``
+    rows are (source slot or -1 for |0...0>, destination slot or -1, output
+    row or -1 (``_ALL_F0_ROWS``: every base-fidelity row), first and end
+    index into the pass ops, local mask as its (low, high) 32-bit halves),
+    the mask over amplitude bits of the m-qubit register (qubit q is bit m
+    - 1 - q).  ``pass_ops`` are op-table rows with each qubit replaced by
+    its rank among the pass's local qubits (``local_ops`` the same as
+    ``Op``s, for the plain version), ``pass_refs`` 2 * (angle index) + 1
+    where the op is inverted.  The per-sample angle table holds the base
+    angle of each of ``ops`` (data ops, then train ops: ``base_ops`` /
+    ``base_consts``) and, after them, theta[var_param[v]] + var_shift[v]
+    for each variant v.  Compared by identity: ``_shift_dmem_walk`` caches
+    one per request, and the device copies are keyed on it."""
+
+    passes: np.ndarray
+    pass_ops: np.ndarray
+    pass_refs: np.ndarray
+    local_ops: tuple
+    base_ops: np.ndarray
+    base_consts: np.ndarray
+    ops: tuple
+    var_param: np.ndarray
+    var_shift: np.ndarray
+    f0_rows: np.ndarray
+    m: int
+    k: int
+    n_rows: int
+    n_slots: int
+
+    route = "dmem"
+    tiles = ()
+    tb = 1
+
+    @property
+    def n_angles(self) -> int:
+        return len(self.ops) + len(self.var_param)
+
+    @property
+    def max_pass_ops(self) -> int:
+        return int((self.passes[:, 4] - self.passes[:, 3]).max())
+
+    @property
+    def smem_bytes(self) -> int:
+        return shift_dmem_geometry(self, 1)[1]
+
+
+def shift_dmem_geometry(walk: _DmemWalk, n_samples: int) -> tuple[int, int, int, int]:
+    """(blocks a sample, shared-memory bytes a block, scratch bytes a
+    sample, samples a launch) of the shift walk's device-memory route: one
+    block of DMEM_THREADS a sample; its shared memory one chunk's (re, im),
+    the sample's angle table and a pass's cos / sin, the two deposit tables
+    (256 + 64 offsets of 8 bytes) and one partial sum a warp; its scratch
+    chi, the variant and the checkpoints; as many samples a launch as
+    SHIFT_DMEM_WORKSPACE_BYTES holds, at least one.  The only source of the route's geometry: the wrapper,
+    ``shift_execution_info`` and the serving layer's per-block memory model
+    read it."""
+    smem = (4 * (2 * 2**walk.k + 2 * walk.n_angles + 2 * walk.max_pass_ops)
+            + 8 * (256 + 64) + 4 * 32)
+    sample = walk.n_slots * _state_bytes(walk.m, 1)
+    return 1, smem, sample, max(1, min(max(n_samples, 1), SHIFT_DMEM_WORKSPACE_BYTES // sample))
+
+
+def _append_run(prog, ops, refs, m: int, k: int, src: int, dst: int, row: int) -> None:
+    """Append one run of gates (``ops`` in register qubits, ``refs`` their
+    angle references) from slot ``src`` to ``dst`` (and/or into output
+    ``row``) to ``prog`` = (passes, pass_ops, pass_refs, local_ops): cut by
+    ``dmem_plan`` into passes of at most k local qubits, the first reading
+    ``src``, the others the run's destination (the variant slot where the
+    run ends in an inner product only)."""
+    passes, pass_ops, pass_refs, local_ops = prog
+    mid = dst if dst >= 0 else _DMEM_VARIANT
+    cut = dmem_plan(CircuitSpec(m, tuple(ops), 0, 0), k)
+    for i, p in enumerate(cut):
+        last = i == len(cut) - 1
+        rank = {q: r for r, q in enumerate(p.qubits)}
+        lo = len(pass_ops)
+        for op, ref in zip(ops[p.lo:p.hi], refs[p.lo:p.hi]):
+            local = dataclasses.replace(op, qubits=tuple(rank[q] for q in op.qubits))
+            pass_ops.append(_op_row(local)[0])
+            pass_refs.append(ref)
+            local_ops.append(local)
+        mask = sum(1 << (m - 1 - q) for q in p.qubits)
+        passes.append([src if i == 0 else mid, dst if last else mid, row if last else -1,
+                       lo, len(pass_ops), *_halves(mask)])
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_dmem_walk(spec: CircuitSpec, four_term: bool, groups: tuple[int, ...]) -> _DmemWalk:
+    """The shift walk of the requested groups as device-memory passes, in
+    ``_shiftbank_plain``'s order: the data run into chi; the forward runs
+    between checkpoints, each into the next checkpoint's slot, the last
+    ending in f0 (where a base-fidelity row is asked for); then, anchor by
+    anchor in descending order, chi's inverse run down to the anchor and
+    each variant's replay of its parameter's span from its checkpoint, the
+    shift on that parameter's gates, ending in |<chi|v>|^2.  Raises
+    NotImplementedError below DMEM_SECTOR_QUBITS register qubits (a chunk
+    moves four amplitudes at a time)."""
+    plan = build_shift_plan(spec)
+    m = plan.m
+    if m < DMEM_SECTOR_QUBITS:
+        raise NotImplementedError(
+            f"the shift walk's device-memory route needs a register of {DMEM_SECTOR_QUBITS} "
+            f"qubits or more, got {m}")
+    k = min(DMEM_LOCAL_QUBITS, m)
+    shifts = shift_values(four_term)
+    variants = _collect_variants(plan, shifts, groups, spec.n_theta)
+    var_ints, var_shifts, f0_rows = _variant_table(plan, variants, groups)
+    var_rows = [var_ints[i:i + 5] for i in range(0, len(var_ints), 5)]
+    nd, nt = len(plan.data_ops), len(plan.train_ops)
+    train = plan.train_ops
+    firsts = sorted({first for _, _, first, _, _ in var_rows})
+    slot = {f: _DMEM_FIRST_CKPT + i for i, f in enumerate(firsts)}
+    prog = ([], [], [], [])
+
+    _append_run(prog, plan.data_ops, [2 * i for i in range(nd)], m, k, -1, _DMEM_CHI, -1)
+    lo, src = 0, -1
+    for f in firsts:
+        _append_run(prog, train[lo:f], [2 * (nd + q) for q in range(lo, f)], m, k, src, slot[f], -1)
+        lo, src = f, slot[f]
+    if f0_rows:
+        _append_run(prog, train[lo:], [2 * (nd + q) for q in range(lo, nt)], m, k, src, -1,
+                    _ALL_F0_ROWS)
+    top = nt  # chi = (train ops top .. nt - 1)^dagger psi_d
+    for vi, (row, j, first, last, anchor) in enumerate(var_rows):
+        if anchor + 1 < top:
+            down = range(top - 1, anchor, -1)
+            _append_run(prog, [train[q] for q in down], [2 * (nd + q) + 1 for q in down], m, k,
+                        _DMEM_CHI, _DMEM_CHI, -1)
+            top = anchor + 1
+        shifted = 2 * (nd + nt + vi)
+        refs = [shifted if train[q].param == ("theta", j) and var_shifts[vi] != 0.0
+                else 2 * (nd + q) for q in range(first, last + 1)]
+        _append_run(prog, train[first:last + 1], refs, m, k, slot[first], -1, row)
+
+    passes, pass_ops, pass_refs, local_ops = prog
+    d_i, d_f = _ops_table(plan.data_ops)
+    t_i, t_f = _ops_table(plan.train_ops)
+    return _DmemWalk(
+        np.array(passes, np.int64).astype(np.uint32).view(np.int32).reshape(-1, 7),
+        np.array(pass_ops, np.int32).reshape(-1, 6), np.array(pass_refs, np.int32),
+        tuple(local_ops), np.concatenate([d_i, t_i]).astype(np.int32),
+        np.concatenate([d_f, t_f]).astype(np.float32), tuple(plan.data_ops) + tuple(train),
+        np.array(var_ints[1::5], np.int32), np.array(var_shifts, np.float32),
+        np.array(f0_rows, np.int32), m, k, len(groups), _DMEM_FIRST_CKPT + len(firsts),
+    )
+
+
+def shift_dmem_traffic_bytes(walk: _DmemWalk) -> int:
+    """Bytes of state one sample moves through device memory on the route:
+    per chunk of each pass its load (none from |0...0>, none where the
+    source is the slot the previous single-chunk pass stored), its store,
+    and chi's read where the pass takes an inner product."""
+    chunk = _state_bytes(walk.k, 1)
+    n_chunks = 2 ** (walk.m - walk.k)
+    total, resident = 0, -1
+    for src, dst, row, *_ in walk.passes.tolist():
+        per = (src >= 0 and src != resident) + (dst >= 0) + (row != -1)
+        total += per * chunk * n_chunks
+        resident = dst if n_chunks == 1 and dst >= 0 else -1
+    return total
+
+
+def _shift_dmem_plain(walk: _DmemWalk, theta, data):
+    """Plain version of ``shift_dmem_kernel``: the same program of passes,
+    chunks and angle table, each pass's gates applied to a chunk as a
+    k-qubit state with ``_apply_one``'s arithmetic, each inner product
+    summed chunk by chunk in chunk order (a chunk's share in float64 by
+    halves, rounded once, for the kernel's block reduction).  -> (G, B)."""
+    m, k, b = walk.m, walk.k, theta.shape[0]
+    th, dt = theta.T, data.T
+    table = [None if op.param is None else _op_angle(op, th, dt) for op in walk.ops]
+    table += [th[int(j)] + float(s) for j, s in zip(walk.var_param, walk.var_shift)]
+    table = [None if a is None else (torch.cos(a / 2), torch.sin(a / 2)) for a in table]
+    slots: dict[int, tuple] = {}
+    out = torch.full((walk.n_rows, b), float("nan"), dtype=torch.float32, device=theta.device)
+    for src, dst, row, lo, hi, *mask in walk.passes.tolist():
+        local = _mask(mask, 0)
+        bases = _chunk_bases(m, local)
+        offs = torch.from_numpy(_chunk_offsets(m, local)).to(theta.device)
+        acc_re = acc_im = torch.zeros(b, dtype=torch.float32, device=theta.device)
+        if dst >= 0 and dst not in slots:
+            slots[dst] = tuple(torch.full((2**m, b), float("nan"), dtype=torch.float32,
+                                          device=theta.device) for _ in range(2))
+        for base in bases.tolist():
+            idx = offs | base
+            if src < 0:
+                re, im = _zero_tile(2**k, b, theta.device)
+                if base:
+                    re[0] = 0.0
+            else:
+                re, im = slots[src][0][idx], slots[src][1][idx]
+            for i in range(lo, hi):
+                ref = int(walk.pass_refs[i])
+                cs = table[ref >> 1]
+                c, s = cs if cs is not None else (None, None)
+                if ref & 1 and s is not None:
+                    s = -s
+                re, im = _apply_cs(walk.local_ops[i], re, im, k, c, s)
+            if dst >= 0:
+                slots[dst][0][idx], slots[dst][1][idx] = re, im
+            if row != -1:
+                cre, cim = slots[_DMEM_CHI][0][idx], slots[_DMEM_CHI][1][idx]
+                acc_re = acc_re + _halving_sum(cre * re + cim * im)
+                acc_im = acc_im + _halving_sum(cre * im - cim * re)
+        if row != -1:
+            f = acc_re * acc_re + acc_im * acc_im
+            for r in (walk.f0_rows.tolist() if row == _ALL_F0_ROWS else [row]):
+                out[r] = f
+    return out
+
+
+def _require_scratch(walk: _DmemWalk, device) -> None:
+    """Raise where one sample's scratch exceeds the device memory of
+    ``device``'s card: the route's only limit."""
+    _, _, sample, _ = shift_dmem_geometry(walk, 1)
+    total = torch.cuda.get_device_properties(device).total_memory
+    if sample > total:
+        raise NotImplementedError(
+            f"one sample's scratch of this {walk.m}-qubit register plan ({sample} bytes: "
+            f"{walk.n_slots} states) exceeds the device memory of "
+            f"{torch.cuda.get_device_name(device)} ({total} bytes)"
+        )
+
+
+def _shift_dmem_cuda(walk: _DmemWalk, theta, data):
+    """Launch ``shift_dmem_kernel`` for a device-memory walk, one block a
+    sample, in launches of at most ``shift_dmem_geometry``'s samples (the
+    scratch they share allocated once): -> (G, B)."""
+    b, dev = theta.shape[0], theta.device
+    _require_scratch(walk, dev)
+    out = torch.empty((walk.n_rows, b), dtype=torch.float32, device=dev)
+    if not b:
+        return out
+    _, smem, sample, per = shift_dmem_geometry(walk, b)
+    tables = _on_device(walk, (walk.passes, walk.pass_ops, walk.pass_refs, walk.base_ops,
+                               walk.base_consts, walk.var_param, walk.var_shift, walk.f0_rows),
+                        dev)
+    passes, pass_ops, pass_refs, base_ops, base_consts, var_param, var_shift, f0_rows = tables
+    scratch = torch.empty((per, sample // 4), dtype=torch.float32, device=dev)
+    lib = _lib("vqc_shift_dmem")
+    for b0 in range(0, b, per):
+        n = min(per, b - b0)
+        with torch.cuda.device(dev):
+            rc = lib.vqc_shift_dmem_launch(
+                _ptr(theta[b0:b0 + n]), _ptr(data[b0:b0 + n]), n, theta.shape[1], data.shape[1],
+                _ptr(base_ops), _ptr(base_consts), len(walk.ops), _ptr(var_param),
+                _ptr(var_shift), len(walk.var_param), _ptr(passes), len(walk.passes),
+                _ptr(pass_ops), _ptr(pass_refs), walk.max_pass_ops, _ptr(f0_rows),
+                len(walk.f0_rows), walk.m, walk.k, _ptr(scratch), sample // 4, _ptr(out), b, b0,
+                DMEM_THREADS, smem, _stream(dev),
+            )
+        _check_launch(lib, rc, "device-memory shift")
+        _count("shift_dmem")
+    return out
+
+
 def vqc_shift_fidelity(
     spec: CircuitSpec,
     theta: torch.Tensor,
@@ -1703,10 +2034,13 @@ def vqc_shift_fidelity(
     materialized bank's fidelity vector.  When a block of SWEEP_MIN_WARPS
     samples' checkpoints exceeds ``smem_budget`` (the counterpart of the
     reference's ``vmem_budget``) the bank runs as depth tiles through the
-    spill pair (``_shift_route``), on the CPU (plain versions) as on the
-    card.  Raises ValueError when the spec doesn't
-    match the SWAP-test product structure, and NotImplementedError when no
-    block can hold the plan.
+    spill pair, and where not one sample of the spill pair's tile launch
+    fits either (registers of 13 qubits and more at 227 KB), as the
+    device-memory walk (``_shift_route``), on the CPU (plain versions) as
+    on the card.  Raises ValueError when the spec doesn't match the
+    SWAP-test product structure, and NotImplementedError where one sample's
+    scratch exceeds the card's memory (or a register of fewer than 3 qubits
+    fits no block).
     """
     plan = build_shift_plan(spec)
     if plan is None:
@@ -1724,11 +2058,15 @@ def vqc_shift_fidelity(
     theta, data, kind = _prepare(spec, theta, data)
     if kind == "cpu":
         shifts = tuple(float(s) for s in shift_values(four_term))
-        if not tab.tiles:
+        if tab.route == "sweep":
             return _shiftbank_plain(plan, shifts, groups, spec.n_theta, theta, data)
+        if tab.route == "dmem":
+            return _shift_dmem_plain(tab, theta, data)
         return _shift_spilled_plain(plan, shifts, groups, spec.n_theta, tab.tiles, theta, data)
-    if not tab.tiles:
+    if tab.route == "sweep":
         return _shiftbank_cuda(tab, theta, data)
+    if tab.route == "dmem":
+        return _shift_dmem_cuda(tab, theta, data)
     return _shift_spilled_cuda(tab, theta, data)
 
 

@@ -33,12 +33,13 @@ What differs from the reference on the card:
 * Memory model.  The reference models 16 MiB of VMEM a worker (one TPU
   core) and spills batches whose working set exceeds it.  The port's model
   is the card's per block: a batch is over it when the launch it would get
-  has no block that fits 227 KB (``batch_over_block``) — row batches of 15
-  or more qubits (``fused_geometry`` gives (0, 0)), shift batches whose
-  plan has no route (``shift_plan_fits``).  Over-block row batches go to
+  has no block that fits 227 KB (``batch_over_block``): row batches of 15
+  or more qubits (``fused_geometry`` gives (0, 0)).  They go to
   ``MeshSpillExecutor``, where the rows run on the kernels' device-memory
-  route; shift plans with no route (registers of 13 or more qubits) are
-  refused at admission (``shift_admission_error``).
+  route.  Shift batches always have a block: registers of 13 or more
+  qubits run the shift walk's device-memory route on one worker, whose
+  block stages one 64 KB chunk; only a plan whose sample's scratch exceeds
+  the card's memory is refused at admission (``shift_admission_error``).
 """
 from __future__ import annotations
 
@@ -237,11 +238,14 @@ def _union(group_sets) -> tuple:
 def batch_launch_info(batch: CoalescedBatch) -> dict:
     """The launch a batch would get on one worker, under the card's
     per-block memory model: ``mode`` ("rows", "fused", "spill",
-    "materialize", or "none" where no block holds the plan), ``launches``
+    "materialize", or "none" where the plan has no route), ``launches``
     and ``smem_bytes``, the shared memory one block asks for (the tile
-    launch's for a spilled plan, with ``forward_smem_bytes`` beside it);
-    ``smem_bytes`` is 0 where no block of the kernel fits 227 KB (rows of
-    15 or more qubits: their launch takes the device-memory route)."""
+    launch's for a plan on the spill pair, with ``forward_smem_bytes`` and
+    ``n_tiles`` beside it; for one on the shift walk's device-memory route,
+    ``route`` "dmem", a block's chunk and tables, with the launch's
+    ``scratch_bytes`` of device memory); ``smem_bytes`` is 0 where no block
+    of the kernel fits 227 KB (rows of 15 or more qubits: their launch
+    takes the device-memory route)."""
     spec = batch_spec(batch)
     if not isinstance(batch.key, ShiftGroupKey):
         _, smem = fused_geometry(spec.n_qubits, batch.n)
@@ -254,7 +258,10 @@ def batch_launch_info(batch: CoalescedBatch) -> dict:
     lanes = sum(b.n_samples for b in banks)
     info = shift_execution_info(spec, lanes, four_term=four, groups=union)
     out = {"mode": info["mode"], "launches": info["launches"], "smem_bytes": info["smem_bytes"]}
-    if info["mode"] == "spill":
+    if info.get("route") == "dmem":
+        out["route"] = "dmem"
+        out["scratch_bytes"] = info["scratch_bytes"]
+    elif info["mode"] == "spill":
         out["forward_smem_bytes"] = info["forward_smem_bytes"]
         out["n_tiles"] = info["n_tiles"]
     return out
@@ -262,9 +269,11 @@ def batch_launch_info(batch: CoalescedBatch) -> dict:
 
 def batch_over_block(batch: CoalescedBatch) -> bool:
     """The per-block model's verdict: no block of the launch this batch
-    would get fits the card's 227 KB, so no single worker runs it — rows of
-    15 or more qubits, shift plans with no route.  The dispatcher sends such
-    batches to the mesh (``MeshSpillExecutor``)."""
+    would get fits the card's 227 KB, so no single worker runs it: rows of
+    15 or more qubits.  Shift batches of every register width have a block
+    (from m = 13 the device-memory walk's) and run on one worker.  The
+    dispatcher sends over-block batches to the mesh
+    (``MeshSpillExecutor``)."""
     return batch_launch_info(batch)["smem_bytes"] == 0
 
 
@@ -286,21 +295,21 @@ def kernel_span_args(batch: CoalescedBatch) -> dict:
     return args
 
 
-def shift_admission_error(spec: CircuitSpec, four_term: bool = False) -> str | None:
-    """Why an implicit bank of ``spec`` cannot be served, or None.  A shift
-    plan whose register holds 13 or more qubits (27-qubit QuClassi and
-    wider) has no route on the card: one checkpoint and the walk's three
-    states of 2 * 4 * 2**13 bytes each exceed a block's 227 KB.  The
-    reference cannot lower such plans on a TPU either (one m = 13 state at
-    one lane tile is 8 MiB, and its planner reserves 4 more against a 14 MiB
-    budget), and no configuration of the repository uses them."""
-    if shift_plan_fits(spec, four_term):
+def shift_admission_error(spec: CircuitSpec, four_term: bool = False,
+                          device=None) -> str | None:
+    """Why an implicit bank of ``spec`` cannot be served on ``device``, or
+    None.  Every shift plan has a route (from m = 13, 27-qubit QuClassi,
+    the device-memory walk), so a bank is refused only where that route
+    refuses it: one sample's scratch (its checkpoints, chi and a variant)
+    beyond the device memory of ``device``'s card, or a register too narrow
+    for the route that no block of the shared-memory routes holds."""
+    if shift_plan_fits(spec, four_term, device=device):
         return None
     m = build_shift_plan(spec).m
     return (
-        f"no block of the shift kernels holds one sample of this {m}-qubit register "
-        f"plan within {SMEM_BUDGET_BYTES} bytes of shared memory; shift plans beyond "
-        "m = 12 are not supported (the reference cannot lower them on a TPU either)"
+        f"the shift walk of this {m}-qubit register plan has no route on {device}: one "
+        "sample's device-memory scratch exceeds the card's memory, or no block of "
+        f"{SMEM_BUDGET_BYTES} bytes of shared memory holds a register this narrow"
     )
 
 
@@ -780,7 +789,8 @@ class GatewayRuntime:
         fidelities come back in bank order, so
         ``shift_rule.assemble_gradient`` consumes them unchanged.  A bank
         whose shift plan has no route on the card is refused here, before
-        any of it is admitted (``shift_admission_error``).
+        any of it is admitted (``shift_admission_error``): from m = 13
+        its batches run the shift walk's device-memory route on a worker.
 
         Plain ``(theta_bank, data_bank)`` calls are also accepted and fall
         back to per-row submission, so the executor composes with every bank
@@ -792,7 +802,7 @@ class GatewayRuntime:
         def run(bank, data_bank=None) -> torch.Tensor:
             if data_bank is not None:
                 return row_run(bank, data_bank)
-            reason = shift_admission_error(spec, bank.four_term)
+            reason = shift_admission_error(spec, bank.four_term, bank.theta.device)
             if reason is not None:
                 raise NotImplementedError(reason)
             key = ShiftGroupKey(spec, bank.four_term)

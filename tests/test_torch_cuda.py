@@ -22,6 +22,9 @@ from repro_torch.models import multimodal, transformer
 
 pytestmark = pytest.mark.requires_cuda
 ATOL = 1e-5  # float32: other cos/sin and summation order than the plain version
+#: the shift walk's device-memory rows also within ROW_RTOL of their own
+#: size (ROW_ATOL where ~0)
+ROW_RTOL, ROW_ATOL = 1e-4, 1e-10
 
 
 @pytest.fixture
@@ -222,16 +225,23 @@ def test_spilled_multibank_bit_identical_on_card(cuda, route):
 
 
 def test_unfit_shapes_raise_instead_of_running(cuda):
+    # a shift plan no block of the shared-memory routes holds runs on the
+    # shift walk's device-memory route; only a register too narrow for its
+    # chunks (m < 3) still raises, before any launch
     wide = circuits.build_quclassi_circuit(13, 3)  # m = 6
     th, dt = _angles(wide, 8, cuda)
-    with pytest.raises(NotImplementedError, match="shared-memory budget"):
-        K.vqc_shift_fidelity(wide, th, dt, smem_budget=2 * K._state_bytes(6, 1))
+    got = K.vqc_shift_fidelity(wide, th, dt, smem_budget=2 * K._state_bytes(6, 1))
+    torch.testing.assert_close(got, K.vqc_shift_fidelity(wide, th, dt), rtol=0, atol=1e-6)
+    narrow = circuits.build_quclassi_circuit(5, 1)  # m = 2
+    th, dt = _angles(narrow, 8, cuda)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="3 qubits or more"):
+        K.vqc_shift_fidelity(narrow, th, dt, smem_budget=64)
     # rows of 15 or more qubits run on the device-memory route, up to the
     # widest state the card holds; one qubit more raises, naming that width
     limit = K.dmem_max_qubits(cuda)
     widest = dataclasses.replace(circuits.build_quclassi_circuit(5, 1), n_qubits=limit + 1)
     th, dt = _angles(widest, 2, cuda)
-    before = dict(K.LAUNCHES)
     with pytest.raises(NotImplementedError, match=f"up to {limit} qubits"):
         K.vqc_p0(widest, th, dt)
     with pytest.raises(NotImplementedError, match=f"up to {limit} qubits"):
@@ -311,6 +321,78 @@ def test_device_memory_route_19q(cuda):
     pre, pim = K._fused_plain(spec, th, dt, True)
     torch.testing.assert_close(re, pre, rtol=0, atol=ATOL)
     torch.testing.assert_close(im, pim, rtol=0, atol=ATOL)
+
+
+def _shared_angle_spec(qc, n_shared):
+    """QuClassi qc-1l with its parameters folded onto ``n_shared``: each
+    parameter's replay span reaches across the register."""
+    base = circuits.build_quclassi_circuit(qc, 1)
+    ops_ = tuple(dataclasses.replace(op, param=("theta", op.param[1] % n_shared))
+                 if op.param is not None and op.param[0] == "theta" else op for op in base.ops)
+    return dataclasses.replace(base, ops=ops_, n_theta=n_shared)
+
+
+@pytest.mark.parametrize("name,m", [("27q-1l", 13), ("tied-27q-1l", 13), ("29q-1l", 14),
+                                    ("shared-29q-1l", 14), ("33q-1l", 16)])
+@pytest.mark.parametrize("subset", [False, True])
+def test_shift_dmem_kernel_matches_plain(cuda, name, m, subset):
+    """The shift walk's device-memory kernel (registers of 13-16 qubits,
+    one launch) against its plain version: whole banks and a group subset
+    of the 2-worker round robin."""
+    qc = int(name.split("-")[-2][:-1])
+    if name.startswith("tied"):
+        spec = circuits.build_tied_quclassi_circuit(qc, 1)
+    elif name.startswith("shared"):
+        spec = _shared_angle_spec(qc, 3)
+    else:
+        spec = circuits.build_quclassi_circuit(qc, 1)
+    groups = tuple(range(1 + 2 * spec.n_theta))
+    if subset:
+        groups = groups[1::2]
+    walk = K._shift_route(spec, False, groups, K.SMEM_BUDGET_BYTES)
+    assert walk.route == "dmem" and walk.m == m
+    th, dt = _angles(spec, 33, cuda, seed=qc)
+    before = dict(K.LAUNCHES)
+    got = K.vqc_shift_fidelity(spec, th, dt, groups=groups)
+    assert K.LAUNCHES["shift_dmem"] == before["shift_dmem"] + 1
+    assert sum(K.LAUNCHES.values()) == sum(before.values()) + 1
+    want = K._shift_dmem_plain(walk, th, dt)
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    # each row also within 1e-4 of its own size: these rows are products of
+    # 13-16 factors in [0, 1], most far below ATOL
+    torch.testing.assert_close(got, want, rtol=ROW_RTOL, atol=ROW_ATOL)
+
+
+@pytest.mark.parametrize("qc,nl", [(21, 3), (25, 1), (13, 3)])
+def test_shift_dmem_forced_matches_shared_memory_routes(cuda, qc, nl):
+    """m <= 12 plans forced onto the device-memory walk by a budget that
+    holds no block of the shared-memory routes, against the route they take
+    at 227 KB (the spill pair at 21q-3l and 25q-1l, the single sweep at
+    13q-3l): the same gates on the same bits, the inner products summed in
+    another order, so within 1e-6."""
+    spec = circuits.build_quclassi_circuit(qc, nl)
+    th, dt = _angles(spec, 100, cuda, seed=qc + nl)
+    assert K._shift_route(spec, False, tuple(range(1 + 2 * spec.n_theta)), 64).route == "dmem"
+    before = K.LAUNCHES["shift_dmem"]
+    got = K.vqc_shift_fidelity(spec, th, dt, smem_budget=64)
+    assert K.LAUNCHES["shift_dmem"] == before + 1
+    want = K.vqc_shift_fidelity(spec, th, dt)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    torch.testing.assert_close(got, want, rtol=ROW_RTOL, atol=ROW_ATOL)
+
+
+def test_shift_dmem_launches_split_by_samples(cuda, monkeypatch):
+    """A workspace of three samples' scratch: 8 samples of 27q-1l run in 3
+    launches and give the bits of one launch."""
+    spec = circuits.build_quclassi_circuit(27, 1)
+    th, dt = _angles(spec, 8, cuda, seed=8)
+    whole = K.vqc_shift_fidelity(spec, th, dt)
+    walk = K._shift_route(spec, False, tuple(range(1 + 2 * spec.n_theta)), K.SMEM_BUDGET_BYTES)
+    monkeypatch.setattr(K, "SHIFT_DMEM_WORKSPACE_BYTES", 3 * K.shift_dmem_geometry(walk, 1)[2])
+    before = K.LAUNCHES["shift_dmem"]
+    split = K.vqc_shift_fidelity(spec, th, dt)
+    assert K.LAUNCHES["shift_dmem"] == before + 3
+    assert torch.equal(split, whole)
 
 
 @pytest.mark.parametrize("qc,c", [(15, 8), (17, 3)])

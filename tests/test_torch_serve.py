@@ -786,17 +786,27 @@ def test_serving_lanes_are_the_references_and_kernels_get_real_rows():
 
 
 def test_shift_plan_beyond_m12_refused_at_admission():
+    """Once refused at admission, an m = 13 bank (27-qubit QuClassi) is now
+    admitted and served on a worker wide enough for it (not the mesh)
+    through the device-memory walk, sync and async, equal bit for bit to
+    the direct call."""
     spec = circuits.build_quclassi_circuit(27, 1)  # m = 13
     assert K.build_shift_plan(spec).m == 13
-    reason = tserve.shift_admission_error(spec)
-    assert "m = 12" in reason
+    assert tserve.shift_admission_error(spec) is None
     assert tserve.shift_admission_error(circuits.build_quclassi_circuit(25, 1)) is None
-    rt = tserve.GatewayRuntime(deadline=0.01)
     th, dt = (torch.from_numpy(a) for a in _angles(spec, 2, 8))
     bank = tsr.build_shift_bank(th[0], dt)
-    with pytest.raises(NotImplementedError, match="m = 12"):
-        rt.shift_executor(spec, "wide")(bank)
-    assert rt.telemetry.tenants["wide"].submitted == 0 and rt.gateway.idle
+    want = ops.vqc_fidelity_shiftgroups(spec, bank.theta, bank.data).reshape(-1)
+    for mode in ("sync", "async"):
+        rt = tserve.GatewayRuntime([TWorker("w1", 27), TWorker("w2", 33)], deadline=0.01,
+                                   mode=mode)
+        try:
+            got = rt.shift_executor(spec, "wide")(bank)
+        finally:
+            rt.close()
+        assert torch.equal(got, want), mode
+        assert rt.telemetry.tenants["wide"].submitted == bank.n_groups
+        assert rt.telemetry.mesh_spills == 0
 
 
 # ------------------------------------------------- training through gateway

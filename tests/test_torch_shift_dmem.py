@@ -1,0 +1,281 @@
+"""The shift walk's device-memory route (registers of 13 qubits and more,
+27-33-qubit QuClassi) on the CPU: its plain version against the reference,
+its route and geometry, and the port's own bit identities.
+
+Inputs are seeded numpy arrays handed to both packages.  The reference runs
+these plans through its spill pair (Pallas in interpret mode, 26 and 28
+depth tiles at B = 2); the port's plain version runs the route's program of
+passes, chunk by chunk.  Rows agree to 1e-5, the reference's float32 kernel
+tolerance, and to 1e-4 of their own size: at these widths a row is a
+product of 13-16 factors in [0, 1] (27q-1l's rows here reach 7e-7, their
+median 3e-8), so the absolute limit alone passes a walk that is wrong on
+every row (``test_planted_fault_fails_the_row_check``).
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import circuits as jcircuits
+from repro.kernels import vqc_statevector as JK
+from repro_torch import api as tapi
+from repro_torch.comanager.faults import FaultSpec, FaultToleranceConfig
+from repro_torch.comanager.worker import WorkerConfig
+from repro_torch.core import circuits as tcircuits
+from repro_torch.core import shift_rule as tsr
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import vqc_statevector as K
+from repro_torch.serve import GatewayRuntime
+from repro_torch.serve import dispatcher as tdisp
+from repro_torch.serve.fleet import FaultInjector
+
+ATOL = 1e-5
+#: each row also within ROW_RTOL of its own size, ROW_ATOL where it is ~0
+ROW_RTOL, ROW_ATOL = 1e-4, 1e-10
+
+
+def _angles(spec, batch, seed):
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0.0, np.pi, (batch, spec.n_theta)).astype(np.float32)
+    data = rng.uniform(0.0, np.pi, (batch, spec.n_data)).astype(np.float32)
+    return theta, data
+
+
+def _all(spec, four=False):
+    return tuple(range(1 + (4 if four else 2) * spec.n_theta))
+
+
+def _assert_rows(got, want, atol=ATOL):
+    """Rows within ``atol`` and within ROW_RTOL of their own size."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol, equal_nan=False)
+    np.testing.assert_allclose(got, want, rtol=ROW_RTOL, atol=ROW_ATOL, equal_nan=False)
+
+
+@pytest.mark.parametrize("qc", [27, 29])
+def test_rows_match_reference(qc):
+    """27q-1l (m = 13, one chunk a pass) and 29q-1l (m = 14, two chunks)."""
+    js, ts = jcircuits.build_quclassi_circuit(qc, 1), tcircuits.build_quclassi_circuit(qc, 1)
+    theta, data = _angles(ts, 2, seed=qc)
+    info = K.shift_execution_info(ts, 2)
+    assert (info["mode"], info["route"]) == ("spill", "dmem")
+    jinfo = JK.shift_execution_info(js, 2)
+    assert jinfo["mode"] == "spill" and jinfo["n_tiles"] == qc - 1  # P tiles of one op
+    got = K.vqc_shift_fidelity(ts, torch.from_numpy(theta), torch.from_numpy(data))
+    want = JK.vqc_shift_fidelity(js, jnp.asarray(theta), jnp.asarray(data))
+    assert got.shape == (len(_all(ts)), 2)
+    _assert_rows(got.numpy(), want)
+
+
+def _planted(walk, fault, theta, data, rows):
+    """27q-1l rows with one fault planted: a variant's shift dropped, the
+    data run's last gate left out of its pass, every row 3% low, or every
+    row past the first three written as 0."""
+    if fault == "dropped_shift":
+        shifts = walk.var_shift.copy()
+        shifts[0] = 0.0
+        return K._shift_dmem_plain(dataclasses.replace(walk, var_shift=shifts), theta, data)
+    if fault == "dropped_gate":
+        passes = walk.passes.copy()
+        passes[0, 4] -= 1
+        return K._shift_dmem_plain(dataclasses.replace(walk, passes=passes), theta, data)
+    if fault == "scaled":
+        return rows * 0.97
+    out = rows.clone()
+    out[3:] = 0.0
+    return out
+
+
+@pytest.mark.parametrize("fault", ["dropped_shift", "dropped_gate", "scaled", "zeroed"])
+def test_planted_fault_fails_the_row_check(fault):
+    """Each planted fault stays within the absolute 1e-5 of every row, and
+    the check relative to each row's size fails it."""
+    spec = tcircuits.build_quclassi_circuit(27, 1)
+    theta, data = (torch.from_numpy(a) for a in _angles(spec, 2, seed=27))
+    walk = K._shift_route(spec, False, _all(spec), K.SMEM_BUDGET_BYTES)
+    rows = K._shift_dmem_plain(walk, theta, data)
+    bad = _planted(walk, fault, theta, data, rows)
+    assert 0.0 < float((bad - rows).abs().max()) < ATOL
+    with pytest.raises(AssertionError):
+        _assert_rows(bad.numpy(), rows.numpy())
+
+
+# (qc, layers, register qubits, chunks a pass)
+WIDE = [(27, 1, 13, 1), (27, 3, 13, 1), (29, 1, 14, 2), (31, 1, 15, 4), (33, 1, 16, 8),
+        (33, 3, 16, 8)]
+
+
+@pytest.mark.parametrize("qc,nl,m,chunks", WIDE)
+def test_route_and_geometry(qc, nl, m, chunks):
+    """m = 13-16 take the device-memory walk at 227 KB: one block a sample,
+    its shared memory one 64 KB chunk and the tables, every pass of k = 13
+    local qubits holding the three lowest-order ones; samples a launch as
+    the workspace holds them; the serving layer admits and sizes it."""
+    spec = tcircuits.build_quclassi_circuit(qc, nl)
+    gs = _all(spec)
+    walk = K._shift_route(spec, False, gs, K.SMEM_BUDGET_BYTES)
+    assert (walk.route, walk.m, walk.k) == ("dmem", m, K.DMEM_LOCAL_QUBITS)
+    blocks, smem, sample, per = K.shift_dmem_geometry(walk, 1152)
+    assert blocks == 1 and 64 * 1024 < smem <= K.SMEM_BUDGET_BYTES
+    assert smem == 4 * (2 * 2**13 + 2 * walk.n_angles + 2 * walk.max_pass_ops) + 8 * 320 + 128
+    assert sample == (2 + len({p[0] for p in K.build_shift_plan(spec).theta_positions})) \
+        * K._state_bytes(m, 1)
+    assert per == min(1152, K.SHIFT_DMEM_WORKSPACE_BYTES // sample)
+    info = K.shift_execution_info(spec, 1152)
+    assert info["launches"] == -(-1152 // per) and info["scratch_bytes"] == per * sample
+    assert (info["tb"], info["smem_bytes"], info["n_tiles"]) == (1, smem, 0)
+    low = sum(1 << b for b in range(K.DMEM_SECTOR_QUBITS))
+    for row in walk.passes:
+        local = K._mask(row, 5)
+        assert bin(local).count("1") == K.DMEM_LOCAL_QUBITS and local & low == low
+        assert 2 ** (m - bin(local).count("1")) == chunks
+        for op in walk.local_ops[row[3]:row[4]]:
+            assert all(0 <= q < K.DMEM_LOCAL_QUBITS for q in op.qubits)
+    assert K.shift_plan_fits(spec) and tdisp.shift_admission_error(spec) is None
+    bank = tsr.build_shift_bank(torch.zeros(spec.n_theta), torch.zeros((3, spec.n_data)))
+    assert tapi.CostModel(shiftbank=True).bank_smem_bytes(spec, bank) == smem
+
+
+def test_launch_split_by_samples(monkeypatch):
+    """Past the workspace the wrapper's launches take fewer samples, never
+    fewer ops: 33q-3l's 94 states of 512 KB a sample, 174 samples a launch
+    of 8 GiB, so B = 1,152 runs in 7 launches."""
+    spec = tcircuits.build_quclassi_circuit(33, 3)
+    walk = K._shift_route(spec, False, _all(spec), K.SMEM_BUDGET_BYTES)
+    assert walk.n_slots == 94
+    _, _, sample, per = K.shift_dmem_geometry(walk, 1152)
+    assert (sample, per) == (94 * 2**19, 174)
+    assert K.shift_execution_info(spec, 1152)["launches"] == 7
+    assert K.shift_dmem_geometry(walk, 3)[3] == 3
+    monkeypatch.setattr(K, "SHIFT_DMEM_WORKSPACE_BYTES", sample - 1)
+    assert K.shift_dmem_geometry(walk, 1152)[3] == 1
+
+
+# (qc, layers, tied, four_term, groups): register plans the shared-memory
+# routes also run, forced onto the walk by a budget that holds neither
+FORCED = [
+    (7, 3, False, False, None),
+    (7, 3, True, True, None),
+    (13, 3, False, False, (0, 1, 4, 9, 16, 40)),
+    (13, 3, True, False, None),
+    (9, 2, True, True, (0, 2, 7, 19, 24, 24)),   # a repeated group
+    (7, 3, False, False, (5, 3)),                # no base-fidelity row
+]
+
+
+@pytest.mark.parametrize("qc,nl,tied,four,groups", FORCED)
+def test_walk_program_matches_single_sweep(qc, nl, tied, four, groups):
+    """The program of passes (its plain version) against the single sweep's
+    plain version: the same gates in the same order on the same bits, the
+    inner products summed in another order, so within 1e-6."""
+    build = tcircuits.build_tied_quclassi_circuit if tied else tcircuits.build_quclassi_circuit
+    spec = build(qc, nl)
+    gs = groups or _all(spec, four)
+    tiny = 64  # not even the staged tables
+    assert K._shift_route(spec, four, gs, tiny).route == "dmem"
+    theta, data = (torch.from_numpy(a) for a in _angles(spec, 4, seed=qc + nl))
+    got = K.vqc_shift_fidelity(spec, theta, data, four_term=four, groups=groups,
+                               smem_budget=tiny)
+    want = K._shiftbank_plain(K.build_shift_plan(spec), K.shift_values(four), gs,
+                              spec.n_theta, theta, data)
+    assert not torch.isnan(got).any()
+    _assert_rows(got, want, atol=1e-6)
+
+
+def _shared_angle_spec(qc, n_shared):
+    """QuClassi qc-1l with its trainable parameters folded onto ``n_shared``
+    (parameter j drives every gate of j, j + n_shared, ...): each
+    parameter's replay span then reaches across the whole register."""
+    base = tcircuits.build_quclassi_circuit(qc, 1)
+    ops = tuple(dataclasses.replace(op, param=("theta", op.param[1] % n_shared))
+                if op.param is not None and op.param[0] == "theta" else op for op in base.ops)
+    return dataclasses.replace(base, ops=ops, n_theta=n_shared)
+
+
+@pytest.mark.parametrize("qc,nl,tied", [(29, 1, True), (29, 1, False)])
+def test_m14_spans_cross_passes_match_single_sweep(qc, nl, tied):
+    """m = 14, two chunks a pass: tied QuClassi's two-gate spans, and a
+    circuit whose parameters each drive gates across the whole register, so
+    that its replays, its forward runs and its chi runs take several passes
+    (a replay's middle passes in the variant slot), against the single
+    sweep's plain version on the same register."""
+    spec = (tcircuits.build_tied_quclassi_circuit(qc, nl) if tied
+            else _shared_angle_spec(qc, 3))
+    gs = _all(spec) if not tied else (0, 1, 2, 17, 28, 55)
+    walk = K._shift_route(spec, False, gs, K.SMEM_BUDGET_BYTES)
+    assert walk.route == "dmem" and walk.m == 14
+    if not tied:
+        assert any(r[0] == 1 for r in walk.passes)  # a replay pass from the variant slot
+    theta, data = (torch.from_numpy(a) for a in _angles(spec, 2, seed=5))
+    got = K.vqc_shift_fidelity(spec, theta, data, groups=gs)
+    want = K._shiftbank_plain(K.build_shift_plan(spec), K.shift_values(False), gs,
+                              spec.n_theta, theta, data)
+    _assert_rows(got, want, atol=1e-6)
+
+
+def test_traffic_counts_the_program():
+    """27q-3l: the data run and the forward runs store, each later forward
+    run's load skipped (its chunk still staged); every chi run loads and
+    stores; every variant loads and reads chi; f0 reads chi (its run's
+    chunk staged)."""
+    spec = tcircuits.build_quclassi_circuit(27, 3)
+    walk = K._shift_route(spec, False, _all(spec), K.SMEM_BUDGET_BYTES)
+    n_var, n_ckpt = len(walk.var_param), walk.n_slots - 2
+    chi_runs = sum(1 for r in walk.passes if r[0] == r[1] == 0)
+    per = 1 + n_ckpt + 1 + 2 * chi_runs + 2 * n_var
+    assert K.shift_dmem_traffic_bytes(walk) == per * K._state_bytes(13, 1)
+
+
+def test_multibank_bit_identical_per_lane_m13():
+    """Banks packed into one launch give each lane the bits of its own
+    per-bank call, whatever the segment (27q-1l, a group subset each)."""
+    spec = tcircuits.build_quclassi_circuit(27, 1)
+    banks, group_sets = [], ((0, 3, 8, 40), _all(spec), (1, 2))
+    for i, b in enumerate((3, 2, 1)):
+        theta, data = _angles(spec, b, seed=30 + i)
+        banks.append(tsr.build_shift_bank(torch.from_numpy(theta[0]), torch.from_numpy(data)))
+    outs = tops.vqc_fidelity_shiftgroups_multibank(
+        spec, tuple(b.theta for b in banks), tuple(b.data for b in banks), False, group_sets)
+    for bank, gs, out in zip(banks, group_sets, outs):
+        assert torch.equal(out, tops.vqc_fidelity_shiftgroups(spec, bank.theta, bank.data,
+                                                               False, gs))
+        whole = tops.vqc_fidelity_shiftgroups(spec, bank.theta, bank.data)
+        assert torch.equal(out, whole[list(gs)])
+
+
+def test_launch_observer_reports_the_route():
+    spec = tcircuits.build_quclassi_circuit(27, 1)
+    theta, data = (torch.from_numpy(a) for a in _angles(spec, 2, seed=4))
+    seen = []
+    prev = tops.set_launch_observer(seen.append)
+    try:
+        tops.vqc_fidelity_shiftgroups(spec, theta, data, False, (0, 1, 2))
+    finally:
+        tops.set_launch_observer(prev)
+    assert len(seen) == 1  # no depth tiles: no tile events
+    assert (seen[0]["mode"], seen[0]["route"], seen[0]["launches"]) == ("spill", "dmem", 1)
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_crash_migration_replays_m13_bit_for_bit(mode):
+    """A 27q-1l bank's batch placed on a crashed worker migrates to the
+    survivor and replays on the same route: the served rows equal the
+    direct call bit for bit, and no batch goes to the mesh."""
+    spec = tcircuits.build_quclassi_circuit(27, 1)
+    theta, data = (torch.from_numpy(a) for a in _angles(spec, 3, seed=9))
+    bank = tsr.build_shift_bank(theta[0], data)
+    want = tops.vqc_fidelity_shiftgroups(spec, bank.theta, bank.data).reshape(-1)
+    rt = GatewayRuntime(
+        [WorkerConfig("w1", 33), WorkerConfig("w2", 33)], deadline=0.01, mode=mode,
+        fault_tolerance=FaultToleranceConfig(retry_limit=0, breaker_threshold=1,
+                                             breaker_cooldown_s=3600.0),
+        fault_injector=FaultInjector({"w1": FaultSpec(kind="crash", at=0.0)}))
+    try:
+        got = rt.shift_executor(spec, "wide")(bank)
+    finally:
+        rt.close()
+    summary = rt.telemetry.summary()
+    assert torch.equal(got, want)
+    assert summary["migrated_batches"] >= 1 and rt.telemetry.mesh_spills == 0

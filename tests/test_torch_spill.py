@@ -175,8 +175,10 @@ def test_route_follows_the_launch_block():
     single-sweep block of SHIFT_WARPS samples on any number of workers
     (before the warp kernel it spilled on 1 and 2); 17q-3l on one worker
     fits 2; 21q-3l on 1 or 2 workers fits no single-sweep sample and spills;
-    the spill pair runs up to m = 12 (25q-1l) and raises, naming the budget,
-    from m = 13, where not one sample's tile states fit."""
+    the spill pair runs up to m = 12 (25q-1l); from m = 13, where not one
+    sample's tile states fit, the plan spills onto the device-memory walk
+    (mode "spill" as the reference reports, route "dmem", no depth
+    tiles)."""
     _, ts = _specs(13, 3)
     n_groups = 1 + 2 * ts.n_theta
     for n_workers in WORKERS:
@@ -193,18 +195,31 @@ def test_route_follows_the_launch_block():
         info = K.shift_execution_info(widest, 100, groups=groups)
         assert info["mode"] == "spill" and info["n_tiles"] >= 5
     _, m12 = _specs(25, 1)
-    assert K.shift_execution_info(m12, 8)["mode"] == "spill"
+    info = K.shift_execution_info(m12, 8)
+    assert (info["mode"], info["route"]) == ("spill", "pair")
     _, m13 = _specs(27, 1)
-    with pytest.raises(NotImplementedError, match="shared-memory budget"):
-        K.shift_execution_info(m13, 8)
+    info = K.shift_execution_info(m13, 8)
+    assert (info["mode"], info["route"], info["n_tiles"]) == ("spill", "dmem", 0)
+    assert info["launches"] == 1 and 0 < info["smem_bytes"] <= K.SMEM_BUDGET_BYTES
 
 
 def test_no_block_holds_the_plan_raises():
+    """A budget that holds no sample of either shared-memory route sends the
+    plan to the device-memory walk (once refused), whose rows equal the
+    single sweep's within 1e-6; a register under 3 qubits, which that route
+    cannot chunk, still raises."""
     _, ts = _specs(7, 3)
     theta, data = (torch.from_numpy(a) for a in _angles(ts, 2, seed=0))
     tiny = 2 * K._state_bytes(3, 1)  # not one sample's tile kernel states
-    with pytest.raises(NotImplementedError, match="shared-memory budget"):
-        K.vqc_shift_fidelity(ts, theta, data, smem_budget=tiny)
+    gs = tuple(range(1 + 2 * ts.n_theta))
+    assert K._shift_route(ts, False, gs, tiny).route == "dmem"
+    got = K.vqc_shift_fidelity(ts, theta, data, smem_budget=tiny)
+    want = K.vqc_shift_fidelity(ts, theta, data)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    _, narrow = _specs(5, 1)  # m = 2
+    with pytest.raises(NotImplementedError, match="3 qubits or more"):
+        K.vqc_shift_fidelity(narrow, *(torch.from_numpy(a) for a in _angles(narrow, 2, 0)),
+                             smem_budget=64)
 
 
 def test_launch_observer_reports_spill_tiles():
