@@ -233,9 +233,10 @@ Phases, in order; any failure exits non-zero before the result line:
                worker's groups of the 2-worker round robin) and 27q-3l at
                B = 1,152 (a training step's samples), then timed there
                beside its plain version, its operations bound and its
-               passes' traffic; (b) 21q-3l and 25q-1l forced onto it (a
-               64-byte budget) against the spill pair within 1e-6, the
-               bit-equal rows counted, both timed in turns; (c) one
+               passes' traffic (beside the first kernel's); (b) 21q-3l
+               and 25q-1l forced onto it (a 64-byte budget) against the
+               spill pair within 1e-6, the bit-equal rows counted, both
+               timed in turns; (c) one
                Algorithm-1 step of 27-qubit, 3-layer QuClassi (batch 64, 9
                patches, no dense layer) through the 2-worker implicit
                executor: 3 timed steps (steps/s, launches, peak memory),
@@ -2704,6 +2705,21 @@ def quclassi27():
     return cfg, assign, [tuple(g for g in range(n_groups) if assign[g] == w) for w in range(2)]
 
 
+def first_shift_traffic(K, walk) -> int:
+    """Bytes of state one sample of ``walk`` moved through device memory
+    under the route's first kernel, which kept every state of the walk
+    there: per chunk of each pass its load (none from |0...0>, none where
+    the previous one-chunk pass left the source staged), its store and
+    chi's read for an inner product.  Phase 14(a) logs it beside the
+    redesigned kernel's count; ``tools/redesign_ab.py`` beside both
+    kernels' times."""
+    n_chunks, total, resident = 2 ** (walk.m - walk.k), 0, -1
+    for src, dst, row, *_ in walk.passes.tolist():
+        total += (src >= 0 and src != resident) + (dst >= 0) + (row != -1)
+        resident = dst if n_chunks == 1 and dst >= 0 else -1
+    return total * n_chunks * K._state_bytes(walk.k, 1)
+
+
 def wide_shift_phase(dev, card: str) -> tuple[dict, float, dict]:
     """Phase 14: shift plans of m >= 13 on the shift walk's device-memory
     route (``shift_dmem_kernel``).  (a) the kernel against its plain version
@@ -2781,10 +2797,12 @@ def wide_shift_phase(dev, card: str) -> tuple[dict, float, dict]:
     nbytes = WIDE_B * (4 * (spec.n_theta + spec.n_data) + 4 * len(gs))
     bound_ms, bound_by = bound(flops, nbytes)
     traffic = WIDE_B * K.shift_dmem_traffic_bytes(walk)
+    first = WIDE_B * first_shift_traffic(K, walk)
     _, smem, sample, per = K.shift_dmem_geometry(walk, WIDE_B)
     record = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "passes": len(walk.passes), "pass_bytes": traffic,
               "pass_bound_ms": traffic / PEAK_BYTES_PER_S * 1e3,
+              "first_pass_bytes": first, "first_pass_bound_ms": first / PEAK_BYTES_PER_S * 1e3,
               "shape": f"27q-3l B={WIDE_B}, G={len(gs)}"}
     shown = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
     log(f"  time shift_dmem 27q-3l B={WIDE_B}, G={len(gs)} ({len(walk.passes)} passes, "
@@ -2792,7 +2810,8 @@ def wide_shift_phase(dev, card: str) -> tuple[dict, float, dict]:
         f"launch): kernel {ms:.4f} ms (events; device time {shown}), plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.6f} ms ({bound_by}; {flops} flops, {nbytes} bytes); the route's "
         f"passes move {traffic} bytes: {record['pass_bound_ms']:.4f} ms at "
-        f"{PEAK_BYTES_PER_S / 1e12} TB/s [{card}]")
+        f"{PEAK_BYTES_PER_S / 1e12} TB/s (the first kernel's passes moved {first} bytes, "
+        f"{record['first_pass_bound_ms']:.4f} ms) [{card}]")
     del th, dt
 
     # (b) m <= 12 plans forced onto the route, against the spill pair

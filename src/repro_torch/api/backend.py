@@ -101,11 +101,11 @@ class CostModel:
         """Shared memory of one block of the launch that runs one shard of
         ``bank``: ``shift_execution_info(...)["smem_bytes"]`` for a shift
         bank (the tile launch's where the plan spills onto the spill pair;
-        a block's chunk and tables on the shift walk's device-memory route,
-        from m = 13), the block of ``fused_geometry`` for rows.  0 where no
-        block holds the work: rows of 15 or more qubits, which take the
-        kernels' device-memory route (the state lives in device memory, the
-        block stages nothing), and shift plans with no route, which the
+        a block's three chunks and tables on the shift walk's device-memory
+        route, from m = 13), the block of ``fused_geometry`` for rows.  0
+        where no block holds the work: rows of 15 or more qubits, which take
+        the kernels' device-memory route (the state lives in device memory,
+        the block stages nothing), and shift plans with no route, which the
         serving layer refuses at admission."""
         if isinstance(bank, shift_rule.ShiftBank) and self.shiftbank:
             if not shift_plan_fits(spec, bank.four_term):

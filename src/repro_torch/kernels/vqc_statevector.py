@@ -28,9 +28,11 @@ training path reaches, with device-memory routes beside three of them:
     tile to device memory and one backward launch sweeps every tile.
   * ``vqc_shift_dmem.cu`` ``shift_dmem_kernel`` is the spilled branch's
     device-memory route, for registers of 13 qubits and more, where not
-    one sample of the tile kernel fits a block: every state of the walk in
-    device memory, the walk in passes over 64 KB chunks of them
-    (``_shift_dmem_walk``), one block a sample (``_shift_dmem_cuda``).
+    one sample of the tile kernel fits a block: the walk in passes over
+    64 KB chunks (``_shift_dmem_walk``), one block a sample
+    (``_shift_dmem_cuda``) holding three chunks, its checkpoints in device
+    memory (at m = 13 chi stays in shared memory and the checkpoints move
+    by TMA bulk copies on the staging plan, ``_shift_dmem_stage``).
 
 Design, shared by all five:
 
@@ -427,17 +429,18 @@ _TABLES_LOCK = threading.Lock()
 
 
 def _on_device(key, arrays, device) -> tuple[torch.Tensor, ...]:
-    """Host tables copied to ``device`` once per (key, device).  The copy
-    is made under a lock and waited for before the tables are shared, so a
-    kernel launched from another thread, on another stream, never reads a
-    table whose copy is still in flight."""
+    """Host tables copied to ``device`` once per (key, device), None kept
+    as None.  The copy is made under a lock and waited for before the
+    tables are shared, so a kernel launched from another thread, on another
+    stream, never reads a table whose copy is still in flight."""
     k = (key, device)
     got = _DEVICE_TABLES.get(k)
     if got is None:
         with _TABLES_LOCK:
             got = _DEVICE_TABLES.get(k)
             if got is None:
-                got = tuple(torch.from_numpy(a).to(device) for a in arrays)
+                got = tuple(None if a is None else torch.from_numpy(a).to(device)
+                            for a in arrays)
                 if device.type == "cuda":
                     torch.cuda.current_stream(device).synchronize()
                 _DEVICE_TABLES[k] = got
@@ -487,8 +490,8 @@ def _declare(name: str, lib):
     elif name == "vqc_shift_dmem":
         i64 = ctypes.c_longlong
         lib.vqc_shift_dmem_launch.argtypes = (
-            [vp, vp, i32, i32, i32, vp, vp, i32, vp, vp, i32, vp, i32, vp, vp, i32, vp, i32,
-             i32, i32, vp, i64, vp, i64, i64, i32, i32, vp]
+            [vp, vp, i32, i32, i32, vp, vp, i32, vp, vp, i32, vp, i32, vp, vp, vp, i32, vp,
+             i32, i32, i32, vp, i64, vp, i64, i64, i32, i32, vp]
         )
         lib.vqc_shift_dmem_launch.restype = i32
     else:
@@ -1279,11 +1282,12 @@ def _shift_route(
     spill pair ("pair") where its tile launch fits, else the single sweep
     where one sample's block fits, else the device-memory walk ("dmem",
     ``_shift_dmem_walk``: from m = 13 at 227 KB, where one checkpoint and
-    the walk's three states take 256 KB), whose block stages one chunk
-    whatever the budget.  A function of the plan and the budget alone (not
-    of the batch), so per-bank and multibank launches take the same route;
-    the wrapper, ``shift_execution_info`` and through it the launch
-    observer all read this."""
+    the walk's three states take 256 KB), whose block holds three 64 KB
+    chunks and its tables whatever the budget (``_shift_dmem_smem``).  A
+    function of the plan and the budget alone (not of the batch), so
+    per-bank and multibank launches take the same route; the wrapper,
+    ``shift_execution_info`` and through it the launch observer all read
+    this."""
     sweep = _walk_table(spec, four_term, groups, smem_budget, False)
     if sweep.tb >= SWEEP_MIN_WARPS:
         return sweep
@@ -1743,11 +1747,14 @@ def _shift_spilled_cuda(tab: _WalkTable, theta, data):
 #
 # From m = 13 (27-qubit QuClassi) no block holds one sample of either
 # shift-walk kernel: one checkpoint and the walk's three live states take
-# 256 KB.  The walk then keeps every state in device memory
+# 256 KB.  The walk then keeps its checkpoints in device memory
 # (``vqc_shift_dmem.cu``, one block a sample): the host cuts it into a
 # program of passes (``_shift_dmem_walk``), each a run of gates over chunks
 # of at most DMEM_LOCAL_QUBITS local qubits, cut as ``dmem_plan`` cuts a
-# circuit; ``_shift_dmem_plain`` runs the same program on the CPU.
+# circuit; ``_shift_dmem_plain`` runs the same program on the CPU.  The
+# block's shared memory holds three chunks: at m = k chi and two whole
+# states, moved by the staging plan (``_shift_dmem_stage``); at m = k + 1
+# chi resident and one chunk; wider, two chunks in turn and chi's chunk.
 
 #: scratch slots of a sample besides its checkpoints (slot 2 + i): chi
 #: (seeded with the data state) and the variant of a multi-pass replay.
@@ -1770,15 +1777,18 @@ class _DmemWalk:
     - 1 - q).  ``pass_ops`` are op-table rows with each qubit replaced by
     its rank among the pass's local qubits (``local_ops`` the same as
     ``Op``s, for the plain version), ``pass_refs`` 2 * (angle index) + 1
-    where the op is inverted.  The per-sample angle table holds the base
-    angle of each of ``ops`` (data ops, then train ops: ``base_ops`` /
-    ``base_consts``) and, after them, theta[var_param[v]] + var_shift[v]
-    for each variant v.  Compared by identity: ``_shift_dmem_walk`` caches
-    one per request, and the device copies are keyed on it."""
+    where the op is inverted, ``stage`` the kernel's staging plan, a row a
+    pass (``_shift_dmem_stage``; None where m > k).  The per-sample
+    angle table holds the base angle of each of ``ops`` (data ops, then
+    train ops: ``base_ops`` / ``base_consts``) and, after them,
+    theta[var_param[v]] + var_shift[v] for each variant v.  Compared by
+    identity: ``_shift_dmem_walk`` caches one per request, and the device
+    copies are keyed on it."""
 
     passes: np.ndarray
     pass_ops: np.ndarray
     pass_refs: np.ndarray
+    stage: np.ndarray | None
     local_ops: tuple
     base_ops: np.ndarray
     base_consts: np.ndarray
@@ -1808,20 +1818,46 @@ class _DmemWalk:
         return shift_dmem_geometry(self, 1)[1]
 
 
+def _dmem_low_slot(m: int, k: int) -> int:
+    """The first slot the walk keeps in device memory: the checkpoints at
+    m = k (chi in shared memory, no multi-pass replay), the variant slot at
+    m = k + 1 (chi resident), else chi."""
+    return _DMEM_FIRST_CKPT if m == k else _DMEM_VARIANT if m == k + 1 else _DMEM_CHI
+
+
+def _shift_dmem_smem(walk: _DmemWalk) -> tuple[int, bool]:
+    """(shared-memory bytes a block, whether the program's tables are among
+    them): three chunks' (re, im), two mbarriers, two partial sums a warp,
+    the deposit tables, the angle table and a pass's cos / sin, then the
+    passes, staging plan (m = k), pass ops and angle references where they
+    fit the SMEM_BUDGET_BYTES a block may use (else the kernel reads them
+    from device memory)."""
+    base = (4 * (6 * 2**walk.k + 64 + 2 * walk.n_angles + 2 * walk.max_pass_ops)
+            + 8 * (2 + 256 + 64))
+    rows = 7 + (_STAGE_FIELDS if walk.stage is not None else 0)
+    tables = 4 * (rows * len(walk.passes) + (6 + 1) * len(walk.pass_refs))
+    fits = base + tables <= SMEM_BUDGET_BYTES
+    return base + tables * fits, fits
+
+
 def shift_dmem_geometry(walk: _DmemWalk, n_samples: int) -> tuple[int, int, int, int]:
     """(blocks a sample, shared-memory bytes a block, scratch bytes a
     sample, samples a launch) of the shift walk's device-memory route: one
-    block of DMEM_THREADS a sample; its shared memory one chunk's (re, im),
-    the sample's angle table and a pass's cos / sin, the two deposit tables
-    (256 + 64 offsets of 8 bytes) and one partial sum a warp; its scratch
-    chi, the variant and the checkpoints; as many samples a launch as
-    SHIFT_DMEM_WORKSPACE_BYTES holds, at least one.  The only source of the route's geometry: the wrapper,
+    block of 512 threads a sample; its shared memory three chunks'
+    (re, im) (chi and two states at m = k, chi resident and a chunk at
+    m = k + 1, else two chunks and chi's), two mbarriers, two partial sums
+    a warp, the two deposit tables (256 + 64 offsets of 8 bytes), the
+    sample's angle table and a pass's cos / sin, and the program's tables
+    where they fit (``_shift_dmem_smem``: 227,252 B at 27q-3l); its
+    scratch the slots from ``_dmem_low_slot`` on (the checkpoints alone at
+    m = k); as many samples a launch as SHIFT_DMEM_WORKSPACE_BYTES holds, at
+    least one.  The only source of the route's geometry: the wrapper,
     ``shift_execution_info`` and the serving layer's per-block memory model
     read it."""
-    smem = (4 * (2 * 2**walk.k + 2 * walk.n_angles + 2 * walk.max_pass_ops)
-            + 8 * (256 + 64) + 4 * 32)
-    sample = walk.n_slots * _state_bytes(walk.m, 1)
-    return 1, smem, sample, max(1, min(max(n_samples, 1), SHIFT_DMEM_WORKSPACE_BYTES // sample))
+    smem = _shift_dmem_smem(walk)[0]
+    sample = (walk.n_slots - _dmem_low_slot(walk.m, walk.k)) * _state_bytes(walk.m, 1)
+    per = SHIFT_DMEM_WORKSPACE_BYTES // max(sample, 1)
+    return 1, smem, sample, max(1, min(max(n_samples, 1), per))
 
 
 def _append_run(prog, ops, refs, m: int, k: int, src: int, dst: int, row: int) -> None:
@@ -1846,6 +1882,97 @@ def _append_run(prog, ops, refs, m: int, k: int, src: int, dst: int, row: int) -
         mask = sum(1 << (m - 1 - q) for q in p.qubits)
         passes.append([src if i == 0 else mid, dst if last else mid, row if last else -1,
                        lo, len(pass_ops), *_halves(mask)])
+
+
+#: fields of a staging-plan row (``_shift_dmem_stage``)
+_STAGE_FIELDS = 7
+
+
+def _shift_dmem_stage(rows) -> np.ndarray:
+    """The kernel's staging plan for a one-chunk walk (m = k), a row a pass
+    of ``rows`` = (source, destination, output row): (work region, fetch
+    region, fetch slot, wait region, copy-from region, load region, load
+    slot), -1 for none.  Region 0 holds chi for the whole walk (the data
+    run builds it there, chi's runs apply in place); regions 1 and 2 hold
+    states.  Before its gates a pass fetches its checkpoint (a bulk load
+    issued then, and waited for), waits for one issued ahead, or finds it
+    still staged; makes |0...0> or copies into its work region; then issues
+    the load ahead, if any.  A pass whose checkpoint the next pass that
+    needs a region replays too (a parameter's two shifts; f0 and the
+    deepest parameter's) works on a copy in the other region and leaves
+    the checkpoint staged; so does a pass whose checkpoint the pass before
+    it stored from that region (a forward run after a forward run), so the
+    store drains while it computes.  A checkpoint stored and not staged is
+    loaded into the region no pass needs before it, at the first pass where
+    one is free and no pass in between needs a free region.  Raises
+    ValueError on a pass that reads or writes the variant slot, or chi into
+    another slot: a one-chunk walk has none."""
+    rows = [tuple(int(x) for x in r[:3]) for r in rows]
+    n = len(rows)
+
+    def in_buffer(i):
+        return rows[i][0] != _DMEM_CHI and rows[i][1] != _DMEM_CHI
+
+    nxt, after = [None] * n, None  # the next pass that works in region 1 or 2
+    for i in range(n - 1, -1, -1):
+        nxt[i] = after
+        if in_buffer(i):
+            after = i
+    stored = {}
+    for i, (_, d, _) in enumerate(rows):
+        stored.setdefault(d, i)
+
+    def keeps(i):  # the next region pass replays from this pass's checkpoint
+        return rows[i][0] >= _DMEM_FIRST_CKPT and nxt[i] is not None \
+            and rows[nxt[i]][0] == rows[i][0]
+
+    held, loading = {1: None, 2: None}, {1: False, 2: False}
+    plan = np.full((n, _STAGE_FIELDS), -1, np.int32)
+    for i, (src, dst, row) in enumerate(rows):
+        if _DMEM_VARIANT in (src, dst):
+            raise ValueError(f"pass {i} of a one-chunk walk uses the variant slot")
+        if not in_buffer(i):
+            if dst != _DMEM_CHI or src not in (-1, _DMEM_CHI) or row != -1:
+                raise ValueError(f"pass {i} ({src}, {dst}, {row}) moves chi out of its region")
+            plan[i, 0] = 0
+            continue
+        if src >= 0:
+            b = next((r for r in (1, 2) if held[r] == src), None)
+            if b is None:  # not staged: fetch it now
+                b = min((r for r in (1, 2) if not loading[r]),
+                        key=lambda r: held[r] is not None)
+                plan[i, 1:3] = b, src
+                held[b], loading[b] = src, True
+            if loading[b]:
+                plan[i, 3], loading[b] = b, False
+            other = 3 - b
+            drains = i > 0 and rows[i - 1][1] == src and plan[i - 1, 0] == b
+            if (keeps(i) or drains) and not loading[other]:
+                plan[i, 0], plan[i, 4] = other, b
+                work = other
+            else:
+                plan[i, 0], held[b] = b, None
+                work = b
+        else:
+            want = rows[nxt[i]][0] if nxt[i] is not None else None
+            work = min((r for r in (1, 2) if not loading[r]),
+                       key=lambda r: (held[r] is not None, held[r] == want))
+            plan[i, 0] = work
+        held[work] = dst if dst >= 0 else None
+        # the next checkpoint to come, loaded ahead into a free region
+        q = next((j for j in range(i + 1, n) if in_buffer(j) and rows[j][0] >= 0
+                  and rows[j][0] not in held.values()), None)
+        if q is None or stored.get(rows[q][0], n) >= i:
+            continue
+        if any(rows[r][0] == -1 or keeps(r) for r in range(i + 1, q) if in_buffer(r)):
+            continue  # a pass before it needs the free region
+        needed = {rows[r][0] for r in range(i + 1, q) if in_buffer(r)}
+        free = [r for r in (1, 2) if r != work and not loading[r] and held[r] not in needed
+                and r != plan[i, 4]]
+        if free:
+            plan[i, 5:7] = free[0], rows[q][0]
+            held[free[0]], loading[free[0]] = rows[q][0], True
+    return plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -1899,9 +2026,10 @@ def _shift_dmem_walk(spec: CircuitSpec, four_term: bool, groups: tuple[int, ...]
     passes, pass_ops, pass_refs, local_ops = prog
     d_i, d_f = _ops_table(plan.data_ops)
     t_i, t_f = _ops_table(plan.train_ops)
+    stage = _shift_dmem_stage(passes) if m == k else None
     return _DmemWalk(
         np.array(passes, np.int64).astype(np.uint32).view(np.int32).reshape(-1, 7),
-        np.array(pass_ops, np.int32).reshape(-1, 6), np.array(pass_refs, np.int32),
+        np.array(pass_ops, np.int32).reshape(-1, 6), np.array(pass_refs, np.int32), stage,
         tuple(local_ops), np.concatenate([d_i, t_i]).astype(np.int32),
         np.concatenate([d_f, t_f]).astype(np.float32), tuple(plan.data_ops) + tuple(train),
         np.array(var_ints[1::5], np.int32), np.array(var_shifts, np.float32),
@@ -1910,18 +2038,21 @@ def _shift_dmem_walk(spec: CircuitSpec, four_term: bool, groups: tuple[int, ...]
 
 
 def shift_dmem_traffic_bytes(walk: _DmemWalk) -> int:
-    """Bytes of state one sample moves through device memory on the route:
-    per chunk of each pass its load (none from |0...0>, none where the
-    source is the slot the previous single-chunk pass stored), its store,
-    and chi's read where the pass takes an inner product."""
+    """Bytes of state one sample moves through device memory on the route.
+    At m = k the staging plan's checkpoint loads and the forward runs'
+    stores, chi never; else per chunk of each pass its load (none from
+    |0...0>), its store, and chi's chunk where the pass takes an inner
+    product, the slots below ``_dmem_low_slot`` (resident chi at m = k + 1)
+    moving none."""
     chunk = _state_bytes(walk.k, 1)
-    n_chunks = 2 ** (walk.m - walk.k)
-    total, resident = 0, -1
+    low = _dmem_low_slot(walk.m, walk.k)
+    if walk.m == walk.k:
+        loads = int((walk.stage[:, 1] >= 0).sum() + (walk.stage[:, 5] >= 0).sum())
+        return chunk * (loads + int((walk.passes[:, 1] >= low).sum()))
+    total = 0
     for src, dst, row, *_ in walk.passes.tolist():
-        per = (src >= 0 and src != resident) + (dst >= 0) + (row != -1)
-        total += per * chunk * n_chunks
-        resident = dst if n_chunks == 1 and dst >= 0 else -1
-    return total
+        total += (src >= low) + (dst >= low) + (row != -1 and _DMEM_CHI >= low)
+    return total * chunk * 2 ** (walk.m - walk.k)
 
 
 def _shift_dmem_plain(walk: _DmemWalk, theta, data):
@@ -1996,10 +2127,12 @@ def _shift_dmem_cuda(walk: _DmemWalk, theta, data):
     if not b:
         return out
     _, smem, sample, per = shift_dmem_geometry(walk, b)
-    tables = _on_device(walk, (walk.passes, walk.pass_ops, walk.pass_refs, walk.base_ops,
-                               walk.base_consts, walk.var_param, walk.var_shift, walk.f0_rows),
-                        dev)
-    passes, pass_ops, pass_refs, base_ops, base_consts, var_param, var_shift, f0_rows = tables
+    in_smem = _shift_dmem_smem(walk)[1]
+    tables = _on_device(walk, (walk.passes, walk.stage, walk.pass_ops, walk.pass_refs,
+                               walk.base_ops, walk.base_consts, walk.var_param, walk.var_shift,
+                               walk.f0_rows), dev)
+    (passes, stage, pass_ops, pass_refs, base_ops, base_consts, var_param, var_shift,
+     f0_rows) = tables
     scratch = torch.empty((per, sample // 4), dtype=torch.float32, device=dev)
     lib = _lib("vqc_shift_dmem")
     for b0 in range(0, b, per):
@@ -2009,9 +2142,9 @@ def _shift_dmem_cuda(walk: _DmemWalk, theta, data):
                 _ptr(theta[b0:b0 + n]), _ptr(data[b0:b0 + n]), n, theta.shape[1], data.shape[1],
                 _ptr(base_ops), _ptr(base_consts), len(walk.ops), _ptr(var_param),
                 _ptr(var_shift), len(walk.var_param), _ptr(passes), len(walk.passes),
-                _ptr(pass_ops), _ptr(pass_refs), walk.max_pass_ops, _ptr(f0_rows),
+                _ptr(stage), _ptr(pass_ops), _ptr(pass_refs), walk.max_pass_ops, _ptr(f0_rows),
                 len(walk.f0_rows), walk.m, walk.k, _ptr(scratch), sample // 4, _ptr(out), b, b0,
-                DMEM_THREADS, smem, _stream(dev),
+                int(in_smem), smem, _stream(dev),
             )
         _check_launch(lib, rc, "device-memory shift")
         _count("shift_dmem")

@@ -381,6 +381,42 @@ def test_shift_dmem_forced_matches_shared_memory_routes(cuda, qc, nl):
     torch.testing.assert_close(got, want, rtol=ROW_RTOL, atol=ROW_ATOL)
 
 
+@pytest.mark.parametrize("qc", [27, 29, 31])
+@pytest.mark.parametrize("groups", [(0,), (5,), (0, 2, 3, 30)],
+                         ids=["f0", "one-variant", "shifts-without-pair"])
+def test_shift_dmem_kernel_small_group_sets(cuda, qc, groups):
+    """The kernel against its plain version on group subsets that leave its
+    staging plan (m = 13), resident chi (m = 14) and streamed passes (m =
+    15) little to pair: f0 alone, one variant alone, and f0 with three
+    lone shifts of three parameters."""
+    spec = circuits.build_quclassi_circuit(qc, 1)
+    walk = K._shift_route(spec, False, groups, 64)  # f0 alone fits the single sweep at 227 KB
+    assert walk.route == "dmem" and walk.m == qc // 2
+    th, dt = _angles(spec, 33, cuda, seed=qc + len(groups))
+    before = K.LAUNCHES["shift_dmem"]
+    got = K.vqc_shift_fidelity(spec, th, dt, groups=groups, smem_budget=64)
+    assert K.LAUNCHES["shift_dmem"] == before + 1
+    want = K._shift_dmem_plain(walk, th, dt)
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    torch.testing.assert_close(got, want, rtol=ROW_RTOL, atol=ROW_ATOL)
+
+
+@pytest.mark.parametrize("qc", [27, 31])
+def test_shift_dmem_tables_in_device_memory_same_bits(cuda, qc, monkeypatch):
+    """Where the program's tables leave no room in shared memory the kernel
+    reads them from device memory, with the bits it gives with them copied
+    in: m = 13 (passes, staging plan, ops) and m = 15 (no staging plan)."""
+    spec = circuits.build_quclassi_circuit(qc, 1)
+    walk = K._shift_route(spec, False, tuple(range(1 + 2 * spec.n_theta)), K.SMEM_BUDGET_BYTES)
+    th, dt = _angles(spec, 33, cuda, seed=qc)
+    staged = K.vqc_shift_fidelity(spec, th, dt)
+    smem, in_smem = K._shift_dmem_smem(walk)
+    assert in_smem
+    monkeypatch.setattr(K, "SMEM_BUDGET_BYTES", smem - 1)
+    assert not K._shift_dmem_smem(walk)[1]
+    assert torch.equal(K.vqc_shift_fidelity(spec, th, dt), staged)
+
+
 def test_shift_dmem_launches_split_by_samples(cuda, monkeypatch):
     """A workspace of three samples' scratch: 8 samples of 27q-1l run in 3
     launches and give the bits of one launch."""

@@ -110,18 +110,28 @@ WIDE = [(27, 1, 13, 1), (27, 3, 13, 1), (29, 1, 14, 2), (31, 1, 15, 4), (33, 1, 
 @pytest.mark.parametrize("qc,nl,m,chunks", WIDE)
 def test_route_and_geometry(qc, nl, m, chunks):
     """m = 13-16 take the device-memory walk at 227 KB: one block a sample,
-    its shared memory one 64 KB chunk and the tables, every pass of k = 13
-    local qubits holding the three lowest-order ones; samples a launch as
-    the workspace holds them; the serving layer admits and sizes it."""
+    its shared memory three 64 KB chunks, two mbarriers and the tables
+    (the program's own too, where they fit: the staging plan at m = 13
+    only),
+    every pass of k = 13 local qubits holding the three lowest-order ones;
+    its scratch the checkpoints alone at m = 13 (chi and the variant slot
+    never leave shared memory), the variant slot too at m = 14 (chi
+    resident), every slot from m = 15; samples a launch as the workspace
+    holds them; the serving layer admits and sizes it."""
     spec = tcircuits.build_quclassi_circuit(qc, nl)
     gs = _all(spec)
     walk = K._shift_route(spec, False, gs, K.SMEM_BUDGET_BYTES)
     assert (walk.route, walk.m, walk.k) == ("dmem", m, K.DMEM_LOCAL_QUBITS)
     blocks, smem, sample, per = K.shift_dmem_geometry(walk, 1152)
-    assert blocks == 1 and 64 * 1024 < smem <= K.SMEM_BUDGET_BYTES
-    assert smem == 4 * (2 * 2**13 + 2 * walk.n_angles + 2 * walk.max_pass_ops) + 8 * 320 + 128
-    assert sample == (2 + len({p[0] for p in K.build_shift_plan(spec).theta_positions})) \
-        * K._state_bytes(m, 1)
+    assert blocks == 1 and 3 * 64 * 1024 < smem <= K.SMEM_BUDGET_BYTES
+    base = 4 * (6 * 2**13 + 64 + 2 * walk.n_angles + 2 * walk.max_pass_ops) + 8 * (2 + 320)
+    assert (walk.stage is None) == (m > 13)
+    tables = 4 * ((7 + 7 * (m == 13)) * len(walk.passes) + 7 * len(walk.pass_refs))
+    assert K._shift_dmem_smem(walk) == (smem, True)
+    assert smem == base + tables
+    n_ckpt = len({p[0] for p in K.build_shift_plan(spec).theta_positions})
+    kept = {13: 0, 14: 1}.get(m, 2)  # chi and the variant slot, from m = 15
+    assert sample == (n_ckpt + kept) * K._state_bytes(m, 1)
     assert per == min(1152, K.SHIFT_DMEM_WORKSPACE_BYTES // sample)
     info = K.shift_execution_info(spec, 1152)
     assert info["launches"] == -(-1152 // per) and info["scratch_bytes"] == per * sample
@@ -216,16 +226,130 @@ def test_m14_spans_cross_passes_match_single_sweep(qc, nl, tied):
 
 
 def test_traffic_counts_the_program():
-    """27q-3l: the data run and the forward runs store, each later forward
-    run's load skipped (its chunk still staged); every chi run loads and
-    stores; every variant loads and reads chi; f0 reads chi (its run's
-    chunk staged)."""
+    """27q-3l (m = 13): chi never leaves shared memory; the forward runs
+    store the 74 checkpoints; each parameter's checkpoint is loaded once
+    for its two shifts, but the deepest, still staged after the forward
+    runs: 147 chunks a sample, where the kernel this one redesigned moved
+    518 (chi's load/store round trips and its reads for the inner
+    products, every variant's own load).  29q-1l (m = 14): chi resident,
+    each pass moves its other slots' chunks."""
     spec = tcircuits.build_quclassi_circuit(27, 3)
     walk = K._shift_route(spec, False, _all(spec), K.SMEM_BUDGET_BYTES)
-    n_var, n_ckpt = len(walk.var_param), walk.n_slots - 2
-    chi_runs = sum(1 for r in walk.passes if r[0] == r[1] == 0)
-    per = 1 + n_ckpt + 1 + 2 * chi_runs + 2 * n_var
-    assert K.shift_dmem_traffic_bytes(walk) == per * K._state_bytes(13, 1)
+    n_ckpt, stage = walk.n_slots - 2, walk.stage
+    loads = np.concatenate([stage[:, 2][stage[:, 1] >= 0], stage[:, 6][stage[:, 5] >= 0]])
+    assert (n_ckpt, len(loads), len(set(loads.tolist()))) == (74, 73, 73)
+    assert loads.min() >= 2 and set(walk.passes[:, 1][walk.passes[:, 1] >= 2]) == \
+        set(range(2, 2 + n_ckpt))
+    assert K.shift_dmem_traffic_bytes(walk) == 147 * K._state_bytes(13, 1)
+    spec = tcircuits.build_quclassi_circuit(29, 1)
+    walk = K._shift_route(spec, False, _all(spec), K.SMEM_BUDGET_BYTES)
+    per = sum((r[0] >= 1) + (r[1] >= 1) for r in walk.passes.tolist())
+    assert K.shift_dmem_traffic_bytes(walk) == per * 2 * K._state_bytes(13, 1)
+
+
+@pytest.mark.parametrize("worker", [0, 1])
+def test_traffic_of_a_worker_half_bank_m13(worker):
+    """A worker's groups of the 2-worker round robin (27q-3l, both shifts
+    of every other parameter): 37 checkpoints stored, 36 loaded (the
+    deepest staged), 73 chunks a sample where the redesigned kernel moved
+    259-260, and none of chi's or the variant slot's."""
+    from repro_torch.comanager import dataplane
+
+    spec = tcircuits.build_quclassi_circuit(27, 3)
+    assign = dataplane.round_robin_assignment(len(_all(spec)), 2)
+    gs = tuple(g for g in _all(spec) if assign[g] == worker)
+    walk = K._shift_route(spec, False, gs, K.SMEM_BUDGET_BYTES)
+    assert walk.m == walk.k == 13 and walk.n_slots - 2 == 37
+    assert K.shift_dmem_traffic_bytes(walk) == 73 * K._state_bytes(13, 1)
+    stage = walk.stage
+    assert min(stage[:, 2][stage[:, 1] >= 0].tolist() + stage[:, 6][stage[:, 5] >= 0].tolist()) >= 2
+
+
+def _run_stage(walk):
+    """Run the staging plan symbolically, region by region, and return its
+    (loads, stores): each pass must find its source in its work region (a
+    checkpoint's stored value, |0...0> it makes, or chi in region 0), a
+    load must read a slot already stored into a region no thread touches
+    until it is waited for, and every load is waited for."""
+    value, region, loading = {}, {0: None, 1: None, 2: None}, {1: None, 2: None}
+    loads = stores = 0
+    for i, (row, st) in enumerate(zip(walk.passes.tolist(), walk.stage.tolist())):
+        src, dst, out = row[:3]
+        work, fetch, fetch_slot, wait, copy, load, load_slot = st
+
+        def issue(r, slot):
+            assert r in (1, 2) and loading[r] is None and slot in value, (i, r, slot)
+            loading[r], region[r] = ("slot", slot, value[slot]), "in flight"
+            return 1
+
+        loads += issue(fetch, fetch_slot) if fetch >= 0 else 0
+        if wait >= 0:
+            assert loading[wait] is not None, (i, wait)
+            region[wait], loading[wait] = loading[wait], None
+        assert all(loading[r] is None for r in (work, copy) if r > 0), (i, work, copy)
+        if src < 0:
+            region[work] = ("zero", i)
+        elif copy >= 0:
+            region[work] = region[copy]
+        if src >= 0:
+            assert region[work] == ("slot", src, value[src]), (i, region[work])
+        assert load < 0 or load != work
+        loads += issue(load, load_slot) if load >= 0 else 0
+        region[work] = ("pass", i)
+        if dst >= 0:
+            assert (work == 0) == (dst == 0), (i, work, dst)
+            stores += dst > 0
+            value[dst] = ("pass", i)
+            region[work] = ("slot", dst, value[dst])
+        if out != -1:
+            assert work != 0 and region[0] == ("slot", 0, value[0]), i
+    assert all(v is None for v in loading.values())
+    return loads, stores
+
+
+STAGED = [(27, 1, False, False), (27, 3, False, False)] + [f[:4] for f in FORCED]
+
+
+@pytest.mark.parametrize("qc,nl,tied,four", STAGED)
+def test_staging_plan_feeds_every_pass(qc, nl, tied, four):
+    """The one-chunk walk's staging plan, run symbolically on its whole bank,
+    each worker's round-robin groups and 12 random group sets (repeats and
+    lone shifts among them): every pass finds its state, no region is
+    touched while a load into it is in flight, and the traffic count is
+    the plan's loads and stores."""
+    build = tcircuits.build_tied_quclassi_circuit if tied else tcircuits.build_quclassi_circuit
+    spec = build(qc, nl)
+    gs = _all(spec, four)
+    rng = np.random.default_rng(qc * 10 + nl)
+    sets = [gs, gs[0::2], gs[1::2]] + [
+        tuple(rng.choice(len(gs), size=rng.integers(1, 9)).tolist()) for _ in range(12)]
+    for groups in sets:
+        walk = K._shift_dmem_walk(spec, four, groups)
+        assert walk.m == walk.k
+        loads, stores = _run_stage(walk)
+        assert stores == walk.n_slots - 2
+        assert K.shift_dmem_traffic_bytes(walk) == (loads + stores) * K._state_bytes(walk.k, 1)
+
+
+@pytest.mark.parametrize("qc,nl,m,chunks", WIDE)
+@pytest.mark.parametrize("worker", [None, 0, 1])
+def test_shared_memory_within_budget(qc, nl, m, chunks, worker):
+    """Every wide plan's block, whole bank or a worker's groups, fits the
+    232,448 bytes a block may use, and the serving layer's per-block
+    memory model (which sizes the whole bank) reads the whole bank's."""
+    from repro_torch.comanager import dataplane
+
+    spec = tcircuits.build_quclassi_circuit(qc, nl)
+    gs = _all(spec)
+    if worker is not None:
+        assign = dataplane.round_robin_assignment(len(gs), 2)
+        gs = tuple(g for g in gs if assign[g] == worker)
+    walk = K._shift_route(spec, False, gs, K.SMEM_BUDGET_BYTES)
+    smem = K.shift_dmem_geometry(walk, 1)[1]
+    assert walk.route == "dmem" and smem <= K.SMEM_BUDGET_BYTES == 232_448
+    if worker is None:
+        bank = tsr.build_shift_bank(torch.zeros(spec.n_theta), torch.zeros((2, spec.n_data)))
+        assert tapi.CostModel(shiftbank=True).bank_smem_bytes(spec, bank) == smem
 
 
 def test_multibank_bit_identical_per_lane_m13():
@@ -279,3 +403,4 @@ def test_crash_migration_replays_m13_bit_for_bit(mode):
     summary = rt.telemetry.summary()
     assert torch.equal(got, want)
     assert summary["migrated_batches"] >= 1 and rt.telemetry.mesh_spills == 0
+

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""In-turns timing of the float32 flash kernel and the device-memory route
-against the kernels they replaced, on one GPU.
+"""In-turns timing of the redesigned kernels against the kernels they
+replaced, on one GPU.
 
     mkdir -p build/parent
     git archive <old commit> src/repro_torch/kernels/csrc | tar -x -C build/parent
-    python3 tools/redesign_ab.py build/parent/src/repro_torch/kernels/csrc
+    python3 tools/redesign_ab.py build/parent/src/repro_torch/kernels/csrc [PART ...]
 
-Builds the old ``flash_attn.cu`` and ``vqc_fused.cu`` with the port's nvcc
-flags into ``build/parent_kernels/`` and gives old and new kernels the same
-inputs:
+PART is one or more of ``flash``, ``dmem``, ``dmem_shapes`` and
+``shift_dmem`` (default: all).  Builds the old sources the parts need
+(``flash_attn.cu``, ``vqc_fused.cu``, ``vqc_shift_dmem.cu``) with the
+port's nvcc flags into ``build/parent_kernels/`` and gives old and new
+kernels the same inputs:
 
   * flash, float32: the causal prefill shapes of ``chip_smoke.FLASH_SHAPES``
     (4 requests x 2048 tokens), each old and new against the plain version
@@ -20,7 +22,15 @@ inputs:
     (C = 256), 17q (C = 256 and C = 8) and 19q (C = 64), in the same turns;
     then the new route's launch shape alone: ``DMEM_THREADS`` 256 / 512 /
     1024, the cluster capped at 1 (one block a circuit) or not, and k = 12 /
-    13 / 14 local qubits.
+    13 / 14 local qubits;
+  * the shift walk's device-memory kernel (``shift_dmem_kernel``): QuClassi
+    27q-1l, 27q-3l (B = 100 and 1,152), 29q-1l and 33q-1l (B = 100), each
+    the whole bank and each worker's groups of the 2-worker round robin,
+    old and new rows held equal bit for bit (``torch.equal``), the whole
+    banks and every bank at B = 1,152 timed old, new, new, old.  The old
+    kernel runs on its own geometry (one chunk of shared memory, every slot
+    in scratch, 512 threads), its launches split by samples as its wrapper
+    split them.
 
 Prints a log and writes its records to ``chiprun_out/redesign_ab.json``.
 """
@@ -39,19 +49,25 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 from chip_smoke import (  # noqa: E402
-    FLASH_SHAPES, FLASH_TOL, PEAK_BYTES_PER_S, TOL, bound, device_ms, flash_inputs, log,
-    ptxas_spills, smi_line, time_ms)
+    FLASH_SHAPES, FLASH_TOL, PEAK_BYTES_PER_S, TOL, bound, device_ms, first_shift_traffic,
+    flash_inputs, log, ptxas_spills, smi_line, time_ms)
 
 DMEM_SHAPES = ((15, 256), (17, 256), (17, 8), (19, 64))
+#: the shift walk's A/B: (label, qubits, layers, batch sizes)
+SHIFT_SHAPES = (("27q-1l", 27, 1, (100,)), ("27q-3l", 27, 3, (100, 1152)),
+                ("29q-1l", 29, 1, (100,)), ("33q-1l", 33, 1, (100,)))
+#: the libraries each part needs from the parent
+PARENT_LIBS = {"flash": ("flash_attn",), "dmem": ("vqc_fused",), "dmem_shapes": (),
+               "shift_dmem": ("vqc_shift_dmem",)}
 
 
-def build_parent(src_dir: Path) -> dict[str, ctypes.CDLL]:
+def build_parent(src_dir: Path, names) -> dict[str, ctypes.CDLL]:
     from repro_torch.kernels import _build
 
     out_dir = ROOT / "build" / "parent_kernels"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("flash_attn", "vqc_fused"):
+    for name in names:
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"),
                str(src_dir / f"{name}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -63,11 +79,17 @@ def build_parent(src_dir: Path) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n{text}")
         log(f"parent {name}: ptxas spills {ptxas_spills(text)}")
         libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    libs["flash_attn"].flash_attn_launch.argtypes = [vp, vp, vp, vp] + [i32] * 6 + [vp]
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if "flash_attn" in libs:
+        libs["flash_attn"].flash_attn_launch.argtypes = [vp, vp, vp, vp] + [i32] * 6 + [vp]
     for fn in ("vqc_fidelity_dmem_launch", "vqc_state_dmem_launch"):
-        getattr(libs["vqc_fused"], fn).argtypes = (
-            [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, vp])
+        if "vqc_fused" in libs:
+            getattr(libs["vqc_fused"], fn).argtypes = (
+                [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, vp])
+    if "vqc_shift_dmem" in libs:
+        libs["vqc_shift_dmem"].vqc_shift_dmem_launch.argtypes = (
+            [vp, vp, i32, i32, i32, vp, vp, i32, vp, vp, i32, vp, i32, vp, vp, i32, vp, i32,
+             i32, i32, vp, i64, vp, i64, i64, i32, i32, vp])
     return libs
 
 
@@ -224,19 +246,108 @@ def dmem_shapes(dev, card: str) -> list:
     return out
 
 
+def old_shift_geometry(K, walk, b: int) -> tuple[int, int, int]:
+    """The replaced kernel's (shared-memory bytes, scratch bytes a sample,
+    samples a launch): one chunk, every slot in scratch."""
+    smem = (4 * (2 * 2**walk.k + 2 * walk.n_angles + 2 * walk.max_pass_ops)
+            + 8 * (256 + 64) + 4 * 32)
+    sample = walk.n_slots * K._state_bytes(walk.m, 1)
+    return smem, sample, max(1, min(b, K.SHIFT_DMEM_WORKSPACE_BYTES // sample))
+
+
+def shift_dmem_ab(libs, dev, card: str) -> dict:
+    from repro_torch.comanager import dataplane
+    from repro_torch.core import circuits
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import vqc_statevector as K
+
+    ptr, st = _build.ptr, _build.stream
+    lib = libs["vqc_shift_dmem"]
+    rows = []
+    for label, qc, nl, sizes in SHIFT_SHAPES:
+        spec = circuits.build_quclassi_circuit(qc, nl)
+        n_groups = 1 + 2 * spec.n_theta
+        assign = dataplane.round_robin_assignment(n_groups, 2)
+        sets = [tuple(range(n_groups))] + [
+            tuple(g for g in range(n_groups) if assign[g] == w) for w in range(2)]
+        for b in sizes:
+            rng = np.random.default_rng(qc + nl + b)
+            th = torch.tensor(rng.uniform(-np.pi, np.pi, (b, spec.n_theta)),
+                              dtype=torch.float32, device=dev)
+            dt = torch.tensor(rng.uniform(0.0, np.pi, (b, spec.n_data)), dtype=torch.float32,
+                              device=dev)
+            for gs in sets:
+                walk = K._shift_route(spec, False, gs, K.SMEM_BUDGET_BYTES)
+                tabs = K._on_device(walk, (walk.passes, walk.stage, walk.pass_ops,
+                                           walk.pass_refs, walk.base_ops, walk.base_consts,
+                                           walk.var_param, walk.var_shift, walk.f0_rows), dev)
+                passes, _, pass_ops, pass_refs, base_ops, base_consts, vp_, vs_, f0 = tabs
+                smem, sample, per = old_shift_geometry(K, walk, b)
+                scratch = torch.empty((per, sample // 4), dtype=torch.float32, device=dev)
+                old_out = torch.empty((walk.n_rows, b), dtype=torch.float32, device=dev)
+
+                def old(walk=walk, th=th, dt=dt, smem=smem, sample=sample, per=per,
+                        scratch=scratch, old_out=old_out, passes=passes, pass_ops=pass_ops,
+                        pass_refs=pass_refs, base_ops=base_ops, base_consts=base_consts,
+                        vp_=vp_, vs_=vs_, f0=f0):
+                    for b0 in range(0, th.shape[0], per):
+                        n = min(per, th.shape[0] - b0)
+                        rc = lib.vqc_shift_dmem_launch(
+                            ptr(th[b0:b0 + n]), ptr(dt[b0:b0 + n]), n, th.shape[1],
+                            dt.shape[1], ptr(base_ops), ptr(base_consts), len(walk.ops),
+                            ptr(vp_), ptr(vs_), len(walk.var_param), ptr(passes),
+                            len(walk.passes), ptr(pass_ops), ptr(pass_refs),
+                            walk.max_pass_ops, ptr(f0), len(walk.f0_rows), walk.m, walk.k,
+                            ptr(scratch), sample // 4, ptr(old_out), th.shape[0], b0, 512,
+                            smem, st(dev))
+                        if rc:
+                            raise RuntimeError(f"old shift_dmem launch failed: {rc}")
+                    return old_out
+
+                def new(spec=spec, th=th, dt=dt, gs=gs):
+                    return K.vqc_shift_fidelity(spec, th, dt, groups=gs)
+
+                got_old, got_new = old().clone(), new()
+                same = bool(torch.equal(got_old, got_new))
+                rec = {"shape": label, "B": b, "G": len(gs), "m": walk.m,
+                       "passes": len(walk.passes), "bit_equal": same,
+                       "max_abs_diff": float((got_old - got_new).abs().max()),
+                       "old_traffic_bytes": b * first_shift_traffic(K, walk),
+                       "new_traffic_bytes": b * K.shift_dmem_traffic_bytes(walk),
+                       "old_smem": smem, "new_smem": K.shift_dmem_geometry(walk, b)[1]}
+                timed = b == 1152 or len(gs) == n_groups
+                if timed:
+                    rec.update(turns(old, new, "shift_dmem_kernel", iters=5 if b > 100 else 10))
+                rows.append(rec)
+                log(f"shift_dmem {json.dumps(rec)} [{card}]")
+                if not same:
+                    raise AssertionError(f"shift_dmem {label} B={b} G={len(gs)}: old and new "
+                                         "rows differ")
+                del scratch, old_out, got_old, got_new
+    return {"rows": rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("redesign_ab: CUDA is not available", file=sys.stderr)
         return 1
-    if len(sys.argv) != 2:
+    parts = sys.argv[2:] or list(PARENT_LIBS)
+    if len(sys.argv) < 2 or set(parts) - set(PARENT_LIBS):
         print(__doc__, file=sys.stderr)
         return 2
     dev, card = torch.device("cuda", 0), smi_line()
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = build_parent(Path(sys.argv[1]))
-    result = {"card": card, "flash_f32": flash_ab(libs, dev, card),
-              "dmem": dmem_ab(libs, dev, card), "dmem_shapes": dmem_shapes(dev, card)}
+    libs = build_parent(Path(sys.argv[1]), sorted({n for p in parts for n in PARENT_LIBS[p]}))
+    result = {"card": card}
+    if "flash" in parts:
+        result["flash_f32"] = flash_ab(libs, dev, card)
+    if "dmem" in parts:
+        result["dmem"] = dmem_ab(libs, dev, card)
+    if "dmem_shapes" in parts:
+        result["dmem_shapes"] = dmem_shapes(dev, card)
+    if "shift_dmem" in parts:
+        result["shift_dmem"] = shift_dmem_ab(libs, dev, card)
     out = ROOT / "chiprun_out" / "redesign_ab.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
