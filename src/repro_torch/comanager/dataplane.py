@@ -27,6 +27,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.capabilities import declare
 from repro_torch.core import shift_rule
 from repro_torch.core.sim import CircuitSpec
@@ -97,14 +98,18 @@ def worker_batched_executor(spec: CircuitSpec, assignment: Sequence[int], n_work
     Implicit ``ShiftBank``s (``run(bank)``): ``assignment[g] = worker index
     for bank group g`` (length ``bank.n_groups``), and each worker executes
     its groups as one prefix-reuse kernel call over the whole sample batch.
+
+    Spans (``repro_torch.obs.span``): ``dataplane.run`` around a call, one
+    ``dataplane.worker`` per worker around its kernel call, and
+    ``dataplane.gather`` around the inverse-permutation gather.
     """
     assignment = np.asarray(assignment)
     # stable grouping permutation: rows sorted by worker, ties in bank order.
     order = np.argsort(assignment, kind="stable")
     inverse = np.argsort(order, kind="stable")
     bounds = np.searchsorted(assignment[order], np.arange(n_workers + 1))
-    per_worker = [order[bounds[w] : bounds[w + 1]] for w in range(n_workers)]
-    per_worker = [rows for rows in per_worker if rows.size]
+    busy = [w for w in range(n_workers) if bounds[w + 1] > bounds[w]]
+    per_worker = [order[bounds[w] : bounds[w + 1]] for w in busy]
     indices: dict = {}
 
     def _indices(device):
@@ -119,8 +124,12 @@ def worker_batched_executor(spec: CircuitSpec, assignment: Sequence[int], n_work
 
     def _run_rows(theta_bank: torch.Tensor, data_bank: torch.Tensor) -> torch.Tensor:
         rows, inv = _indices(theta_bank.device)
-        groups = [kops.vqc_fidelity(spec, theta_bank[r], data_bank[r]) for r in rows]
-        return torch.cat(groups)[inv]
+        groups = []
+        for w, r in zip(busy, rows):
+            with obs.span("dataplane.worker", worker=w, lanes=len(r)):
+                groups.append(kops.vqc_fidelity(spec, theta_bank[r], data_bank[r]))
+        with obs.span("dataplane.gather"):
+            return torch.cat(groups)[inv]
 
     def _run_shiftbank(bank: shift_rule.ShiftBank) -> torch.Tensor:
         if len(assignment) != bank.n_groups:
@@ -132,19 +141,23 @@ def worker_batched_executor(spec: CircuitSpec, assignment: Sequence[int], n_work
                 f"assignment must cover the bank's {bank.n_groups} groups or "
                 f"{bank.n_circuits} rows, got {len(assignment)} entries"
             )
-        outs = [
-            kops.vqc_fidelity_shiftgroups(
-                spec, bank.theta, bank.data, bank.four_term, tuple(int(g) for g in grp)
-            )
-            for grp in per_worker
-        ]
+        outs = []
+        for w, grp in zip(busy, per_worker):
+            with obs.span("dataplane.worker", worker=w, groups=len(grp),
+                          lanes=bank.n_samples):
+                outs.append(kops.vqc_fidelity_shiftgroups(
+                    spec, bank.theta, bank.data, bank.four_term, tuple(int(g) for g in grp)
+                ))
         _, inv = _indices(bank.theta.device)
-        return torch.cat(outs, 0)[inv].reshape(-1)  # (n_groups, B) flattened
+        with obs.span("dataplane.gather"):
+            return torch.cat(outs, 0)[inv].reshape(-1)  # (n_groups, B) flattened
 
     def run(theta_bank, data_bank=None):
         if isinstance(theta_bank, shift_rule.ShiftBank):
-            return _run_shiftbank(theta_bank)
-        return _run_rows(theta_bank, data_bank)
+            with obs.span("dataplane.run", groups=theta_bank.n_groups, workers=len(busy)):
+                return _run_shiftbank(theta_bank)
+        with obs.span("dataplane.run", rows=theta_bank.shape[0], workers=len(busy)):
+            return _run_rows(theta_bank, data_bank)
 
     return declare(run, shiftbank=True)
 

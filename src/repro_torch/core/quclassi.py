@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.api.capabilities import capabilities_of
 from repro_torch.core import circuits, fidelity as fid, segmentation, shift_rule
 from repro_torch.core.sim import CircuitSpec
@@ -155,39 +156,53 @@ def grad_shift(
     Dense-layer params, when present, are trained with exact chain-rule
     gradients holding theta fixed: autograd through the dense simulator, as
     the reference uses ``jax.grad``.
+
+    Spans (``repro_torch.obs.span``, recorded while a recorder is
+    installed): ``grad_shift`` around the call; inside it
+    ``grad_shift.bank_build``, per class ``grad_shift.execute`` (the
+    executor) and ``grad_shift.assemble`` (the chain rule), and
+    ``grad_shift.dense`` with ``.forward`` and ``.backward``.
     """
-    spec = cfg.spec
-    run = executor or shift_rule.default_executor(spec)
-    if implicit is None:
-        implicit = capabilities_of(run).shiftbank
-    with torch.no_grad():
-        banks, _ = build_class_banks(cfg, params, images, implicit=implicit)
-    onehot = F.one_hot(labels.long(), cfg.n_classes).to(torch.float32)
     b, np_ = images.shape[0], cfg.n_patches
+    with obs.span("grad_shift", batch=b, classes=cfg.n_classes,
+                  circuits=total_bank_circuits(cfg, b)):
+        run = executor or shift_rule.default_executor(cfg.spec)
+        if implicit is None:
+            implicit = capabilities_of(run).shiftbank
+        with obs.span("grad_shift.bank_build"), torch.no_grad():
+            banks, _ = build_class_banks(cfg, params, images, implicit=implicit)
+        onehot = F.one_hot(labels.long(), cfg.n_classes).to(torch.float32)
 
-    theta_grads, losses, fids_per_class = [], [], []
-    for c, bank in enumerate(banks):
-        fids = shift_rule.run_bank(run, bank)
-        f0, f_plus, f_minus = bank.split_results(fids)[:3]
-        # class score per image = mean patch fidelity; chain BCE through the
-        # per-image MEAN, then distribute to the per-patch estimates.
-        f_img = f0.reshape(b, np_).mean(-1)                       # (B,)
-        dfdt = (f_plus - f_minus) / 2.0                           # (P, B*Np)
-        df_img = dfdt.reshape(-1, b, np_).mean(-1)                # (P, B)
-        chain = fid.bce_grad_wrt_fidelity(f_img, onehot[:, c])    # (B,)
-        # 1/(B*C) normalization to match one_vs_all_loss's mean over (B, C)
-        theta_grads.append((df_img * chain[None, :]).mean(-1) / cfg.n_classes)
-        losses.append(fid.bce_loss(f_img, onehot[:, c]).mean())
-        fids_per_class.append(f_img)
+        theta_grads, losses, fids_per_class = [], [], []
+        for c, bank in enumerate(banks):
+            with obs.span("grad_shift.execute", **{"class": c}):
+                fids = shift_rule.run_bank(run, bank)
+            with obs.span("grad_shift.assemble", **{"class": c}):
+                f0, f_plus, f_minus = bank.split_results(fids)[:3]
+                # class score per image = mean patch fidelity; chain BCE
+                # through the per-image MEAN, then distribute to the
+                # per-patch estimates.
+                f_img = f0.reshape(b, np_).mean(-1)                       # (B,)
+                dfdt = (f_plus - f_minus) / 2.0                           # (P, B*Np)
+                df_img = dfdt.reshape(-1, b, np_).mean(-1)                # (P, B)
+                chain = fid.bce_grad_wrt_fidelity(f_img, onehot[:, c])    # (B,)
+                # 1/(B*C) normalization to match one_vs_all_loss's mean over (B, C)
+                theta_grads.append((df_img * chain[None, :]).mean(-1) / cfg.n_classes)
+                losses.append(fid.bce_loss(f_img, onehot[:, c]).mean())
+                fids_per_class.append(f_img)
 
-    grads = {"theta": torch.stack(theta_grads)}
-    if cfg.use_dense:
-        wb = {k: params[k].detach().requires_grad_(True) for k in ("w", "b")}
-        f = class_fidelities(cfg, dict(params, **wb), images)
-        dense = torch.autograd.grad(one_vs_all_loss(f, labels), [wb["w"], wb["b"]])
-        grads.update(w=dense[0], b=dense[1])
-    loss = torch.stack(losses).mean()
-    return loss, grads, torch.stack(fids_per_class, -1)
+        grads = {"theta": torch.stack(theta_grads)}
+        if cfg.use_dense:
+            with obs.span("grad_shift.dense"):
+                wb = {k: params[k].detach().requires_grad_(True) for k in ("w", "b")}
+                with obs.span("grad_shift.dense.forward"):
+                    dense_loss = one_vs_all_loss(
+                        class_fidelities(cfg, dict(params, **wb), images), labels)
+                with obs.span("grad_shift.dense.backward"):
+                    dense = torch.autograd.grad(dense_loss, [wb["w"], wb["b"]])
+                    del dense_loss   # the graph's teardown belongs to the backward
+            grads.update(w=dense[0], b=dense[1])
+        return torch.stack(losses).mean(), grads, torch.stack(fids_per_class, -1)
 
 
 def total_bank_circuits(cfg: QuClassiConfig, batch: int) -> int:

@@ -4,6 +4,12 @@ Per epoch (lines 4-26): start timer -> segment data / encode -> build the
 parameter-shift circuit bank -> execute every circuit in the bank through the
 chosen executor (the statevector kernels, per worker through the data plane)
 -> assemble gradients -> update parameters -> stop timer, record accuracy.
+
+With a recorder installed (``repro_torch.obs.set_recorder``), each batch is
+a ``train.step`` span holding ``train.h2d`` (the batch's copy to the
+device), ``grad_shift`` and its parts, ``train.update`` and
+``train.readback`` (the loss read back); ``train.eval`` covers the epoch's
+two accuracies.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import quclassi
 from repro_torch.core.quclassi import QuClassiConfig
 from repro_torch.data import pipeline
@@ -142,20 +149,26 @@ def train(
     for epoch in range(epochs):                       # line 4
         t0 = time.perf_counter()                      # line 5: epoch timer
         losses, n_circ = [], 0
-        for xb, yb in pipeline.batches(xtr, ytr, batch_size, seed=seed * 997 + epoch):
-            xb, yb = torch.as_tensor(xb, device=dev), torch.as_tensor(yb, device=dev)
-            if grad_mode == "shift":
-                loss, grads, _ = quclassi.grad_shift(
-                    cfg, params, xb, yb, executor=executor, implicit=implicit
-                )
-                n_circ += quclassi.total_bank_circuits(cfg, xb.shape[0])
-            else:
-                loss, grads, _ = quclassi.grad_autodiff(cfg, params, xb, yb)
-            updates, opt_state = opt.update(grads, opt_state, params)
-            params = optimizers.apply_updates(params, updates)
-            losses.append(float(loss))  # waits for the step's device work
+        batches = pipeline.batches(xtr, ytr, batch_size, seed=seed * 997 + epoch)
+        for i, (xb, yb) in enumerate(batches):
+            with obs.span("train.step", epoch=epoch, batch=i):
+                with obs.span("train.h2d"):
+                    xb = torch.as_tensor(xb, device=dev)
+                    yb = torch.as_tensor(yb, device=dev)
+                if grad_mode == "shift":
+                    loss, grads, _ = quclassi.grad_shift(
+                        cfg, params, xb, yb, executor=executor, implicit=implicit
+                    )
+                    n_circ += quclassi.total_bank_circuits(cfg, xb.shape[0])
+                else:
+                    loss, grads, _ = quclassi.grad_autodiff(cfg, params, xb, yb)
+                with obs.span("train.update"):
+                    updates, opt_state = opt.update(grads, opt_state, params)
+                    params = optimizers.apply_updates(params, updates)
+                with obs.span("train.readback"):
+                    losses.append(float(loss))  # waits for the step's device work
         wall = time.perf_counter() - t0               # lines 24-25
-        with torch.no_grad():
+        with obs.span("train.eval"), torch.no_grad():
             tr_acc = float(quclassi.accuracy(cfg, params, xtr_d, ytr_d))
             te_acc = float(quclassi.accuracy(cfg, params, xte_d, yte_d))
         rec = EpochRecord(epoch, float(np.mean(losses)), tr_acc, te_acc, wall, n_circ)

@@ -1,9 +1,12 @@
-"""repro_torch.obs — tracing + metrics for the multi-tenant serving stack.
+"""repro_torch.obs — tracing + metrics for the multi-tenant serving stack
+and the training step.
 
 One recorder serves both runtimes (virtual-clock simulation and real
 kernel dispatchers) because every clock in the stack is a caller-supplied
 float.  See ``trace.TraceRecorder`` for the hook surface and
 ``histogram.LogHistogram`` for the fixed-memory aggregation primitive.
+``set_recorder`` installs a recorder for the program's host spans
+(``span``), which the training step opens at its layer boundaries.
 """
 from repro_torch.obs.config import (
     FEDERATED_STAGES,
@@ -14,13 +17,17 @@ from repro_torch.obs.config import (
 from repro_torch.obs.histogram import LogHistogram
 from repro_torch.obs.trace import (
     OUTCOMES,
+    RANGE_PREFIX,
     STAGE_METRICS,
     CircuitTrace,
+    HostSpan,
     RoundEvent,
     TraceBuffer,
     TraceRecorder,
     WorkerSpan,
     WorkerTimeline,
+    set_recorder,
+    span,
     validate_trace,
 )
 
@@ -28,9 +35,11 @@ __all__ = [
     "FEDERATED_STAGES",
     "LIFECYCLE_STAGES",
     "OUTCOMES",
+    "RANGE_PREFIX",
     "RECOVERY_STAGES",
     "STAGE_METRICS",
     "CircuitTrace",
+    "HostSpan",
     "LogHistogram",
     "ObservabilityConfig",
     "RoundEvent",
@@ -38,5 +47,7 @@ __all__ = [
     "TraceRecorder",
     "WorkerSpan",
     "WorkerTimeline",
+    "set_recorder",
+    "span",
     "validate_trace",
 ]

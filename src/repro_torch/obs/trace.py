@@ -19,6 +19,13 @@ becomes *visible*.  Three cooperating pieces:
   ``ui.perfetto.dev``).
 * ``WorkerTimeline`` — per-worker busy/spill interval accounting (O(1)
   memory: integrals + counters, not interval lists).
+* ``HostSpan`` — the program's own nested intervals on host threads (the
+  layers of a training step: ``grad_shift`` and its parts, the data plane,
+  the trainer loop), opened through ``span()`` against the recorder that
+  ``set_recorder`` installed.  Per-name totals (count, duration, self time)
+  are O(1) memory; under an active ``torch.profiler`` each span is also an
+  ``rt:<name>`` range of the profiler's trace, so device work lines up
+  with the span its launch was made in.
 
 All clocks are caller-supplied floats — virtual seconds under the
 simulation's event loop, ``time.perf_counter()`` seconds in the real data
@@ -27,11 +34,16 @@ exports a bit-identical trace (the golden-file test pins this).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import json
 import threading
+import time
 from collections import deque
 from typing import Any, Iterable, Optional
+
+import torch
 
 from repro_torch.obs.config import (
     FEDERATED_STAGES,
@@ -124,6 +136,23 @@ class WorkerSpan:
     end: float
     kind: str = "batch"  # batch | spill | circuit
     name: Optional[str] = None
+    args: Optional[dict] = None
+
+
+@dataclasses.dataclass
+class HostSpan:
+    """One finished interval of the program's own work on a host thread
+    (``time.perf_counter()`` seconds), nested under the span open on the
+    same thread when it began; ``step`` is the id of the outermost span
+    open on that thread then (its own id for an outermost span)."""
+
+    span_id: int
+    parent_id: Optional[int]
+    step: int
+    name: str
+    thread: str
+    start: float
+    end: float
     args: Optional[dict] = None
 
 
@@ -332,6 +361,43 @@ class TraceBuffer:
                     }
                 )
 
+        hosts = self.records(HostSpan)
+        if hosts:
+            # one row per host thread, present only when the program's
+            # spans were recorded, so other traces stay byte-identical.
+            host_pid = 3001
+            threads = sorted({h.thread for h in hosts})
+            tid_of = {t: 1 + i for i, t in enumerate(threads)}
+            events.append(_meta(host_pid, "process_name", name="host spans"))
+            events.append(_meta(host_pid, "process_sort_index", sort_index=300))
+            for t in threads:
+                events.append(
+                    {
+                        "ph": "M",
+                        "name": "thread_name",
+                        "pid": host_pid,
+                        "tid": tid_of[t],
+                        "ts": 0,
+                        "args": {"name": t},
+                    }
+                )
+            for h in hosts:
+                args = {"span_id": h.span_id, "parent_id": h.parent_id, "step": h.step}
+                if h.args:
+                    args.update(h.args)
+                events.append(
+                    {
+                        "ph": "X",
+                        "cat": "span",
+                        "name": h.name,
+                        "pid": host_pid,
+                        "tid": tid_of[h.thread],
+                        "ts": h.start * us,
+                        "dur": (h.end - h.start) * us,
+                        "args": args,
+                    }
+                )
+
         trace = {"traceEvents": events, "displayTimeUnit": "ms"}
         if path is not None:
             with open(path, "w") as f:
@@ -371,6 +437,9 @@ class TraceRecorder:
         self.round_counts: dict[str, int] = {}
         self.events = 0
         self._next_span = 0
+        self._host_ids = itertools.count()
+        self._threads = threading.local()
+        self._span_totals: dict[str, list] = {}  # name -> [count, total_s, self_s]
 
     # ------------------------------------------------------------ sampling
     def sampled(self, seq: int) -> bool:
@@ -505,6 +574,33 @@ class TraceRecorder:
             )
             self._next_span += 1
 
+    # --------------------------------------------------------- host spans
+    def span(self, name: str, **args):
+        """Context manager: one ``HostSpan`` named ``name`` around the
+        block, a child of the span open on this thread.  Feeds the per-name
+        totals and the trace ring; while a ``torch.profiler`` is active it
+        also opens the range ``rt:<name>``."""
+        if not self.enabled:
+            return _NOOP
+        return _OpenSpan(self, name, args or None)
+
+    def _stack(self) -> list:
+        stack = getattr(self._threads, "stack", None)
+        if stack is None:
+            stack = self._threads.stack = []
+        return stack
+
+    def _close_span(self, rec: HostSpan, self_s: float) -> None:
+        with self._lock:
+            self.events += 1
+            tot = self._span_totals.get(rec.name)
+            if tot is None:
+                tot = self._span_totals[rec.name] = [0, 0.0, 0.0]
+            tot[0] += 1
+            tot[1] += rec.end - rec.start
+            tot[2] += self_s
+            self.buffer.append(rec)
+
     # -------------------------------------------------- federated rounds
     def round_event(
         self,
@@ -623,6 +719,13 @@ class TraceRecorder:
                 out["workers"] = {
                     w: tl.summary() for w, tl in sorted(self.timelines.items())
                 }
+            if self._span_totals:
+                # per host span name: count, summed duration and summed self
+                # time (duration less what its children cover), in seconds
+                out["spans"] = {
+                    name: {"count": n, "total_s": total, "self_s": own}
+                    for name, (n, total, own) in sorted(self._span_totals.items())
+                }
         stages = self.stage_summary()
         if stages:
             out["stages"] = stages
@@ -630,6 +733,88 @@ class TraceRecorder:
 
     def export_chrome_trace(self, path: Optional[str] = None) -> dict:
         return self.buffer.export_chrome_trace(path)
+
+
+#: the one context manager ``span()`` hands out while no recorder is
+#: installed (it holds no state, so every caller may share it).
+_NOOP = contextlib.nullcontext()
+#: prefix of the profiler ranges the program's spans open.
+RANGE_PREFIX = "rt:"
+
+
+class _OpenSpan:
+    """The context manager behind ``TraceRecorder.span``."""
+
+    __slots__ = ("rec", "name", "args", "span_id", "parent", "step", "start",
+                 "child_s", "range")
+
+    def __init__(self, rec: TraceRecorder, name: str, args: Optional[dict]):
+        self.rec, self.name, self.args = rec, name, args
+
+    def __enter__(self):
+        stack = self.rec._stack()
+        parent = stack[-1] if stack else None
+        self.span_id = next(self.rec._host_ids)
+        self.parent = parent
+        self.step = parent.step if parent is not None else self.span_id
+        self.child_s = 0.0
+        stack.append(self)
+        self.range = None
+        self.start = time.perf_counter()
+        if torch.autograd.profiler._is_profiler_enabled:
+            self.range = torch.profiler.record_function(RANGE_PREFIX + self.name)
+            self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+        end = time.perf_counter()
+        stack = self.rec._stack()
+        stack.pop()
+        dur = end - self.start
+        if self.parent is not None:
+            self.parent.child_s += dur
+        rec = HostSpan(
+            span_id=self.span_id,
+            parent_id=None if self.parent is None else self.parent.span_id,
+            step=self.step,
+            name=self.name,
+            thread=threading.current_thread().name,
+            start=self.start,
+            end=end,
+            args=self.args,
+        )
+        self.rec._close_span(rec, dur - self.child_s)
+
+
+# ------------------------------------------------- the installed recorder
+#: the recorder the program's span sites record into; None (the default)
+#: makes every site cost one global read and a call.
+_recorder: Optional[TraceRecorder] = None
+_recorder_lock = threading.Lock()
+
+
+def set_recorder(rec: Optional[TraceRecorder]) -> Optional[TraceRecorder]:
+    """Install ``rec`` as the recorder of the program's host spans (None
+    uninstalls) and return the previous one, so callers can restore it.
+    The swap is atomic under a lock; a span site reads the recorder once,
+    so a span opened on another thread records into the old recorder or
+    the new one, never half into each."""
+    global _recorder
+    with _recorder_lock:
+        prev, _recorder = _recorder, rec
+    return prev
+
+
+def span(name: str, **args):
+    """A span named ``name`` in the installed recorder (``with
+    obs.span("grad_shift.dense"): ...``), or, with none installed, a shared
+    context manager that does nothing."""
+    rec = _recorder
+    if rec is None:
+        return _NOOP
+    return rec.span(name, **args)
 
 
 def _key_str(key) -> str:
@@ -676,11 +861,15 @@ def validate_trace(records: Iterable[CircuitTrace]) -> list[str]:
 
 __all__ = [
     "OUTCOMES",
+    "RANGE_PREFIX",
     "STAGE_METRICS",
     "CircuitTrace",
+    "HostSpan",
     "TraceBuffer",
     "TraceRecorder",
     "WorkerSpan",
     "WorkerTimeline",
+    "set_recorder",
+    "span",
     "validate_trace",
 ]

@@ -642,6 +642,55 @@ def test_training_step_on_card(cuda):
     assert all(v.is_cuda for v in rep.params.values())
 
 
+def test_spans_on_card_tie_kernels_to_the_dense_backward(cuda, tmp_path):
+    """A 7q-3l gradient through the data plane on the card: the same bits
+    with and without a recorder, and under the profiler the program's
+    ``rt:`` ranges share the trace with the kernels, some launched (on
+    autograd's device thread) inside ``grad_shift.dense.backward``."""
+    import json
+
+    from repro_torch import obs
+    from repro_torch.comanager import dataplane
+
+    cfg = quclassi.QuClassiConfig(qc=7, n_layers=3)
+    params = quclassi.init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    x, y = mnist.make_pair_dataset(1, 5, n_per_class=8, seed=0)
+    x, y = torch.as_tensor(x, device=cuda), torch.as_tensor(y, device=cuda)
+    run = dataplane.worker_batched_executor(
+        cfg.spec, dataplane.round_robin_assignment(1 + 2 * cfg.n_theta, 4), 4)
+
+    def grad():
+        return quclassi.grad_shift(cfg, params, x, y, executor=run, implicit=True)
+
+    want = grad()
+    rec = obs.TraceRecorder()
+    prev = obs.set_recorder(rec)
+    try:
+        got = grad()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            grad()
+            torch.cuda.synchronize()
+    finally:
+        obs.set_recorder(prev)
+    assert torch.equal(got[0], want[0])
+    for k in want[1]:
+        assert torch.equal(got[1][k], want[1][k]), k
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    ev = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    ranges = {e["name"] for e in ev if e.get("name", "").startswith(obs.RANGE_PREFIX)}
+    assert {"rt:grad_shift", "rt:dataplane.worker", "rt:grad_shift.dense.backward"} <= ranges
+    (back,) = [e for e in ev if e.get("cat") == "user_annotation"
+               and e.get("name") == "rt:grad_shift.dense.backward"]
+    kernels = {e["args"]["correlation"] for e in ev if e.get("cat") == "kernel"}
+    inside = [e for e in ev if e.get("cat") == "cuda_runtime"
+              and e.get("args", {}).get("correlation") in kernels
+              and back["ts"] <= e["ts"] < back["ts"] + back["dur"]]
+    assert inside
+    assert rec.summary()["spans"]["dataplane.worker"]["count"] == 2 * 2 * 4
+
+
 #: flash attention: float32 (summation order) and bfloat16 (one rounding of
 #: the output), the reference's own tolerances
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
