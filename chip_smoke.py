@@ -2989,6 +2989,135 @@ def quclassi13():
                            for w in range(n_workers)]
 
 
+#: images a step of the benchmark's cell train.7q3l.b4096, the shape at
+#: which phase 4 times the dense layer's register kernel
+DENSE_TIME_BATCH = 4096
+#: the register kernel against its plain version: float32 with another
+#: summation order (block partials in block order against one matmul), so
+#: within this share of the largest element
+DENSE_PLAIN_RTOL = 1e-4
+
+
+def dense_grad_cost(m: int, n_classes: int, patch_dim: int, n: int, n_images: int,
+                    blocks: int, n_theta: int) -> tuple[int, int]:
+    """(flops, bytes) of ``dense_grad_kernel`` and its reduction over ``n``
+    patches.  Per patch and class: 2**m amplitudes of 3m - 1 complex
+    products (6 flops) and m + 1 complex sums (2), then 2m angle derivatives
+    of 2 products and 6 flops more, and the fidelity (3); per patch the
+    3 factors of each qubit (two rotations of 8 flops), the sigmoid's chain
+    (3 an angle) and the outer product into dW (2 a weight) and db (1).
+    Bytes: angles, patches, the chain weights (a row an image) and theta
+    in, the partials written and read back, the gradient out."""
+    a, elems = 2 * m, patch_dim * 2 * m + 2 * m
+    per_class = 2**m * (6 * (3 * m - 1) + 2 * (m + 1)) + a * (12 + 6) + 3
+    flops = n * (n_classes * per_class + 3 * m * 16 + 3 * a + 2 * patch_dim * a + a)
+    flops += blocks * elems
+    nbytes = 4 * (n * (a + patch_dim) + n_images * n_classes + n_classes * n_theta
+                  + 2 * blocks * elems + elems)
+    return flops, nbytes
+
+
+def dense_grad_phase(dev, card: str, shapes: dict) -> tuple[dict, float, dict]:
+    """Phase 4's check of the dense layer's register kernel and its
+    reduction (``kernels/dense_grad.py``) on the card.  ``shapes``:
+    {label: (cfg, params, images, labels)}, each a training step's shape;
+    a step of the benchmark's cell (7q-3l, ``DENSE_TIME_BATCH`` images) is
+    added.  At each: the launch counts zeroed, then one launch of each
+    kernel a call; the gradient against the plain version on the CPU
+    (``DENSE_PLAIN_RTOL``) and against autograd through the dense
+    simulator (``quclassi._dense_grad_simulator``) at the chain-scaled
+    tolerance TOL (c + c**2), c = max |(f - y) / (f (1 - f))| over the
+    scores the loss's clamp leaves inside [eps, 1 - eps]; two calls bit-equal.
+    The benchmark's shape is timed.  Returns (launches, max_abs_err against
+    the plain version, record)."""
+    import torch.nn.functional as F_
+
+    from repro_torch.core import fidelity, quclassi
+    from repro_torch.kernels import dense_grad
+    from repro_torch.kernels import vqc_statevector as K
+
+    cfg7 = shapes["7q-3l"][0]
+    g = torch.Generator().manual_seed(0)
+    shapes = dict(shapes)
+    shapes[f"7q-3l B={DENSE_TIME_BATCH}"] = (
+        cfg7, quclassi.init_params(cfg7, g, dev),
+        torch.rand((DENSE_TIME_BATCH, *cfg7.image_size), generator=g).to(dev),
+        torch.randint(0, cfg7.n_classes, (DENSE_TIME_BATCH,), generator=g).to(dev))
+    counts, worst, record = {key: 0 for key in K.LAUNCHES}, 0.0, {}
+    for label, (cfg, params, images, labels) in shapes.items():
+        plan = dense_grad.route_plan(cfg.qc, cfg.n_layers, cfg.n_classes, cfg.patch_dim)
+        if plan is None:
+            raise AssertionError(f"dense {label}: the register route refuses the shape")
+        with torch.no_grad():
+            angles, patches = quclassi.encode_images(cfg, params, images)
+            fids = quclassi.class_fidelities(cfg, params, images)
+        onehot = F_.one_hot(labels.long(), cfg.n_classes).to(torch.float32)
+        weights = quclassi.dense_chain_weights(fids, onehot, cfg.n_patches)
+        args = (plan, params["theta"], angles, patches, weights, cfg.n_patches)
+
+        def pair(args=args, cfg=cfg):
+            parts = dense_grad.register_partials(*args)
+            return dense_grad.reduce_partials(parts, cfg.patch_dim, cfg.n_angles), parts
+
+        torch.cuda.synchronize()
+        for key in K.LAUNCHES:
+            K.LAUNCHES[key] = 0
+        (gw, gb), parts = pair()
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+        if {k: n for k, n in got.items() if n} != {"dense_grad": 1, "dense_reduce": 1}:
+            raise AssertionError(f"dense {label}: launches {got}, not one of each kernel")
+        for key, n in got.items():
+            counts[key] += n
+        (aw, ab), _ = pair()
+        if not (torch.equal(aw, gw) and torch.equal(ab, gb)):
+            raise AssertionError(f"dense {label}: two calls differ")
+        pw, pb = dense_grad.reduce_partials(
+            dense_grad.register_partials(plan, *(t.cpu() for t in args[1:5]), cfg.n_patches),
+            cfg.patch_dim, cfg.n_angles)
+        err = max(float((gw.cpu() - pw).abs().max()), float((gb.cpu() - pb).abs().max()))
+        tol = DENSE_PLAIN_RTOL * max(float(pw.abs().max()), float(pb.abs().max()))
+        worst = max(worst, err)
+        log(f"  dense_grad    {label:44s} max|diff| = {err:.3e} (plain, tol {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"dense {label}: max|diff| to the plain version {err} > {tol}")
+        sim = quclassi._dense_grad_simulator(cfg, params, images, labels)
+        f = fids.cpu().numpy()
+        inside = (f >= fidelity._EPS) & (f <= 1 - fidelity._EPS)
+        fc = np.clip(f, fidelity._EPS, 1 - fidelity._EPS)
+        c = float(np.abs((fc - onehot.cpu().numpy()) / (fc * (1 - fc)))[inside].max())
+        tol = TOL * (c + c**2)
+        err = max(float((gw - sim["w"]).abs().max()), float((gb - sim["b"]).abs().max()))
+        log(f"  dense_grad    {label:44s} max|diff| = {err:.3e} (dense simulator, tol "
+            f"{tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"dense {label}: max|diff| to the simulator {err} > {tol}")
+        if label.endswith(f"B={DENSE_TIME_BATCH}"):
+            n = angles.shape[0]
+            flops, nbytes = dense_grad_cost(plan.m, cfg.n_classes, cfg.patch_dim, n,
+                                            images.shape[0], parts.shape[0], cfg.n_theta)
+            ms = time_ms(pair)
+            dev_kernel = device_ms(pair, "dense_grad_kernel")
+            dev_reduce = device_ms(pair, "dense_reduce_kernel")
+            dev_ms = (None if dev_kernel is None or dev_reduce is None
+                      else dev_kernel + dev_reduce)
+            cpu_args = [t.cpu() for t in args[1:5]]
+            plain_ms = time_ms(lambda: dense_grad.register_partials(
+                plan, *cpu_args, cfg.n_patches), iters=2, warmup=1)
+            bound_ms, bound_by = bound(flops, nbytes)
+            record = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "shape": f"{label}: {n} patches, {parts.shape[0]} blocks",
+                      "reduce": {"device_ms": dev_reduce, "launches": counts["dense_reduce"]}}
+            shown = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+            log(f"  time dense_grad    {record['shape']}: kernel and reduction {ms:.4f} ms "
+                f"(events; device time {shown}, the reduction's "
+                f"{'not measured' if dev_reduce is None else f'{dev_reduce:.4f} ms'}), plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}; {flops} flops, "
+                f"{nbytes} bytes) [{card}]")
+    return counts, worst, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs a GPU", file=sys.stderr)
@@ -3453,9 +3582,12 @@ def main() -> int:
         if not all(torch.isfinite(v).all() for v in rep.params.values()):
             raise AssertionError(f"{label}: parameters are not finite")
         wanted = ("shift_forward", "shift_tile") if want == "shift_tile" else (want,)
-        for key in wanted:
+        for key in wanted + ("dense_grad", "dense_reduce"):  # every run trains w and b
             if counts[key] <= 0:
                 raise AssertionError(f"{label}: the {key} kernel was never launched")
+        if counts["dense_grad"] != counts["dense_reduce"]:
+            raise AssertionError(f"{label}: the dense gradient's two kernels launched "
+                                 f"{counts['dense_grad']} and {counts['dense_reduce']} times")
     diff = float((first["7q implicit"][1] - first["7q materialized"][1]).abs().max())
     log(f"train 7q: first-step fidelities, implicit vs materialized: max|diff| = {diff:.3e}")
     if not diff <= TOL:
@@ -3494,6 +3626,12 @@ def main() -> int:
     # where one gradient step's time goes (after the counts were read)
     xb = torch.as_tensor(train_set[0][:batch], device=dev)
     yb = torch.as_tensor(train_set[1][:batch], device=dev)
+    log("checks: the dense layer's register kernel and its reduction at the step shapes")
+    dense_counts, errs["dense_grad"], records["dense_grad"] = dense_grad_phase(
+        dev, card, {"7q-3l": (cfg, inits["7q implicit"], xb, yb),
+                    "13q-3l": (cfg13, inits["13q implicit"], xb, yb)})
+    for key, n in dense_counts.items():
+        launches[key] += n
     for label, (c, mode, _, run) in runs.items():
         def step(c=c, run=run, mode=mode, init=inits[label]):
             loss, _, _ = quclassi.grad_shift(c, init, xb, yb, executor=run,
@@ -3579,6 +3717,11 @@ def main() -> int:
         {"name": "shift_dmem", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/vqc_shift_dmem.cu",
          "replaces": "src/repro/kernels/vqc_statevector.py:822"},
+        # the dense layer's gradient on the two registers, in place of
+        # jax.grad through the dense simulator; its reduction under "reduce"
+        {"name": "dense_grad", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/vqc_dense_grad.cu",
+         "replaces": "src/repro/core/quclassi.py:196"},
         {"name": "flash", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:31"},
@@ -3586,6 +3729,8 @@ def main() -> int:
     for k in kernels:
         n = k["name"]
         k.update(launches=launches[n], max_abs_err=errs[n], **{"library_ms": None, **records[n]})
+        if n == "dense_grad":
+            k["reduce"]["launches"] = launches["dense_reduce"]
         if f"{n}_dmem" in dmem_records:  # the device-memory route, as flash carries "simt"
             k["dmem"] = {"route": "cuda", "source": k["source"], "replaces": k["replaces"],
                          "launches": launches[f"{n}_dmem"], "max_abs_err": errs[f"{n}_dmem"],

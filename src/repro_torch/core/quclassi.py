@@ -10,7 +10,8 @@ Pipeline per image:
 Two gradient paths:
   * ``grad_shift``    — the paper's distributed path: parameter-shift circuit
     bank per class, executable by any ``Executor`` (the statevector kernels,
-    per worker through the data plane).
+    per worker through the data plane); the dense layer's exact gradient on
+    the two m-qubit registers (``kernels/dense_grad.py``).
   * ``grad_autodiff`` — exact gradients through the dense simulator.
 """
 from __future__ import annotations
@@ -26,6 +27,7 @@ from repro_torch import obs
 from repro_torch.api.capabilities import capabilities_of
 from repro_torch.core import circuits, fidelity as fid, segmentation, shift_rule
 from repro_torch.core.sim import CircuitSpec
+from repro_torch.kernels import dense_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +125,14 @@ def grad_autodiff(cfg: QuClassiConfig, params: dict, images, labels):
     return loss.detach(), dict(zip(leaves, grads)), f.detach()
 
 
+def encode_images(cfg: QuClassiConfig, params: dict, images: torch.Tensor):
+    """(B, H, W) images -> (angles (B*Np, A), patches (B*Np, w*w)): each
+    patch and the rotation angles it encodes."""
+    patches = segmentation.segment(images, cfg.seg)
+    angles = encode_patches(cfg, params, patches).reshape(-1, cfg.n_angles)
+    return angles, patches.reshape(-1, cfg.patch_dim)
+
+
 def build_class_banks(
     cfg: QuClassiConfig, params: dict, images: torch.Tensor, implicit: bool = False
 ):
@@ -132,11 +142,23 @@ def build_class_banks(
     circuit for class c.  Total circuits = C * (B*Np) * (2*P + 1).
     ``implicit=True`` builds ``ShiftBank``s (base angles + shift descriptors).
     """
-    patches = segmentation.segment(images, cfg.seg)
-    angles = encode_patches(cfg, params, patches).reshape(-1, cfg.n_angles)
+    angles, _ = encode_images(cfg, params, images)
+    return _banks_of(params, angles, cfg.n_classes, implicit), angles
+
+
+def _banks_of(params: dict, angles: torch.Tensor, n_classes: int, implicit: bool) -> list:
     build = shift_rule.build_shift_bank if implicit else shift_rule.build_bank
-    banks = [build(params["theta"][c], angles) for c in range(cfg.n_classes)]
-    return banks, angles
+    return [build(params["theta"][c], angles) for c in range(n_classes)]
+
+
+def dense_chain_weights(fids: torch.Tensor, onehot: torch.Tensor, n_patches: int):
+    """dL/dF of one patch, (B, C), from each image's class score ``fids``
+    (B, C): ``one_vs_all_loss``'s BCE derivative with its 1/(B*C) mean and
+    the patch mean's 1/Np, zero where ``bce_loss``'s clamp to [eps, 1 - eps]
+    holds the score, as autograd's is there (a NaN score keeps its NaN)."""
+    outside = (fids < fid._EPS) | (fids > 1.0 - fid._EPS)
+    chain = torch.where(outside, 0.0, fid.bce_grad_wrt_fidelity(fids, onehot))
+    return chain / (fids.numel() * n_patches)
 
 
 def grad_shift(
@@ -154,14 +176,27 @@ def grad_shift(
     when the executor declares the ``shiftbank`` capability).
 
     Dense-layer params, when present, are trained with exact chain-rule
-    gradients holding theta fixed: autograd through the dense simulator, as
-    the reference uses ``jax.grad``.
+    gradients holding theta fixed, on one of two routes:
+
+    * "register" (``dense_grad.route_plan``, decided once a configuration:
+      registers of up to m = 12 qubits): dF/dx analytically on the two
+      m-qubit registers (F = |<phi(x)|psi(theta)>|^2, phi a product
+      state), chained through the loss's weights at the bank's class
+      scores (``dense_chain_weights``) and the sigmoid, and summed into w
+      and b in a fixed order: ``dense_grad_kernel`` and its reduction on the card,
+      their plain versions on the CPU.  Two calls give the same bits.
+    * "simulator" (m >= 13, or psi too wide for a block): autograd
+      through ``class_fidelities`` and the dense simulator, as the
+      reference uses ``jax.grad``.
 
     Spans (``repro_torch.obs.span``, recorded while a recorder is
     installed): ``grad_shift`` around the call; inside it
     ``grad_shift.bank_build``, per class ``grad_shift.execute`` (the
     executor) and ``grad_shift.assemble`` (the chain rule), and
-    ``grad_shift.dense`` with ``.forward`` and ``.backward``.
+    ``grad_shift.dense`` (arg ``route``) with ``.forward`` (the chain
+    weights and the register kernel, or the simulator's fidelities and the
+    loss) and ``.backward`` (the partials' reduction into w and b, or
+    ``torch.autograd.grad`` and the graph's teardown).
     """
     b, np_ = images.shape[0], cfg.n_patches
     with obs.span("grad_shift", batch=b, classes=cfg.n_classes,
@@ -170,7 +205,8 @@ def grad_shift(
         if implicit is None:
             implicit = capabilities_of(run).shiftbank
         with obs.span("grad_shift.bank_build"), torch.no_grad():
-            banks, _ = build_class_banks(cfg, params, images, implicit=implicit)
+            angles, patches = encode_images(cfg, params, images)
+            banks = _banks_of(params, angles, cfg.n_classes, implicit)
         onehot = F.one_hot(labels.long(), cfg.n_classes).to(torch.float32)
 
         theta_grads, losses, fids_per_class = [], [], []
@@ -192,17 +228,33 @@ def grad_shift(
                 fids_per_class.append(f_img)
 
         grads = {"theta": torch.stack(theta_grads)}
+        fids = torch.stack(fids_per_class, -1)                            # (B, C)
         if cfg.use_dense:
-            with obs.span("grad_shift.dense"):
-                wb = {k: params[k].detach().requires_grad_(True) for k in ("w", "b")}
-                with obs.span("grad_shift.dense.forward"):
-                    dense_loss = one_vs_all_loss(
-                        class_fidelities(cfg, dict(params, **wb), images), labels)
-                with obs.span("grad_shift.dense.backward"):
-                    dense = torch.autograd.grad(dense_loss, [wb["w"], wb["b"]])
-                    del dense_loss   # the graph's teardown belongs to the backward
-            grads.update(w=dense[0], b=dense[1])
-        return torch.stack(losses).mean(), grads, torch.stack(fids_per_class, -1)
+            plan = dense_grad.route_plan(cfg.qc, cfg.n_layers, cfg.n_classes, cfg.patch_dim)
+            with obs.span("grad_shift.dense", route="simulator" if plan is None else "register"):
+                if plan is None:
+                    grads.update(_dense_grad_simulator(cfg, params, images, labels))
+                else:
+                    with obs.span("grad_shift.dense.forward"), torch.no_grad():
+                        weights = dense_chain_weights(fids, onehot, np_)
+                        partials = dense_grad.register_partials(
+                            plan, params["theta"], angles, patches, weights, np_)
+                    with obs.span("grad_shift.dense.backward"):
+                        gw, gb = dense_grad.reduce_partials(partials, cfg.patch_dim, cfg.n_angles)
+                    grads.update(w=gw, b=gb)
+        return torch.stack(losses).mean(), grads, fids
+
+
+def _dense_grad_simulator(cfg: QuClassiConfig, params: dict, images, labels) -> dict:
+    """The dense layer's gradient by autograd through ``class_fidelities``
+    (the whole SWAP-test circuit on the dense simulator), theta held."""
+    wb = {k: params[k].detach().requires_grad_(True) for k in ("w", "b")}
+    with obs.span("grad_shift.dense.forward"):
+        dense_loss = one_vs_all_loss(class_fidelities(cfg, dict(params, **wb), images), labels)
+    with obs.span("grad_shift.dense.backward"):
+        dense = torch.autograd.grad(dense_loss, [wb["w"], wb["b"]])
+        del dense_loss   # the graph's teardown belongs to the backward
+    return {"w": dense[0], "b": dense[1]}
 
 
 def total_bank_circuits(cfg: QuClassiConfig, batch: int) -> int:

@@ -25,8 +25,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 #: one shared library per source file
-KERNELS = ("vqc_fused", "vqc_shiftbank", "vqc_spill", "vqc_shift_dmem", "flash_attn",
-           "flash_attn_sm90")
+KERNELS = ("vqc_fused", "vqc_shiftbank", "vqc_spill", "vqc_shift_dmem", "vqc_dense_grad",
+           "flash_attn", "flash_attn_sm90")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

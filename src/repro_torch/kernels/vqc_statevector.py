@@ -154,10 +154,13 @@ DMEM_WORKSPACE_BYTES = 1 << 30
 
 #: kernel launches per wrapper; counted only where a CUDA kernel launches
 #: (``fidelity_dmem`` / ``state_dmem``: the device-memory route of the
-#: fidelity and state kernels; ``shift_dmem``: the shift walk's).  The async dispatcher launches from several
+#: fidelity and state kernels; ``shift_dmem``: the shift walk's;
+#: ``dense_grad`` and ``dense_reduce``: the dense layer's register kernel,
+#: ``dense_grad.py``, and the reduction of its partials).  The async dispatcher launches from several
 #: threads, so every increment goes through ``_count`` under a lock.
 LAUNCHES = {"fidelity": 0, "state": 0, "shiftbank": 0, "shift_forward": 0, "shift_tile": 0,
-            "fidelity_dmem": 0, "state_dmem": 0, "shift_dmem": 0}
+            "fidelity_dmem": 0, "state_dmem": 0, "shift_dmem": 0, "dense_grad": 0,
+            "dense_reduce": 0}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -494,6 +497,14 @@ def _declare(name: str, lib):
              i32, i32, i32, vp, i64, vp, i64, i64, i32, i32, vp]
         )
         lib.vqc_shift_dmem_launch.restype = i32
+    elif name == "vqc_dense_grad":
+        lib.vqc_dense_grad_launch.argtypes = (
+            [vp, i32, i32, vp, vp, i32, vp, vp, i32, vp, i32, vp, i32, vp, i32,
+             ctypes.c_longlong, i32, i32, vp, i32, vp]
+        )
+        lib.vqc_dense_grad_launch.restype = i32
+        lib.vqc_dense_reduce_launch.argtypes = [vp, i32, i32, vp, vp]
+        lib.vqc_dense_reduce_launch.restype = i32
     else:
         lib.vqc_shift_forward_launch.argtypes = (
             [vp, vp, i32, i32, i32, vp, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp, i32, i32, vp]

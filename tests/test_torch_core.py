@@ -209,6 +209,109 @@ def test_quclassi_gradients_match_reference(qc, nl):
     _close(tq.accuracy(tcfg, tparams, tx, ty), jq.accuracy(jcfg, jparams, jx, jy), 0)
 
 
+def _clamped_batch(qc, nl):
+    """Two images whose class-0 score puts image 0 under the loss's eps:
+    its patches encode x0 = pi / 2 (z = 0) and x_j ~ 0 (z = -40), against a
+    class-0 register whose qubit 0 is 6.3e-5 off orthogonal to that angle
+    (F ~ 1e-9; the dense simulator reads 0).  Image 1 scores in range."""
+    cfg = tq.QuClassiConfig(qc=qc, n_layers=nl)
+    params = tq.init_params(cfg, torch.Generator().manual_seed(1))
+    params["theta"][0] = 0.0
+    params["theta"][0, :2] = torch.tensor([np.pi / 2 - 6.3e-5, np.pi / 2])
+    params["w"] = torch.zeros_like(params["w"])
+    params["w"][:, 0] = 1.0
+    params["b"] = torch.full_like(params["b"], -40.0)
+    params["b"][0] = 0.0
+    x = np.zeros((2, 8, 8), np.float32)
+    x[1] = np.random.default_rng(0).uniform(0, 1, (8, 8))
+    return cfg, params, x, np.zeros(2, np.int64)
+
+
+@pytest.mark.parametrize("batch", ["digits", "clamped"])
+@pytest.mark.parametrize("qc,nl", [(5, 1), (5, 2), (5, 3), (7, 1), (7, 2), (7, 3)])
+def test_dense_register_route_matches_autograd_and_reference(qc, nl, batch):
+    """``grad_shift``'s dense gradient on the register route (the plain
+    version on the CPU) against autograd through the dense simulator and
+    against the reference's ``jax.grad``, at the chain-scaled tolerance
+    (its c over the scores the loss's clamp leaves inside [eps, 1 - eps]).
+    The clamped batch holds an image scored under eps: its weight is
+    zero, as autograd's is, where the unmasked BCE weight would move the
+    gradient by far more than the tolerance."""
+    from repro_torch.kernels import dense_grad
+
+    if batch == "digits":
+        _, tcfg, _, tparams, x, y = _quclassi_setup(qc, nl)
+    else:
+        tcfg, tparams, x, y = _clamped_batch(qc, nl)
+    plan = dense_grad.route_plan(tcfg.qc, tcfg.n_layers, tcfg.n_classes, tcfg.patch_dim)
+    assert plan is not None and plan.m == (qc - 1) // 2
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    _, got, f = tq.grad_shift(tcfg, tparams, tx, ty)
+    _, auto, _ = tq.grad_autodiff(tcfg, tparams, tx, ty)
+    jcfg = jq.QuClassiConfig(qc=qc, n_layers=nl)
+    jparams = {k: jnp.asarray(v.numpy()) for k, v in tparams.items()}
+    _, ref, jf = jq.grad_shift(jcfg, jparams, jnp.asarray(x), jnp.asarray(y))
+    fn = np.asarray(jf)
+    inside = (fn >= tfid._EPS) & (fn <= 1 - tfid._EPS)
+    fc = np.clip(fn, tfid._EPS, 1 - tfid._EPS)
+    c = np.abs((fc - np.eye(2)[y]) / (fc * (1 - fc)))[inside].max()
+    tol = ATOL * (c + c**2)
+    for k in ("w", "b"):
+        _close(got[k], auto[k], tol)
+        _close(got[k], ref[k], tol)
+    if batch == "clamped":
+        assert f[0, 0] < tfid._EPS and not inside[0, 0] and inside[1:].all()
+        onehot = torch.nn.functional.one_hot(ty, 2).to(torch.float32)
+        unmasked = tfid.bce_grad_wrt_fidelity(f, onehot) / (f.numel() * tcfg.n_patches)
+        angles, patches = tq.encode_images(tcfg, tparams, tx)
+        partials = dense_grad.register_partials(plan, tparams["theta"], angles, patches,
+                                                unmasked, tcfg.n_patches)
+        _, db = dense_grad.reduce_partials(partials, tcfg.patch_dim, tcfg.n_angles)
+        assert (db - auto["b"]).abs().max() > 100 * tol
+
+
+@pytest.mark.parametrize("qc,route", [(5, "register"), (7, "register"), (25, "register"),
+                                      (27, "simulator"), (33, "simulator")])
+def test_dense_gradient_route_follows_the_register_width(qc, route):
+    """The register route up to m = 12 (psi of 2**12 amplitudes a class in a
+    block's shared memory); from m = 13 the dense simulator's autograd."""
+    from repro_torch.kernels import dense_grad
+
+    cfg = tq.QuClassiConfig(qc=qc, n_layers=3)
+    plan = dense_grad.route_plan(cfg.qc, cfg.n_layers, cfg.n_classes, cfg.patch_dim)
+    assert ("simulator" if plan is None else "register") == route
+
+
+@pytest.mark.parametrize("where", ["theta", "score"])
+def test_dense_register_route_carries_nan_as_autograd_does(where):
+    """A NaN stays visible in w and b on the register route, as autograd
+    through the dense simulator shows it: a NaN theta (every fidelity
+    NaN) and a NaN class score (its chain weight NaN) are neither masked
+    as F > 1 nor as outside the loss's [eps, 1 - eps]."""
+    from repro_torch.kernels import dense_grad
+
+    _, tcfg, _, tparams, x, y = _quclassi_setup(5, 1)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    onehot = torch.nn.functional.one_hot(ty.long(), 2).to(torch.float32)
+    plan = dense_grad.route_plan(tcfg.qc, tcfg.n_layers, tcfg.n_classes, tcfg.patch_dim)
+    angles, patches = tq.encode_images(tcfg, tparams, tx)
+    if where == "theta":
+        tparams = dict(tparams, theta=tparams["theta"].clone())
+        tparams["theta"][0, 0] = float("nan")
+        _, auto, _ = tq.grad_autodiff(tcfg, tparams, tx, ty)
+        assert torch.isnan(auto["b"]).all()
+    f = tq.class_fidelities(tcfg, tparams, tx)
+    if where == "score":
+        f[0, 1] = float("nan")
+    weights = tq.dense_chain_weights(f, onehot, tcfg.n_patches)
+    nan = torch.isnan(weights)
+    assert nan[:, 0].all() if where == "theta" else nan[0, 1] and nan.sum() == 1
+    gw, gb = dense_grad.reduce_partials(dense_grad.register_partials(
+        plan, tparams["theta"], angles, patches, weights, tcfg.n_patches),
+        tcfg.patch_dim, tcfg.n_angles)
+    assert torch.isnan(gb).all() and torch.isnan(gw).any()
+
+
 def test_default_init_is_seeded():
     cfg = tq.QuClassiConfig(qc=7, n_layers=3)
     a = tq.init_params(cfg, torch.Generator().manual_seed(3))

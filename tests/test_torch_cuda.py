@@ -691,6 +691,89 @@ def test_spans_on_card_tie_kernels_to_the_dense_backward(cuda, tmp_path):
     assert rec.summary()["spans"]["dataplane.worker"]["count"] == 2 * 2 * 4
 
 
+def _dense_inputs(qc, nl, b, device, seed=0):
+    """A QuClassi config's register plan and random register-kernel inputs
+    for ``b`` images: angles in [0, pi], pixels in [0, 1], weights N(0, 1)."""
+    from repro_torch.kernels import dense_grad
+
+    cfg = quclassi.QuClassiConfig(qc=qc, n_layers=nl)
+    plan = dense_grad.route_plan(cfg.qc, cfg.n_layers, cfg.n_classes, cfg.patch_dim)
+    g = torch.Generator().manual_seed(seed)
+    n = b * cfg.n_patches
+    theta = torch.rand((cfg.n_classes, cfg.n_theta), generator=g) * np.pi
+    angles = torch.rand((n, cfg.n_angles), generator=g) * np.pi
+    patches = torch.rand((n, cfg.patch_dim), generator=g)
+    weights = torch.randn((b, cfg.n_classes), generator=g)
+    return cfg, plan, [t.to(device) for t in (theta, angles, patches, weights)]
+
+
+@pytest.mark.parametrize("qc,nl,b", [  # b = 1000: 9,000 patches, the last tile ragged
+    (5, 1, 1), (5, 1, 64), (5, 1, 1000), (7, 3, 1), (7, 3, 64), (7, 3, 1000),
+    (13, 2, 64), (13, 2, 1000), (25, 1, 1), (25, 1, 64)])
+def test_dense_register_kernel_matches_plain(cuda, qc, nl, b):
+    """``dense_grad_kernel`` and its reduction against the plain version,
+    one launch of each kernel a call, and two calls bit-equal.  Tolerance: float32
+    with other cos/sin and another summation order (block partials summed
+    in block order against one matmul over every patch), so each element
+    within 1e-4 of the largest element's size."""
+    from repro_torch.kernels import dense_grad
+
+    cfg, plan, (theta, angles, patches, weights) = _dense_inputs(qc, nl, b, cuda, seed=b)
+    before = dict(K.LAUNCHES)
+    parts = dense_grad.register_partials(plan, theta, angles, patches, weights, cfg.n_patches)
+    gw, gb = dense_grad.reduce_partials(parts, cfg.patch_dim, cfg.n_angles)
+    assert K.LAUNCHES["dense_grad"] == before["dense_grad"] + 1
+    assert K.LAUNCHES["dense_reduce"] == before["dense_reduce"] + 1
+    assert sum(K.LAUNCHES.values()) == sum(before.values()) + 2
+    want = dense_grad.reduce_partials(
+        dense_grad.register_partials(plan, *(t.cpu() for t in (theta, angles, patches, weights)),
+                                     cfg.n_patches), cfg.patch_dim, cfg.n_angles)
+    for got, ref in zip((gw, gb), want):
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+    again = dense_grad.reduce_partials(
+        dense_grad.register_partials(plan, theta, angles, patches, weights, cfg.n_patches),
+        cfg.patch_dim, cfg.n_angles)
+    assert torch.equal(again[0], gw) and torch.equal(again[1], gb)
+
+
+def test_dense_gradient_on_card_is_deterministic_and_routed(cuda, monkeypatch):
+    """A 7q-3l ``grad_shift`` on the card: the dense layer on the register
+    route (one ``dense_grad`` launch a call, bit-equal across calls) and,
+    with the route refused, on the dense simulator (no ``dense_grad``
+    launch), the two within the chain-scaled tolerance; m >= 13 keeps the
+    simulator."""
+    from repro_torch.comanager import dataplane
+    from repro_torch.core import fidelity
+    from repro_torch.kernels import dense_grad
+
+    cfg = quclassi.QuClassiConfig(qc=7, n_layers=3)
+    params = quclassi.init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    x, y = mnist.make_pair_dataset(1, 5, n_per_class=8, seed=0)
+    x, y = torch.as_tensor(x, device=cuda), torch.as_tensor(y, device=cuda)
+    run = dataplane.worker_batched_executor(
+        cfg.spec, dataplane.round_robin_assignment(1 + 2 * cfg.n_theta, 4), 4)
+
+    def grad():
+        return quclassi.grad_shift(cfg, params, x, y, executor=run, implicit=True)
+
+    before = K.LAUNCHES["dense_grad"]
+    first, second = grad(), grad()
+    assert K.LAUNCHES["dense_grad"] == before + 2
+    for k in first[1]:
+        assert torch.equal(first[1][k], second[1][k]), k
+    monkeypatch.setattr(dense_grad, "route_plan", lambda *a: None)
+    sim = grad()
+    assert K.LAUNCHES["dense_grad"] == before + 2
+    f = torch.clamp(first[2], fidelity._EPS, 1 - fidelity._EPS)
+    onehot = torch.nn.functional.one_hot(y.long(), 2).to(f.dtype)
+    c = float(((f - onehot) / (f * (1 - f))).abs().max())
+    for k in ("w", "b"):
+        torch.testing.assert_close(first[1][k], sim[1][k], rtol=0, atol=ATOL * (c + c**2))
+    monkeypatch.undo()
+    wide = quclassi.QuClassiConfig(qc=27, n_layers=3)
+    assert dense_grad.route_plan(wide.qc, wide.n_layers, 2, wide.patch_dim) is None
+
+
 #: flash attention: float32 (summation order) and bfloat16 (one rounding of
 #: the output), the reference's own tolerances
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
