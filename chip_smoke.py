@@ -50,8 +50,11 @@ Phases, in order; any failure exits non-zero before the result line:
                worker's checkpoints fit its launch's block; the first bank
                is also run through the spill pair under a forced budget).
                Launch counts are zeroed just before each run and read just
-               after; then one profiled gradient step per run shows where
-               the time goes;
+               after.  Then the dense layer's gradient on the card: its
+               register route (``dense_grad_phase``) at these steps' shapes
+               and the 7q cell's, and its wide route (``dense_wide_phase``)
+               at m = 13, 14 and 16 and in steps of the 27q cell; then one
+               profiled gradient step per run shows where the time goes;
   5. serve   — ``smollm-360m`` at full width and depth (32 layers, bf16,
                seeded weights) on the flash path: (a) a 4 x 2048-token
                prefill through ``make_prefill_step`` (counts zeroed before
@@ -334,26 +337,41 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float | None:
     a few kernel records of a window: then the mean is over the launches it
     recorded (said in the log), and None, said too, when two windows both
     hold fewer than half of them."""
+    return device_ms_each(fn, (kernel,), iters)[kernel]
+
+
+def device_ms_each(fn, kernels, iters: int = 20) -> dict:
+    """``device_ms`` of each of ``kernels``, each launched once a call of
+    ``fn``, from the same profiler windows."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     cuda_kind = torch.autograd.DeviceType.CUDA
+    out, count = {}, {}
     for _ in range(2):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages()
-                if e.device_type == cuda_kind and kernel in e.key]
-        count = sum(e.count for e in hits)
-        if 2 * count >= iters:
-            if count != iters:
-                log(f"  the profiler recorded {count} of {iters} launches of {kernel}: device "
-                    "time is their mean")
-            return sum(e.self_device_time_total for e in hits) / 1e3 / count
-    log(f"  the profiler recorded {count} of {iters} launches of {kernel}: "
-        "device time not measured")
-    return None
+        events = [e for e in prof.key_averages() if e.device_type == cuda_kind]
+        for kernel in kernels:
+            if kernel in out:
+                continue
+            hits = [e for e in events if kernel in e.key]
+            count[kernel] = sum(e.count for e in hits)
+            if 2 * count[kernel] >= iters:
+                if count[kernel] != iters:
+                    log(f"  the profiler recorded {count[kernel]} of {iters} launches of "
+                        f"{kernel}: device time is their mean")
+                out[kernel] = sum(e.self_device_time_total for e in hits) / 1e3 / count[kernel]
+        if len(out) == len(kernels):
+            return out
+    for kernel in kernels:
+        if kernel not in out:
+            log(f"  the profiler recorded {count[kernel]} of {iters} launches of {kernel}: "
+                "device time not measured")
+            out[kernel] = None
+    return out
 
 
 def ptxas_spills(log: str) -> dict[str, tuple[int, int]]:
@@ -2689,9 +2707,11 @@ def hold_rows(label: str, got, want, tol: float = TOL) -> float:
 def quclassi27():
     """The wide slice: 27-qubit, 3-layer QuClassi (m = 13, P = 74) on 2
     workers, the paper's segmentation on 8x8 images (9 patches), the
-    patches encoded without the dense layer (whose gradient both packages
-    take by autodiff through the dense simulator: 2**27 amplitudes a
-    sample).  Returns the config, the round-robin assignment and each
+    patches encoded without the dense layer, so that the phase holds the
+    shift walk alone (the reference takes the dense layer's gradient by
+    autodiff through its dense simulator, 2**27 amplitudes a sample; the
+    port's wide route is held by ``tests/test_torch_dense_wide.py`` and the
+    card tests).  Returns the config, the round-robin assignment and each
     worker's groups."""
     from repro_torch.comanager import dataplane
     from repro_torch.core import quclassi, segmentation
@@ -2888,8 +2908,7 @@ def wide_shift_phase(dev, card: str) -> tuple[dict, float, dict]:
         return quclassi.grad_shift(cfg, params, xb, yb, executor=executor, implicit=True)
 
     log(f"wide (c): one Algorithm-1 step of 27q-3l QuClassi without the dense layer "
-        f"(use_dense=False: its gradient is autodiff through the dense 2**27-amplitude "
-        f"simulator in both packages), m = 13, P = {cfg.n_theta}, batch {WIDE_BATCH}, "
+        f"(use_dense=False: the shift walk alone), m = 13, P = {cfg.n_theta}, batch {WIDE_BATCH}, "
         f"{cfg.n_patches} patches, 2 workers, implicit banks")
     step()  # warm-up: device tables, the first launches
     first.clear()
@@ -3115,6 +3134,156 @@ def dense_grad_phase(dev, card: str, shapes: dict) -> tuple[dict, float, dict]:
                 f"{'not measured' if dev_reduce is None else f'{dev_reduce:.4f} ms'}), plain "
                 f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}; {flops} flops, "
                 f"{nbytes} bytes) [{card}]")
+    return counts, worst, record
+
+
+
+#: the dense layer's wide route in phase 4: QuClassi at m = 13, 14 and 16
+#: on the cell train.27q3l.b64's 64 images (576 patches); the first, the
+#: cell's configuration, is also timed against the plain version and trained
+DENSE_WIDE_SHAPES = (("27q-3l", 27, 3), ("29q-2l", 29, 2), ("33q-1l", 33, 1))
+DENSE_WIDE_BATCH = 64
+
+
+def dense_wide_cost(plan, n_classes: int, patch_dim: int, n: int) -> tuple[int, int]:
+    """(flops, bytes) of the least work of the wide route over ``n`` patches,
+    which no implementation can do with less (the count of
+    ``dqbench/dense_wide_counters.py``): one inner product of 2**m
+    amplitudes a (class, patch) and the trainable register's gates once a
+    class; the patches, w and b read once, dW and db written once."""
+    a = 2 * plan.m
+    flops = n_classes * (n * INNER_FLOPS_PER_AMP * 2**plan.m + ops_flops(plan.train_ops, plan.m))
+    return flops, 4 * (n * patch_dim + 2 * (patch_dim * a + a))
+
+
+def dense_wide_phase(dev, card: str) -> tuple[dict, float, dict]:
+    """Phase 4's check of the dense layer's wide route
+    (``dense_wide_psi_kernel``, ``dense_wide_kernel``, then
+    ``dense_reduce_kernel``) on the card.  (a) At each DENSE_WIDE_SHAPES
+    width, QuClassi's encoding of DENSE_WIDE_BATCH random images and chain
+    weights N(0, 1): the launch counts zeroed, then one launch of each
+    kernel a call; w and b within DENSE_PLAIN_RTOL of the largest element of
+    the plain version (``dense_grad._partials_plain``, on the CPU); two
+    calls bit-equal; the three kernels timed (events, and device time each
+    from one profiler window).  At 27q-3l also the plain version's time and
+    the least-work bound (``dense_wide_cost``).  (b) Steps of 27q-3l
+    QuClassi with its dense layer through the 2-worker implicit executor at
+    batch 64, as the cell trains it: one launch of each kernel a step, none
+    of the register kernel, the dense simulator never entered, w and b
+    finite and bit-equal across two steps.  Returns (launches, max_abs_err
+    against the plain version, the 27q-3l record)."""
+    from repro_torch.api.capabilities import declare
+    from repro_torch.comanager import dataplane
+    from repro_torch.core import quclassi, segmentation
+    from repro_torch.data.mnist import make_pair_dataset
+    from repro_torch.kernels import dense_grad
+    from repro_torch.kernels import vqc_statevector as K
+
+    names = ("dense_wide_psi_kernel", "dense_wide_kernel", "dense_reduce_kernel")
+    wanted = {"dense_wide_psi": 1, "dense_wide": 1, "dense_reduce": 1}
+    counts, worst, record = {key: 0 for key in K.LAUNCHES}, 0.0, {}
+    g = torch.Generator().manual_seed(0)
+    for label, qc, nl in DENSE_WIDE_SHAPES:
+        cfg = quclassi.QuClassiConfig(qc=qc, n_layers=nl)
+        plan = dense_grad.route_plan(cfg.qc, cfg.n_layers, cfg.n_classes, cfg.patch_dim)
+        if plan is None or not plan.wide:
+            raise AssertionError(f"dense wide {label}: the wide route refuses the shape")
+        params = quclassi.init_params(cfg, g, dev)
+        images = torch.rand((DENSE_WIDE_BATCH, *cfg.image_size), generator=g).to(dev)
+        with torch.no_grad():
+            angles, patches = quclassi.encode_images(cfg, params, images)
+        weights = torch.randn((DENSE_WIDE_BATCH, cfg.n_classes), generator=g).to(dev)
+        args = (plan, params["theta"], angles, patches, weights, cfg.n_patches)
+
+        def three(args=args, cfg=cfg):
+            parts = dense_grad.register_partials(*args)
+            return dense_grad.reduce_partials(parts, cfg.patch_dim, cfg.n_angles), parts
+
+        torch.cuda.synchronize()
+        zero_counts(K)
+        (gw, gb), parts = three()
+        torch.cuda.synchronize()
+        got = {k: n for k, n in K.LAUNCHES.items() if n}
+        if got != wanted:
+            raise AssertionError(f"dense wide {label}: launches {got}, not one of each kernel")
+        for key, n in got.items():
+            counts[key] += n
+        (aw, ab), _ = three()
+        if not (torch.equal(aw, gw) and torch.equal(ab, gb)):
+            raise AssertionError(f"dense wide {label}: two calls differ")
+        cpu_args = [t.cpu() for t in args[1:5]]
+        pw, pb = dense_grad.reduce_partials(
+            dense_grad._partials_plain(plan, *cpu_args, cfg.n_patches), cfg.patch_dim,
+            cfg.n_angles)
+        err = max(float((gw.cpu() - pw).abs().max()), float((gb.cpu() - pb).abs().max()))
+        tol = DENSE_PLAIN_RTOL * max(float(pw.abs().max()), float(pb.abs().max()))
+        worst = max(worst, err)
+        n = angles.shape[0]
+        log(f"  dense_wide    {label:44s} max|diff| = {err:.3e} (plain, tol {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"dense wide {label}: max|diff| to the plain version {err} > {tol}")
+        ms = time_ms(three)
+        dev_each = device_ms_each(three, names)
+        dev_ms = None if None in dev_each.values() else sum(dev_each.values())
+        shown = ", ".join("not measured" if v is None else f"{v:.4f}" for v in dev_each.values())
+        flops, nbytes = dense_wide_cost(plan, cfg.n_classes, cfg.patch_dim, n)
+        bound_ms, bound_by = bound(flops, nbytes)
+        shape = f"{label} m={plan.m}: {n} patches, {parts.shape[0]} blocks"
+        plain_ms = None
+        if not record:  # the cell's configuration
+            plain_ms = time_ms(lambda: dense_grad._partials_plain(plan, *cpu_args, cfg.n_patches),
+                               iters=2, warmup=1)
+            record = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "shape": shape,
+                      "psi": {"device_ms": dev_each[names[0]]},
+                      "kernel_device_ms": dev_each[names[1]],
+                      "reduce": {"device_ms": dev_each[names[2]]}}
+        log(f"  time dense_wide    {shape}: the three kernels {ms:.4f} ms (events; device time "
+            f"psi, wide, reduction {shown} ms), plain "
+            f"{'not measured' if plain_ms is None else f'{plain_ms:.4f} ms'}, bound "
+            f"{bound_ms:.6f} ms ({bound_by}; {flops} flops, {nbytes} bytes) [{card}]")
+        del parts, angles, patches
+
+    # (b) the cell's steps: 27q-3l with the dense layer on 2 workers
+    cfg = quclassi.QuClassiConfig(
+        qc=27, n_layers=3,
+        seg=segmentation.SegmentationConfig(filter_width=4, stride=2, n_filters=4),
+        image_size=(8, 8))
+    n_groups = 1 + 2 * cfg.n_theta
+    executor = declare(dataplane.worker_batched_executor(
+        cfg.spec, dataplane.round_robin_assignment(n_groups, 2), 2), shiftbank=True)
+    x, y = make_pair_dataset(1, 5, n_per_class=DENSE_WIDE_BATCH // 2, seed=0)
+    params = quclassi.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    xb, yb = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("dense wide: the 27q step entered the dense simulator")
+
+    simulator, quclassi._dense_grad_simulator = quclassi._dense_grad_simulator, refuse
+    try:
+        quclassi.grad_shift(cfg, params, xb, yb, executor=executor, implicit=True)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts(K)
+        steps = [quclassi.grad_shift(cfg, params, xb, yb, executor=executor, implicit=True)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+    finally:
+        quclassi._dense_grad_simulator = simulator
+    got = dict(K.LAUNCHES)
+    log(f"  dense_wide    27q-3l steps: 2 steps of {DENSE_WIDE_BATCH} images with the dense "
+        f"layer on 2 workers, launches {got} [{card}]")
+    if not (got["dense_wide_psi"] == got["dense_wide"] == got["dense_reduce"] == 2
+            and got["dense_grad"] == 0 and got["shift_dmem"] > 0):
+        raise AssertionError(f"dense wide 27q-3l steps: launches {got}, not one of each wide "
+                             "kernel a step on the shift walk")
+    for key, n in got.items():
+        counts[key] += n
+    (_, g0, _), (_, g1, _) = steps
+    for k in ("w", "b"):
+        if not torch.isfinite(g0[k]).all():
+            raise AssertionError(f"dense wide 27q-3l steps: the {k} gradient is not finite")
+        if not torch.equal(g0[k], g1[k]):
+            raise AssertionError(f"dense wide 27q-3l steps: two steps give other {k} gradients")
     return counts, worst, record
 
 
@@ -3632,6 +3801,10 @@ def main() -> int:
                     "13q-3l": (cfg13, inits["13q implicit"], xb, yb)})
     for key, n in dense_counts.items():
         launches[key] += n
+    log("checks: the dense layer's wide route at the 27q cell's shape and in its steps")
+    wide_counts, errs["dense_wide"], records["dense_wide"] = dense_wide_phase(dev, card)
+    for key, n in wide_counts.items():
+        launches[key] += n
     for label, (c, mode, _, run) in runs.items():
         def step(c=c, run=run, mode=mode, init=inits[label]):
             loss, _, _ = quclassi.grad_shift(c, init, xb, yb, executor=run,
@@ -3722,6 +3895,11 @@ def main() -> int:
         {"name": "dense_grad", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/vqc_dense_grad.cu",
          "replaces": "src/repro/core/quclassi.py:196"},
+        # its wide route (registers of 13-16 qubits): psi's build under
+        # "psi", the reduction, shared with dense_grad, under "reduce"
+        {"name": "dense_wide", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/vqc_dense_grad.cu",
+         "replaces": "src/repro/core/quclassi.py:196"},
         {"name": "flash", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:31"},
@@ -3731,6 +3909,8 @@ def main() -> int:
         k.update(launches=launches[n], max_abs_err=errs[n], **{"library_ms": None, **records[n]})
         if n == "dense_grad":
             k["reduce"]["launches"] = launches["dense_reduce"]
+        if n == "dense_wide":
+            k["psi"]["launches"] = launches["dense_wide_psi"]
         if f"{n}_dmem" in dmem_records:  # the device-memory route, as flash carries "simt"
             k["dmem"] = {"route": "cuda", "source": k["source"], "replaces": k["replaces"],
                          "launches": launches[f"{n}_dmem"], "max_abs_err": errs[f"{n}_dmem"],

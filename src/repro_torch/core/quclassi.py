@@ -176,26 +176,33 @@ def grad_shift(
     when the executor declares the ``shiftbank`` capability).
 
     Dense-layer params, when present, are trained with exact chain-rule
-    gradients holding theta fixed, on one of two routes:
+    gradients holding theta fixed, on one of three routes
+    (``dense_grad.route_plan``, decided once a configuration):
 
-    * "register" (``dense_grad.route_plan``, decided once a configuration:
-      registers of up to m = 12 qubits): dF/dx analytically on the two
-      m-qubit registers (F = |<phi(x)|psi(theta)>|^2, phi a product
-      state), chained through the loss's weights at the bank's class
-      scores (``dense_chain_weights``) and the sigmoid, and summed into w
-      and b in a fixed order: ``dense_grad_kernel`` and its reduction on the card,
-      their plain versions on the CPU.  Two calls give the same bits.
-    * "simulator" (m >= 13, or psi too wide for a block): autograd
-      through ``class_fidelities`` and the dense simulator, as the
-      reference uses ``jax.grad``.
+    * "register" (registers of up to m = 12 qubits): dF/dx analytically on
+      the two m-qubit registers (F = |<phi(x)|psi(theta)>|^2, phi a
+      product state), chained through the loss's weights at the bank's
+      class scores (``dense_chain_weights``) and the sigmoid, and summed
+      into w and b in a fixed order: ``dense_grad_kernel`` and its
+      reduction on the card, their plain versions on the CPU.  Two calls
+      give the same bits.
+    * "wide" (m = 13-16): the same
+      on the registers, with each class's psi built once a call in device
+      memory and a block of the card a patch (``dense_wide_psi_kernel``,
+      ``dense_wide_kernel``, then the same reduction); on the CPU the same
+      plain versions.  No 2**qc-amplitude state is made.
+    * "simulator" (m >= 17, or at m <= 12 every class's psi too wide for
+      a block): autograd through ``class_fidelities`` and the dense
+      simulator, as the reference uses ``jax.grad``.
 
     Spans (``repro_torch.obs.span``, recorded while a recorder is
     installed): ``grad_shift`` around the call; inside it
     ``grad_shift.bank_build``, per class ``grad_shift.execute`` (the
     executor) and ``grad_shift.assemble`` (the chain rule), and
     ``grad_shift.dense`` (arg ``route``) with ``.forward`` (the chain
-    weights and the register kernel, or the simulator's fidelities and the
-    loss) and ``.backward`` (the partials' reduction into w and b, or
+    weights and the register kernel, or the chain weights, psi's build and
+    the wide kernel, or the simulator's fidelities and the loss) and
+    ``.backward`` (the partials' reduction into w and b, or
     ``torch.autograd.grad`` and the graph's teardown).
     """
     b, np_ = images.shape[0], cfg.n_patches
@@ -231,7 +238,8 @@ def grad_shift(
         fids = torch.stack(fids_per_class, -1)                            # (B, C)
         if cfg.use_dense:
             plan = dense_grad.route_plan(cfg.qc, cfg.n_layers, cfg.n_classes, cfg.patch_dim)
-            with obs.span("grad_shift.dense", route="simulator" if plan is None else "register"):
+            route = "simulator" if plan is None else "wide" if plan.wide else "register"
+            with obs.span("grad_shift.dense", route=route):
                 if plan is None:
                     grads.update(_dense_grad_simulator(cfg, params, images, labels))
                 else:

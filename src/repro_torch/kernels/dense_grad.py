@@ -17,17 +17,26 @@ steps:
 
   * ``register_partials``: per patch the angle gradient, chained to the
     dense layer's pre-activation by ``dx/dz = x (1 - x / pi)``, summed
-    into partial ``dW`` and ``db``: on the card ``vqc_dense_grad.cu``
-    ``dense_grad_kernel`` (one thread a patch, ``psi(theta_c)`` in shared
-    memory, one partial a block), on the CPU a plain PyTorch version that
-    builds ``phi`` and its derivatives whole (one partial);
+    into partial ``dW`` and ``db``; on the CPU a plain PyTorch version that
+    builds ``phi`` and its derivatives whole (one partial), on the card
+    one of two kernels of ``vqc_dense_grad.cu``:
+
+    - the register route, ``dense_grad_kernel``: one thread a patch,
+      ``psi(theta_c)`` of every class in a block's shared memory, one
+      partial a block;
+    - the wide route (``RegisterPlan.wide``), for registers of m = 13-16
+      qubits, whose psi outgrow shared memory: ``dense_wide_psi_kernel`` builds each class's
+      psi once a call into device memory, then ``dense_wide_kernel`` gives
+      a block a patch at a time, each thread a slice of the amplitudes,
+      the block's sums in a fixed order, one partial a block;
   * ``reduce_partials``: the partials summed in a fixed order
     (``dense_reduce_kernel`` on the card), so two calls give the same bits.
 
-``route_plan`` says where this route applies: QuClassi's circuit
+``route_plan`` says which route a configuration takes: QuClassi's circuit
 (``core/circuits.build_quclassi_circuit``: RX(x_2q) then RY(x_2q+1) on
-each data qubit, the variational layers, the SWAP test) with registers of
-up to ``MAX_M`` qubits, whose classes' psi fit a block's shared memory.
+each data qubit, the variational layers, the SWAP test) takes the register
+route with registers of up to ``MAX_M`` qubits whose classes' psi fit a
+block's shared memory, and the wide route up to ``WIDE_MAX_M`` qubits.
 Wider registers take the dense simulator's autograd (``grad_shift``'s
 "simulator" route).
 """
@@ -53,6 +62,16 @@ MAX_M = 12
 THREADS = 128
 #: blocks of the register kernel per SM at most; a block takes whole tiles
 BLOCKS_PER_SM = 4
+#: the widest register of the wide route: psi of 2**16 (re, im) float32 a
+#: class in device memory, the widths the shift walk's device-memory route
+#: runs (27-33 qubits)
+WIDE_MAX_M = 16
+#: threads of a ``dense_wide_kernel`` block (``kWideThreads``); each fixes
+#: the WIDE_LO_BITS least significant qubits of the amplitudes it sums
+WIDE_THREADS = 256
+WIDE_LO_BITS = 8
+#: blocks of the wide kernel per SM at most; a block takes whole patches
+WIDE_BLOCKS_PER_SM = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +82,7 @@ class RegisterPlan:
     m: int
     train_ops: tuple
     slots: tuple[tuple, ...]
+    wide: bool = False
 
 
 def smem_bytes(plan: RegisterPlan, n_classes: int, patch_dim: int) -> int:
@@ -73,14 +93,36 @@ def smem_bytes(plan: RegisterPlan, n_classes: int, patch_dim: int) -> int:
     return 4 * (floats + patch_dim * n_angles + n_angles)
 
 
+def wide_smem_bytes(plan: RegisterPlan, n_classes: int, patch_dim: int) -> int:
+    """Shared memory of a block of ``dense_wide_kernel``: the swept qubits'
+    table, the warps' and the block's sums, a patch's cos / sin and dL/dz,
+    the block's partial."""
+    mh = max(plan.m - WIDE_LO_BITS, 0)
+    n_angles, n_vals = SLOTS * plan.m, 2 + 4 * plan.m
+    floats = (2 * 2**mh * (mh + 1) + (WIDE_THREADS // 32 + 1) * n_classes * n_vals
+              + 3 * n_angles + patch_dim * n_angles + n_angles)
+    return 4 * floats
+
+
+def psi_smem(plan: RegisterPlan) -> tuple[bool, int]:
+    """(state in shared memory, bytes) of a ``dense_wide_psi_kernel`` block:
+    the op table and each op's cos / sin, and the state where it fits
+    beside them (m <= 14), else the state is built in device memory."""
+    tables = 4 * (2 * len(plan.train_ops) + _tables(plan)[0].size)
+    in_smem = tables + 8 * 2**plan.m <= K.SMEM_BUDGET_BYTES
+    return in_smem, tables + (8 * 2**plan.m if in_smem else 0)
+
+
 @functools.lru_cache(maxsize=None)
 def route_plan(qc: int, n_layers: int, n_classes: int, patch_dim: int) -> RegisterPlan | None:
-    """The register route's plan for QuClassi's ``qc``-qubit, ``n_layers``
-    circuit where its registers are at most ``MAX_M`` qubits and one block
-    of the kernel fits the card's shared memory, else None (the simulator
-    route); the same on every device, so a CPU run takes the route the card
-    would.  Decided once a configuration."""
-    if (qc - 1) // 2 > MAX_M:
+    """The dense gradient's plan for QuClassi's ``qc``-qubit, ``n_layers``
+    circuit: the register route where its registers are at most ``MAX_M``
+    qubits and one block of the register kernel fits the card's shared
+    memory, the wide route (``wide``) where they are of ``MAX_M`` + 1 to
+    ``WIDE_MAX_M`` qubits, else None (the simulator route); the same on
+    every device, so a CPU run takes the route the card would.  Decided
+    once a configuration."""
+    if (qc - 1) // 2 > WIDE_MAX_M:
         return None
     plan = K.build_shift_plan(circuits.build_quclassi_circuit(qc, n_layers))
     slots = [[] for _ in range(plan.m)]
@@ -91,7 +133,10 @@ def route_plan(qc: int, n_layers: int, n_classes: int, patch_dim: int) -> Regist
                     for q in range(plan.m)]:
         raise RuntimeError(f"QuClassi's {qc}q encoding is not RX, RY on each data qubit")
     plan = RegisterPlan(plan.m, plan.train_ops, tuple(tuple(ops) for ops in slots))
-    if smem_bytes(plan, n_classes, patch_dim) > K.SMEM_BUDGET_BYTES:
+    if plan.m <= MAX_M:
+        return plan if smem_bytes(plan, n_classes, patch_dim) <= K.SMEM_BUDGET_BYTES else None
+    plan = dataclasses.replace(plan, wide=True)
+    if wide_smem_bytes(plan, n_classes, patch_dim) > K.SMEM_BUDGET_BYTES:
         return None
     return plan
 
@@ -138,8 +183,8 @@ def _product(factors):
 
 
 def _partials_plain(plan: RegisterPlan, theta, angles, patches, weights, n_patches):
-    """Plain version of ``dense_grad_kernel``: the whole batch as one
-    partial, (1, patch_dim * A + A)."""
+    """Plain version of ``dense_grad_kernel`` and of the wide route's two
+    kernels: the whole batch as one partial, (1, patch_dim * A + A)."""
     psi = _psi_plain(plan, theta)                                   # (C, 2**m)
     x = angles.T                                                    # (A, N)
     factors = [_factor_plain(ops, x) for ops in plan.slots]
@@ -180,6 +225,31 @@ def _partials_cuda(plan: RegisterPlan, theta, angles, patches, weights, n_patche
     return partial
 
 
+def _partials_wide_cuda(plan: RegisterPlan, theta, angles, patches, weights, n_patches):
+    n, a, pd, c = angles.shape[0], angles.shape[1], patches.shape[1], theta.shape[0]
+    dev = theta.device
+    train_i, train_f, slot_i, slot_f = K._on_device(("dense", plan), _tables(plan), dev)
+    lib = K._lib("vqc_dense_grad")
+    psi = torch.empty((c, 2, 2**plan.m), dtype=torch.float32, device=dev)
+    per_block = max(1, -(-n // (WIDE_BLOCKS_PER_SM * K._sm_count(dev))))
+    blocks = -(-n // per_block)
+    partial = torch.empty((blocks, pd * a + a), dtype=torch.float32, device=dev)
+    in_smem, psi_bytes = psi_smem(plan)
+    with torch.cuda.device(dev):
+        rc = lib.vqc_dense_wide_psi_launch(
+            K._ptr(theta), theta.shape[1], c, K._ptr(train_i), K._ptr(train_f),
+            len(plan.train_ops), plan.m, K._ptr(psi), int(in_smem), psi_bytes, K._stream(dev))
+        K._check_launch(lib, rc, "dense-gradient psi")
+        K._count("dense_wide_psi")
+        rc = lib.vqc_dense_wide_launch(
+            K._ptr(psi), c, K._ptr(slot_i), K._ptr(slot_f), plan.m, K._ptr(angles), a,
+            K._ptr(patches), pd, K._ptr(weights), n_patches, n, per_block, blocks,
+            K._ptr(partial), wide_smem_bytes(plan, c, pd), K._stream(dev))
+    K._check_launch(lib, rc, "wide dense-gradient")
+    K._count("dense_wide")
+    return partial
+
+
 def register_partials(plan: RegisterPlan, theta: torch.Tensor, angles: torch.Tensor,
                       patches: torch.Tensor, weights: torch.Tensor,
                       n_patches: int) -> torch.Tensor:
@@ -200,7 +270,7 @@ def register_partials(plan: RegisterPlan, theta: torch.Tensor, angles: torch.Ten
     args = [t.to(torch.float32).contiguous() for t in (theta, angles, patches, weights)]
     if theta.device.type == "cpu":
         return _partials_plain(plan, *args, n_patches)
-    return _partials_cuda(plan, *args, n_patches)
+    return (_partials_wide_cuda if plan.wide else _partials_cuda)(plan, *args, n_patches)
 
 
 def reduce_partials(partials: torch.Tensor, patch_dim: int, n_angles: int):

@@ -271,15 +271,16 @@ def test_dense_register_route_matches_autograd_and_reference(qc, nl, batch):
 
 
 @pytest.mark.parametrize("qc,route", [(5, "register"), (7, "register"), (25, "register"),
-                                      (27, "simulator"), (33, "simulator")])
+                                      (27, "wide"), (33, "wide"), (35, "simulator")])
 def test_dense_gradient_route_follows_the_register_width(qc, route):
     """The register route up to m = 12 (psi of 2**12 amplitudes a class in a
-    block's shared memory); from m = 13 the dense simulator's autograd."""
+    block's shared memory); the wide route at m = 13-16 (psi in device
+    memory); from m = 17 the dense simulator's autograd."""
     from repro_torch.kernels import dense_grad
 
     cfg = tq.QuClassiConfig(qc=qc, n_layers=3)
     plan = dense_grad.route_plan(cfg.qc, cfg.n_layers, cfg.n_classes, cfg.patch_dim)
-    assert ("simulator" if plan is None else "register") == route
+    assert ("simulator" if plan is None else "wide" if plan.wide else "register") == route
 
 
 @pytest.mark.parametrize("where", ["theta", "score"])

@@ -692,7 +692,7 @@ def test_spans_on_card_tie_kernels_to_the_dense_backward(cuda, tmp_path):
 
 
 def _dense_inputs(qc, nl, b, device, seed=0):
-    """A QuClassi config's register plan and random register-kernel inputs
+    """A QuClassi config's dense-gradient plan and random kernel inputs
     for ``b`` images: angles in [0, pi], pixels in [0, 1], weights N(0, 1)."""
     from repro_torch.kernels import dense_grad
 
@@ -740,8 +740,8 @@ def test_dense_gradient_on_card_is_deterministic_and_routed(cuda, monkeypatch):
     """A 7q-3l ``grad_shift`` on the card: the dense layer on the register
     route (one ``dense_grad`` launch a call, bit-equal across calls) and,
     with the route refused, on the dense simulator (no ``dense_grad``
-    launch), the two within the chain-scaled tolerance; m >= 13 keeps the
-    simulator."""
+    launch), the two within the chain-scaled tolerance; m = 13 takes the
+    wide route and m >= 17 the simulator."""
     from repro_torch.comanager import dataplane
     from repro_torch.core import fidelity
     from repro_torch.kernels import dense_grad
@@ -771,7 +771,56 @@ def test_dense_gradient_on_card_is_deterministic_and_routed(cuda, monkeypatch):
         torch.testing.assert_close(first[1][k], sim[1][k], rtol=0, atol=ATOL * (c + c**2))
     monkeypatch.undo()
     wide = quclassi.QuClassiConfig(qc=27, n_layers=3)
-    assert dense_grad.route_plan(wide.qc, wide.n_layers, 2, wide.patch_dim) is None
+    assert dense_grad.route_plan(wide.qc, wide.n_layers, 2, wide.patch_dim).wide
+    wider = quclassi.QuClassiConfig(qc=35, n_layers=1)
+    assert dense_grad.route_plan(wider.qc, wider.n_layers, 2, wider.patch_dim) is None
+
+
+def _wide_pair(plan, cfg, args):
+    from repro_torch.kernels import dense_grad
+
+    parts = dense_grad.register_partials(plan, *args, cfg.n_patches)
+    return dense_grad.reduce_partials(parts, cfg.patch_dim, cfg.n_angles)
+
+
+@pytest.mark.parametrize("qc,nl", [(27, 3), (29, 2), (33, 1)])
+def test_dense_wide_kernel_matches_plain(cuda, qc, nl):
+    """The wide route at m = 13, 14 and 16 on the cell's 576 patches (64
+    images): ``dense_wide_psi_kernel``, ``dense_wide_kernel`` and the
+    reduction against the plain version (run on the card: phi of 2**16
+    amplitudes a patch is 0.3 GB at 576 patches), one launch of each a
+    call, two calls bit-equal.  Tolerance as the register kernel's: each
+    element within 1e-4 of the largest element's size."""
+    from repro_torch.kernels import dense_grad
+
+    cfg, plan, args = _dense_inputs(qc, nl, 64, cuda, seed=qc)
+    assert plan.wide and plan.m == (qc - 1) // 2
+    before = dict(K.LAUNCHES)
+    gw, gb = _wide_pair(plan, cfg, args)
+    assert K.LAUNCHES["dense_wide_psi"] == before["dense_wide_psi"] + 1
+    assert K.LAUNCHES["dense_wide"] == before["dense_wide"] + 1
+    assert K.LAUNCHES["dense_reduce"] == before["dense_reduce"] + 1
+    assert sum(K.LAUNCHES.values()) == sum(before.values()) + 3
+    want = dense_grad.reduce_partials(dense_grad._partials_plain(plan, *args, cfg.n_patches),
+                                      cfg.patch_dim, cfg.n_angles)
+    for got, ref in zip((gw, gb), want):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+    again = _wide_pair(plan, cfg, args)
+    assert torch.equal(again[0], gw) and torch.equal(again[1], gb)
+
+
+@pytest.mark.parametrize("qc,nl,b", [(5, 1, 64), (7, 3, 64), (7, 3, 1000), (25, 1, 8)])
+def test_dense_wide_kernel_forced_matches_the_register_kernel(cuda, qc, nl, b):
+    """The wide route forced onto registers the register route takes (m =
+    2, 3 and 12: every thread of a block its own amplitude, or a sweep of
+    16): the same w and b as ``dense_grad_kernel``, within 1e-4 of the
+    largest element (another summation order)."""
+    cfg, plan, args = _dense_inputs(qc, nl, b, cuda, seed=b)
+    assert not plan.wide
+    got = _wide_pair(dataclasses.replace(plan, wide=True), cfg, args)
+    want = _wide_pair(plan, cfg, args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
 
 
 #: flash attention: float32 (summation order) and bfloat16 (one rounding of

@@ -46,7 +46,8 @@ def _assert_declared(lib: str, entries) -> None:
         assert entry.restype is ctypes.c_int, name
 
 
-@pytest.mark.parametrize("lib", ["vqc_fused", "vqc_shiftbank", "vqc_spill", "vqc_shift_dmem"])
+@pytest.mark.parametrize("lib", ["vqc_fused", "vqc_shiftbank", "vqc_spill", "vqc_shift_dmem",
+                                 "vqc_dense_grad"])
 def test_circuit_entry_points_match_the_sources(lib):
     _assert_declared(lib, K._declare(lib, _Entries()))
 

@@ -96,6 +96,29 @@ def test_grad_shift_records_its_span_tree(recorder):
     assert totals["grad_shift"]["count"] == 1
 
 
+def test_27q_dense_gradient_records_the_wide_route(recorder):
+    """At 27 qubits (m = 13) the dense layer's gradient takes the wide route:
+    ``grad_shift.dense`` records ``route="wide"`` with ``.forward`` and
+    ``.backward`` inside it, one of each."""
+    from repro_torch.core import segmentation
+
+    cfg = q.QuClassiConfig(qc=27, n_layers=1, seg=segmentation.SegmentationConfig(
+        filter_width=8, stride=8, n_filters=4))
+    params = q.init_params(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    x, y = mnist.make_pair_dataset(1, 5, n_per_class=1, seed=0)
+    run = dp.worker_batched_executor(cfg.spec, dp.round_robin_assignment(1 + 2 * cfg.n_theta, 2),
+                                     2)
+    q.grad_shift(cfg, params, torch.as_tensor(x), torch.as_tensor(y), executor=run,
+                 implicit=True)
+    spans = _spans(recorder)
+    (dense,) = [s for s in spans if s.name == "grad_shift.dense"]
+    assert dense.args == {"route": "wide"}
+    inner = [s for s in spans if s.parent_id == dense.span_id]
+    assert sorted(s.name for s in inner) == ["grad_shift.dense.backward",
+                                             "grad_shift.dense.forward"]
+    assert all(dense.start <= s.start and s.end <= dense.end for s in inner)
+
+
 @pytest.mark.parametrize("implicit", [True, False])
 def test_spans_leave_loss_and_gradients_bit_identical(implicit):
     want = _grad(implicit)

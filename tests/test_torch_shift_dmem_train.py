@@ -10,9 +10,11 @@ step; that factor reaches 1e7 here, where a fidelity is clamped, which
 puts the tolerance far above the gradients, so they are also held to 1e-4
 of the largest gradient.  One image a class and one 8 x 8 patch an
 image keep each class's bank at B = 2 (the reference's ~8 s a bank).  The
-patches encode without the dense layer (``use_dense=False``): both packages
-take the dense layer's gradient by autodiff through the dense simulator, a
-2**27-amplitude state a sample at this width.
+patches encode without the dense layer (``use_dense=False``): the reference
+takes the dense layer's gradient by autodiff through its dense simulator, a
+2**27-amplitude state a sample at this width.  The port's dense gradient at
+this width, the wide route on the registers, is held against the
+benchmark's plain reference in ``test_torch_dense_wide.py``.
 """
 import jax
 import jax.numpy as jnp
