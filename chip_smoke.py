@@ -3621,7 +3621,7 @@ def main() -> int:
         records[kname] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by}
         if kname in pass_bytes:
-            cluster = K.dmem_geometry(spec17, DMEM_ROWS, K._sm_count(dev))[0]
+            cluster = K.dmem_geometry(spec17, DMEM_ROWS, _build.sm_count(dev))[0]
             records[kname].update(
                 passes=n_passes[kname], pass_bytes=pass_bytes[kname], cluster=cluster,
                 pass_bound_ms=pass_bytes[kname] / PEAK_BYTES_PER_S * 1e3)

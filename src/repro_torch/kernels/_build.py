@@ -1,4 +1,5 @@
-"""Build the CUDA kernels from ``csrc/`` at first use and load them.
+"""The kernels' runtime: build the CUDA kernels from ``csrc/`` at first
+use, load them, declare their entry points and launch them.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
@@ -8,12 +9,20 @@ every source and the flags, so an edited source rebuilds and an unchanged
 one is reused, with the compiler's report kept beside it.  ``build()``
 starts one ``nvcc`` per missing library, all at once.  Nothing is downloaded; a missing or failing compiler raises with
 its output.
+
+``load`` declares every ``extern "C"`` function of a library from its
+sources (``entry_points``), so each entry point's signature is written once,
+in C.  Every kernel wrapper launches through ``launch``, which counts the
+launch into its module's ``LAUNCHES`` (made by ``launch_counts``).  Nothing
+is built, loaded or declared before the first launch that needs it.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,7 +41,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: dict[str, ctypes.CDLL] = {}
+#: library name -> (the loaded library, its error-string entry point)
+_loaded: dict[str, tuple] = {}
 _lock = threading.Lock()
 
 
@@ -105,6 +115,75 @@ def build(names=KERNELS) -> dict[str, dict]:
     return report
 
 
+_EXTERN = re.compile(r'extern "C"\s+([^(]*?)\s*\b(\w+)\s*\(([^)]*)\)')
+_INCLUDE = re.compile(r'^\s*#include "([^"]+)"', re.M)
+#: C type -> ctypes type, of a return and of a parameter (any pointer is a ``void*``)
+_RETURNS = {"int": ctypes.c_int, "const char*": ctypes.c_char_p}
+_PARAMS = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "void*": ctypes.c_void_p}
+
+
+def _c_type(table: dict, c_type: str, entry: str):
+    if c_type not in table:
+        raise TypeError(f"{entry}: no ctypes type for the C type {c_type!r}")
+    return table[c_type]
+
+
+def entry_points(source: Path) -> dict[str, tuple]:
+    """Each ``extern "C"`` function of ``source`` and of the local headers it
+    includes (``#include "..."``, followed recursively) -> its ctypes
+    ``(restype, argtypes)``.  Returns are ``int`` or ``const char*``;
+    parameters are pointers (``c_void_p``), ``long long`` or ``int``; any
+    other type raises, naming the entry point."""
+    out, seen, todo = {}, set(), [Path(source)]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_text()
+        todo += [path.parent / header for header in _INCLUDE.findall(text)]
+        for ret, entry, params in _EXTERN.findall(text):
+            # a parameter's type is its words but the last, its name
+            types = ["void*" if "*" in p else " ".join(p.split()[:-1])
+                     for p in params.split(",") if p.strip()]
+            out[entry] = (_c_type(_RETURNS, " ".join(ret.split()), entry),
+                          tuple(_c_type(_PARAMS, t, entry) for t in types))
+    return out
+
+
+def declare(lib, source: Path):
+    """Declare on ``lib`` every entry point of ``source`` (``entry_points``);
+    returns the library's error string, its one ``const char*`` entry point
+    taking an ``int``."""
+    errors = []
+    for entry, (restype, argtypes) in entry_points(source).items():
+        fn = getattr(lib, entry)
+        fn.restype, fn.argtypes = restype, argtypes
+        if restype is ctypes.c_char_p and argtypes == (ctypes.c_int,):
+            errors.append(fn)
+    if len(errors) != 1:
+        raise RuntimeError(f"{Path(source).name}: {len(errors)} error-string entry points "
+                           "(const char* taking an int), want one")
+    return errors[0]
+
+
+def load(name: str) -> tuple:
+    """The library ``name`` with its entry points declared, and its error
+    string: built if needed, loaded and declared once, under a lock,
+    however many threads ask for it first."""
+    got = _loaded.get(name)
+    if got is None:
+        with _lock:
+            got = _loaded.get(name)
+            if got is None:
+                path = library_path(name)
+                if not path.exists():
+                    build((name,))
+                lib = ctypes.CDLL(str(path))
+                got = _loaded[name] = (lib, declare(lib, CSRC / f"{name}.cu"))
+    return got
+
+
 def ptr(t) -> ctypes.c_void_p:
     """A tensor's device address for a C entry point (None -> NULL)."""
     return ctypes.c_void_p(t.data_ptr() if t is not None else None)
@@ -115,13 +194,63 @@ def stream(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            path = library_path(name)
-            if not path.exists():
-                build((name,))
-            lib = _loaded[name] = ctypes.CDLL(str(path))
-        return lib
+#: launch-count key -> the ``launch_counts`` dict that holds it
+_COUNTS: dict[str, dict] = {}
+#: the async dispatcher launches from several threads
+_COUNT_LOCK = threading.Lock()
+
+
+def launch_counts(*keys: str) -> dict[str, int]:
+    """A kernel module's launch counts, all 0: the dict that ``launch`` and
+    ``count_launch`` add to under these keys."""
+    counts = dict.fromkeys(keys, 0)
+    _COUNTS.update(dict.fromkeys(keys, counts))
+    return counts
+
+
+def count_launch(*keys: str) -> None:
+    """One launch more under each of ``keys``."""
+    with _COUNT_LOCK:
+        for key in keys:
+            _COUNTS[key][key] += 1
+
+
+def launch(library: str, entry: str, what: str, device, *args, count) -> None:
+    """Call ``entry`` of ``library`` on ``device`` with ``args`` and
+    PyTorch's current stream of ``device`` last; raise with the library's
+    error string on a nonzero return, else count one launch under
+    ``count`` (a key, or a tuple of keys)."""
+    lib, error = load(library)
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*args, stream(device))
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: {error(rc).decode()}")
+    count_launch(*((count,) if isinstance(count, str) else count))
+
+_DEVICE_TABLES: dict = {}
+_TABLES_LOCK = threading.Lock()
+
+
+def on_device(key, arrays, device) -> tuple[torch.Tensor, ...]:
+    """Host tables copied to ``device`` once per (key, device), None kept
+    as None.  The copy is made under a lock and waited for before the
+    tables are shared, so a kernel launched from another thread, on another
+    stream, never reads a table whose copy is still in flight."""
+    k = (key, device)
+    got = _DEVICE_TABLES.get(k)
+    if got is None:
+        with _TABLES_LOCK:
+            got = _DEVICE_TABLES.get(k)
+            if got is None:
+                got = tuple(None if a is None else torch.from_numpy(a).to(device)
+                            for a in arrays)
+                if device.type == "cuda":
+                    torch.cuda.current_stream(device).synchronize()
+                _DEVICE_TABLES[k] = got
+    return got
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

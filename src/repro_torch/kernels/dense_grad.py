@@ -51,6 +51,7 @@ import torch
 
 from repro_torch.core import circuits
 from repro_torch.kernels import vqc_statevector as K
+from repro_torch.kernels._build import launch, on_device, ptr, sm_count
 
 #: encoding rotations a data qubit holds (QuClassi's RX and RY);
 #: ``kSlots`` in ``vqc_dense_grad.cu``
@@ -145,31 +146,31 @@ def route_plan(qc: int, n_layers: int, n_classes: int, patch_dim: int) -> Regist
 def _tables(plan: RegisterPlan):
     """The train ops' table and the data slots' (``m * SLOTS`` rows), each
     with its constant angles."""
-    train_i, train_f = K._ops_table(plan.train_ops)
-    rows, consts = zip(*(K._op_row(op) for ops in plan.slots for op in ops))
+    train_i, train_f = K.ops_table(plan.train_ops)
+    rows, consts = zip(*(K.op_row(op) for ops in plan.slots for op in ops))
     return (train_i, train_f, np.array(rows, np.int32).reshape(-1, 6),
             np.array(consts, np.float32))
 
 
 def _psi_plain(plan: RegisterPlan, theta):
     """psi(theta_c) of every class, (C, 2**m) complex."""
-    re, im = K._zero_tile(2**plan.m, theta.shape[0], theta.device)
+    re, im = K.zero_tile(2**plan.m, theta.shape[0], theta.device)
     th = theta.T
     for op in plan.train_ops:
-        re, im = K._apply_one(op, re, im, plan.m, th, None)
+        re, im = K.apply_one(op, re, im, plan.m, th, None)
     return torch.complex(re, im).T
 
 
 def _factor_plain(ops, x, shifted=None):
     """One data qubit's factor, (N, 2) complex, from its rotations on |0>;
     rotation ``shifted`` replaced by its derivative R(a + pi) / 2."""
-    re, im = K._zero_tile(2, x.shape[1], x.device)
+    re, im = K.zero_tile(2, x.shape[1], x.device)
     for k, op in enumerate(ops):
-        ang = K._op_angle(op, x, x)
+        ang = K.op_angle(op, x, x)
         c, s = torch.cos(ang / 2), torch.sin(ang / 2)
         if k == shifted:
             c, s = -s, c
-        re, im = K._apply_cs(dataclasses.replace(op, qubits=(0,)), re, im, 1, c, s)
+        re, im = K.apply_cs(dataclasses.replace(op, qubits=(0,)), re, im, 1, c, s)
     f = torch.complex(re, im).T
     return f if shifted is None else f * 0.5
 
@@ -207,46 +208,36 @@ def _partials_plain(plan: RegisterPlan, theta, angles, patches, weights, n_patch
 def _partials_cuda(plan: RegisterPlan, theta, angles, patches, weights, n_patches):
     n, a, pd, c = angles.shape[0], angles.shape[1], patches.shape[1], theta.shape[0]
     dev = theta.device
-    train_i, train_f, slot_i, slot_f = K._on_device(("dense", plan), _tables(plan), dev)
+    train_i, train_f, slot_i, slot_f = on_device(("dense", plan), _tables(plan), dev)
     n_tiles = -(-n // THREADS)
-    per_block = max(1, -(-n_tiles // (BLOCKS_PER_SM * K._sm_count(dev))))
+    per_block = max(1, -(-n_tiles // (BLOCKS_PER_SM * sm_count(dev))))
     blocks = -(-n_tiles // per_block)
     partial = torch.empty((blocks, pd * a + a), dtype=torch.float32, device=dev)
-    lib = K._lib("vqc_dense_grad")
-    with torch.cuda.device(dev):
-        rc = lib.vqc_dense_grad_launch(
-            K._ptr(theta), theta.shape[1], c, K._ptr(train_i), K._ptr(train_f),
-            len(plan.train_ops), K._ptr(slot_i), K._ptr(slot_f), plan.m,
-            K._ptr(angles), a, K._ptr(patches), pd, K._ptr(weights), n_patches, n,
-            per_block, blocks, K._ptr(partial), smem_bytes(plan, c, pd), K._stream(dev),
-        )
-    K._check_launch(lib, rc, "dense-gradient")
-    K._count("dense_grad")
+    launch("vqc_dense_grad", "vqc_dense_grad_launch", "dense-gradient", dev,
+           ptr(theta), theta.shape[1], c, ptr(train_i), ptr(train_f),
+           len(plan.train_ops), ptr(slot_i), ptr(slot_f), plan.m,
+           ptr(angles), a, ptr(patches), pd, ptr(weights), n_patches, n,
+           per_block, blocks, ptr(partial), smem_bytes(plan, c, pd), count="dense_grad")
     return partial
 
 
 def _partials_wide_cuda(plan: RegisterPlan, theta, angles, patches, weights, n_patches):
     n, a, pd, c = angles.shape[0], angles.shape[1], patches.shape[1], theta.shape[0]
     dev = theta.device
-    train_i, train_f, slot_i, slot_f = K._on_device(("dense", plan), _tables(plan), dev)
-    lib = K._lib("vqc_dense_grad")
+    train_i, train_f, slot_i, slot_f = on_device(("dense", plan), _tables(plan), dev)
     psi = torch.empty((c, 2, 2**plan.m), dtype=torch.float32, device=dev)
-    per_block = max(1, -(-n // (WIDE_BLOCKS_PER_SM * K._sm_count(dev))))
+    per_block = max(1, -(-n // (WIDE_BLOCKS_PER_SM * sm_count(dev))))
     blocks = -(-n // per_block)
     partial = torch.empty((blocks, pd * a + a), dtype=torch.float32, device=dev)
     in_smem, psi_bytes = psi_smem(plan)
-    with torch.cuda.device(dev):
-        rc = lib.vqc_dense_wide_psi_launch(
-            K._ptr(theta), theta.shape[1], c, K._ptr(train_i), K._ptr(train_f),
-            len(plan.train_ops), plan.m, K._ptr(psi), int(in_smem), psi_bytes, K._stream(dev))
-        K._check_launch(lib, rc, "dense-gradient psi")
-        K._count("dense_wide_psi")
-        rc = lib.vqc_dense_wide_launch(
-            K._ptr(psi), c, K._ptr(slot_i), K._ptr(slot_f), plan.m, K._ptr(angles), a,
-            K._ptr(patches), pd, K._ptr(weights), n_patches, n, per_block, blocks,
-            K._ptr(partial), wide_smem_bytes(plan, c, pd), K._stream(dev))
-    K._check_launch(lib, rc, "wide dense-gradient")
-    K._count("dense_wide")
+    launch("vqc_dense_grad", "vqc_dense_wide_psi_launch", "dense-gradient psi", dev,
+           ptr(theta), theta.shape[1], c, ptr(train_i), ptr(train_f),
+           len(plan.train_ops), plan.m, ptr(psi), int(in_smem), psi_bytes,
+           count="dense_wide_psi")
+    launch("vqc_dense_grad", "vqc_dense_wide_launch", "wide dense-gradient", dev,
+           ptr(psi), c, ptr(slot_i), ptr(slot_f), plan.m, ptr(angles), a,
+           ptr(patches), pd, ptr(weights), n_patches, n, per_block, blocks,
+           ptr(partial), wide_smem_bytes(plan, c, pd), count="dense_wide")
     return partial
 
 
@@ -280,11 +271,7 @@ def reduce_partials(partials: torch.Tensor, patch_dim: int, n_angles: int):
         total = partials.sum(0)
     else:
         total = torch.empty(partials.shape[1], dtype=torch.float32, device=partials.device)
-        lib = K._lib("vqc_dense_grad")
-        with torch.cuda.device(partials.device):
-            rc = lib.vqc_dense_reduce_launch(K._ptr(partials), partials.shape[0],
-                                             partials.shape[1], K._ptr(total),
-                                             K._stream(partials.device))
-        K._check_launch(lib, rc, "dense-gradient reduction")
-        K._count("dense_reduce")
+        launch("vqc_dense_grad", "vqc_dense_reduce_launch", "dense-gradient reduction",
+               partials.device, ptr(partials), partials.shape[0], partials.shape[1],
+               ptr(total), count="dense_reduce")
     return total[: patch_dim * n_angles].view(patch_dim, n_angles), total[patch_dim * n_angles:]

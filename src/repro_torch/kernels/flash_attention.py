@@ -49,9 +49,6 @@ history and a CPU run would train through the plain version.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from repro_torch.kernels import _build
@@ -65,10 +62,13 @@ HEAD_DIMS = (16, 32, 64, 96, 128, 192)
 
 #: the kernel each dtype launches on a CUDA tensor (a key of LAUNCHES)
 ROUTES = {torch.bfloat16: "flash_wgmma", torch.float32: "flash_simt"}
+#: per route: its library and launch entry point
+ENTRIES = {"flash_wgmma": ("flash_attn_sm90", "flash_sm90_launch"),
+           "flash_simt": ("flash_attn", "flash_attn_launch")}
 
 #: kernel launches since the counts were last zeroed (CUDA path only):
 #: "flash" counts both routes
-LAUNCHES = {"flash": 0, "flash_wgmma": 0, "flash_simt": 0}
+LAUNCHES = _build.launch_counts("flash", "flash_wgmma", "flash_simt")
 
 
 def _check(q, k, v, groups: int) -> None:
@@ -144,25 +144,6 @@ def _flash_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
-#: per route: library, launch entry point, error-string entry point
-_LIBS = {"flash_wgmma": ("flash_attn_sm90", "flash_sm90_launch", "flash_sm90_error_string"),
-         "flash_simt": ("flash_attn", "flash_attn_launch", "flash_error_string")}
-
-
-@functools.cache
-def _lib(route: str):
-    """The route's (launch, error string) entry points, built at first use."""
-    name, launch, error = _LIBS[route]
-    lib = _build.load(name)
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    launch, error = getattr(lib, launch), getattr(lib, error)
-    launch.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
-    launch.restype = i32
-    error.argtypes = [i32]
-    error.restype = ctypes.c_char_p
-    return launch, error
-
-
 def check_tma_aligned(*tensors: torch.Tensor) -> None:
     """TMA copies need every base address 16-byte aligned: raise if not."""
     for t in tensors:
@@ -186,16 +167,9 @@ def _flash_cuda(q, k, v, causal: bool, window: int, groups: int) -> torch.Tensor
         check_tma_aligned(q, k, v, out)
     else:  # cp.async copies 16 bytes: a view off that alignment is copied
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
-    dev = q.device
-    launch, error = _lib(route)
-    with torch.cuda.device(dev):
-        rc = launch(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-                    bh, s, hd, groups, int(causal), int(window), _build.stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"flash-attention kernel launch failed ({route}): "
-                           f"{error(rc).decode()}")
-    LAUNCHES["flash"] += 1
-    LAUNCHES[route] += 1
+    _build.launch(*ENTRIES[route], f"flash-attention ({route})", q.device,
+                  _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+                  bh, s, hd, groups, int(causal), int(window), count=("flash", route))
     return out
 
 

@@ -65,7 +65,8 @@ so a spilled sample's checkpoints, re-derived by the tile kernel from a
 boundary the forward kernel wrote, do not depend on where its depth tiles
 start, and the single sweep and the spill pair give the same bits.  On the
 CPU every wrapper takes the plain PyTorch version beside its kernel; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel through the runtime (``_build.launch``)
+or raises.
 
 The host half (``ShiftPlan`` .. ``multibank_stats``) is the reference's,
 with the TPU tile policy (``LANES = 128``, ``kernel_tb``, a 14 MB VMEM
@@ -80,17 +81,15 @@ those launches' blocks (``SWEEP_MIN_WARPS``); the kernel wrappers,
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
-import threading
 
 import numpy as np
 import torch
 
 from repro_torch.core.shift_rule import shift_values
 from repro_torch.core.sim import CircuitSpec
-from repro_torch.kernels import _build
+from repro_torch.kernels._build import launch, launch_counts, on_device, ptr, sm_count
 
 # ------------------------------------------------------------ tile policy
 #: a warp: multibank lane segments pad to it, and it is the reference's
@@ -158,17 +157,10 @@ DMEM_WORKSPACE_BYTES = 1 << 30
 #: ``dense_grad`` and ``dense_reduce``: the dense layer's register kernel,
 #: ``dense_grad.py``, and the reduction of its partials; ``dense_wide_psi``
 #: and ``dense_wide``: the wide route's psi build and kernel, whose partials
-#: ``dense_reduce`` sums too).  The async dispatcher launches from several
-#: threads, so every increment goes through ``_count`` under a lock.
-LAUNCHES = {"fidelity": 0, "state": 0, "shiftbank": 0, "shift_forward": 0, "shift_tile": 0,
-            "fidelity_dmem": 0, "state_dmem": 0, "shift_dmem": 0, "dense_grad": 0,
-            "dense_reduce": 0, "dense_wide_psi": 0, "dense_wide": 0}
-_COUNT_LOCK = threading.Lock()
-
-
-def _count(name: str) -> None:
-    with _COUNT_LOCK:
-        LAUNCHES[name] += 1
+#: ``dense_reduce`` sums too).  ``launch`` counts them under the runtime's lock.
+LAUNCHES = launch_counts("fidelity", "state", "shiftbank", "shift_forward", "shift_tile",
+                         "fidelity_dmem", "state_dmem", "shift_dmem", "dense_grad",
+                         "dense_reduce", "dense_wide_psi", "dense_wide")
 
 
 def _state_bytes(m: int, tb: int) -> int:
@@ -311,7 +303,7 @@ def _cswap(re, im, qa, qb, qc_, n):
     return outs[0], outs[1]
 
 
-def _op_angle(op, theta_t, data_t, delta: float = 0.0):
+def op_angle(op, theta_t, data_t, delta: float = 0.0):
     """Per-lane angle vector for a parameterized op (+ static shift delta)."""
     kind, j = op.param
     if kind == "theta":
@@ -325,7 +317,7 @@ def _op_angle(op, theta_t, data_t, delta: float = 0.0):
     return ang + delta if delta else ang
 
 
-def _apply_cs(op, re, im, n, c, s):
+def apply_cs(op, re, im, n, c, s):
     """Apply one gate given the per-lane cos / sin of its half angle
     (ignored by H and CSWAP, which are self-inverse)."""
     if op.gate == "h":
@@ -334,22 +326,22 @@ def _apply_cs(op, re, im, n, c, s):
         return _cswap(re, im, *op.qubits, n)
     if op.gate in ("rx", "ry", "rz"):
         return _rot1(re, im, op.qubits[0], n, c, s, op.gate)
-    qa, qb = sorted(op.qubits)  # _op_row rejected descending cry/crz
+    qa, qb = sorted(op.qubits)  # op_row rejected descending cry/crz
     return _rot2(re, im, qa, qb, n, c, s, op.gate)
 
 
-def _apply_one(op, re, im, n, theta_t, data_t, delta: float = 0.0, invert: bool = False):
+def apply_one(op, re, im, n, theta_t, data_t, delta: float = 0.0, invert: bool = False):
     """Apply one gate (optionally angle-shifted by ``delta`` or inverted).
     ``theta_t`` / ``data_t`` are (P, TB) / (D, TB) angle blocks."""
     if op.gate in ("h", "cswap"):
-        return _apply_cs(op, re, im, n, None, None)
-    ang = _op_angle(op, theta_t, data_t, delta)
+        return apply_cs(op, re, im, n, None, None)
+    ang = op_angle(op, theta_t, data_t, delta)
     if invert:  # rotation: g(t)^dagger = g(-t)
         ang = -ang
-    return _apply_cs(op, re, im, n, torch.cos(ang / 2), torch.sin(ang / 2))
+    return apply_cs(op, re, im, n, torch.cos(ang / 2), torch.sin(ang / 2))
 
 
-def _zero_tile(dim: int, tb: int, device):
+def zero_tile(dim: int, tb: int, device):
     re = torch.zeros((dim, tb), dtype=torch.float32, device=device)
     re[0] = 1.0
     return re, torch.zeros((dim, tb), dtype=torch.float32, device=device)
@@ -389,7 +381,7 @@ _GATE_CODE = {"h": 0, "cswap": 1, "rx": 2, "ry": 3, "rz": 4,
 _PARAM_CODE = {"theta": 1, "data": 2, "const": 3}
 
 
-def _op_row(op) -> tuple[list[int], float]:
+def op_row(op) -> tuple[list[int], float]:
     """One op -> its kernel-table row ``[gate, q0, q1, q2, kind, idx]`` and
     constant angle.  Rejects, before any launch, exactly what the
     reference's ``_apply_one`` cannot run: x and swap, descending cry/crz
@@ -418,120 +410,15 @@ def _op_row(op) -> tuple[list[int], float]:
     return [_GATE_CODE[op.gate], *qs, *[0] * (3 - len(qs)), kind, idx], const
 
 
-def _ops_table(ops) -> tuple[np.ndarray, np.ndarray]:
-    rows = [_op_row(op) for op in ops]
+def ops_table(ops) -> tuple[np.ndarray, np.ndarray]:
+    rows = [op_row(op) for op in ops]
     ints = np.array([r for r, _ in rows], np.int32).reshape(-1, 6)
     return ints, np.array([c for _, c in rows], np.float32)
 
 
 @functools.lru_cache(maxsize=None)
 def _spec_table(spec: CircuitSpec):
-    return _ops_table(spec.ops)
-
-
-_DEVICE_TABLES: dict = {}
-_TABLES_LOCK = threading.Lock()
-
-
-def _on_device(key, arrays, device) -> tuple[torch.Tensor, ...]:
-    """Host tables copied to ``device`` once per (key, device), None kept
-    as None.  The copy is made under a lock and waited for before the
-    tables are shared, so a kernel launched from another thread, on another
-    stream, never reads a table whose copy is still in flight."""
-    k = (key, device)
-    got = _DEVICE_TABLES.get(k)
-    if got is None:
-        with _TABLES_LOCK:
-            got = _DEVICE_TABLES.get(k)
-            if got is None:
-                got = tuple(None if a is None else torch.from_numpy(a).to(device)
-                            for a in arrays)
-                if device.type == "cuda":
-                    torch.cuda.current_stream(device).synchronize()
-                _DEVICE_TABLES[k] = got
-    return got
-
-
-_ptr, _stream = _build.ptr, _build.stream
-
-
-_LIBS: dict = {}
-_LIBS_LOCK = threading.Lock()
-
-
-def _lib(name: str):
-    """The built kernel library with its C entry points declared: built and
-    declared once, under a lock, however many threads ask for it first."""
-    got = _LIBS.get(name)
-    if got is None:
-        with _LIBS_LOCK:
-            got = _LIBS.get(name)
-            if got is None:
-                got = _LIBS[name] = _declare(name, _build.load(name))
-    return got
-
-
-def _declare(name: str, lib):
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    if name == "vqc_fused":
-        lib.vqc_fidelity_launch.argtypes = (
-            [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, i32, i32, vp]
-        )
-        lib.vqc_fidelity_launch.restype = i32
-        lib.vqc_state_launch.argtypes = (
-            [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, vp]
-        )
-        lib.vqc_state_launch.restype = i32
-        lib.vqc_dmem_launch.argtypes = (
-            [i32, vp, vp, i32, i32, i32, vp, vp, i32, vp, i32, i32, i32, vp, vp,
-             ctypes.c_longlong, vp, i32, i32, i32, vp]
-        )
-        lib.vqc_dmem_launch.restype = i32
-    elif name == "vqc_shiftbank":
-        lib.vqc_shiftbank_launch.argtypes = (
-            [vp, vp, i32, i32, i32, vp, vp, i32, i32, i32, i32, i32, i32, vp, i32, i32, vp]
-        )
-        lib.vqc_shiftbank_launch.restype = i32
-    elif name == "vqc_shift_dmem":
-        i64 = ctypes.c_longlong
-        lib.vqc_shift_dmem_launch.argtypes = (
-            [vp, vp, i32, i32, i32, vp, vp, i32, vp, vp, i32, vp, i32, vp, vp, vp, i32, vp,
-             i32, i32, i32, vp, i64, vp, i64, i64, i32, i32, vp]
-        )
-        lib.vqc_shift_dmem_launch.restype = i32
-    elif name == "vqc_dense_grad":
-        lib.vqc_dense_grad_launch.argtypes = (
-            [vp, i32, i32, vp, vp, i32, vp, vp, i32, vp, i32, vp, i32, vp, i32,
-             ctypes.c_longlong, i32, i32, vp, i32, vp]
-        )
-        lib.vqc_dense_grad_launch.restype = i32
-        lib.vqc_dense_reduce_launch.argtypes = [vp, i32, i32, vp, vp]
-        lib.vqc_dense_reduce_launch.restype = i32
-        lib.vqc_dense_wide_psi_launch.argtypes = [vp, i32, i32, vp, vp, i32, i32, vp, i32, i32,
-                                                  vp]
-        lib.vqc_dense_wide_psi_launch.restype = i32
-        lib.vqc_dense_wide_launch.argtypes = (
-            [vp, i32, vp, vp, i32, vp, i32, vp, i32, vp, i32, ctypes.c_longlong, i32, i32, vp,
-             i32, vp]
-        )
-        lib.vqc_dense_wide_launch.restype = i32
-    else:
-        lib.vqc_shift_forward_launch.argtypes = (
-            [vp, vp, i32, i32, i32, vp, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp, i32, i32, vp]
-        )
-        lib.vqc_shift_forward_launch.restype = i32
-        lib.vqc_shift_tile_launch.argtypes = (
-            [vp, vp, i32, i32, i32, vp, vp, i32, i32, i32, i32, i32, vp, vp, vp, i32, i32, vp]
-        )
-        lib.vqc_shift_tile_launch.restype = i32
-    lib.vqc_error_string.argtypes = [i32]
-    lib.vqc_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check_launch(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: {lib.vqc_error_string(rc).decode()}")
+    return ops_table(spec.ops)
 
 
 def _prepare(spec: CircuitSpec, theta, data):
@@ -561,10 +448,10 @@ def _fused_plain(spec: CircuitSpec, theta, data, want_state: bool):
     circuit on a (2**n, C) tile.  Returns P0 (C,) or the final state
     (re, im), each (C, 2**n)."""
     n = spec.n_qubits
-    re, im = _zero_tile(2**n, theta.shape[0], theta.device)
+    re, im = zero_tile(2**n, theta.shape[0], theta.device)
     th, dt = theta.T, data.T
     for op in spec.ops:
-        re, im = _apply_one(op, re, im, n, th, dt)
+        re, im = apply_one(op, re, im, n, th, dt)
     if want_state:
         return re.T.contiguous(), im.T.contiguous()
     half = 2 ** (n - 1)
@@ -584,18 +471,13 @@ def _fidelity_cuda(spec: CircuitSpec, theta, data):
     if warps == 0:
         return _fidelity_dmem_cuda(spec, theta, data)
     dev = theta.device
-    ops_i, ops_f = _on_device(spec, _spec_table(spec), dev)
+    ops_i, ops_f = on_device(spec, _spec_table(spec), dev)
     p0 = torch.empty((c,), dtype=torch.float32, device=dev)
     if c:
-        lib = _lib("vqc_fused")
-        with torch.cuda.device(dev):
-            rc = lib.vqc_fidelity_launch(
-                _ptr(theta), _ptr(data), c, theta.shape[1], data.shape[1],
-                _ptr(ops_i), _ptr(ops_f), len(spec.ops), n, _ptr(p0),
-                warps, smem, _stream(dev),
-            )
-        _check_launch(lib, rc, "fidelity")
-        _count("fidelity")
+        launch("vqc_fused", "vqc_fidelity_launch", "fidelity", dev,
+               ptr(theta), ptr(data), c, theta.shape[1], data.shape[1],
+               ptr(ops_i), ptr(ops_f), len(spec.ops), n, ptr(p0), warps, smem,
+               count="fidelity")
     return p0
 
 
@@ -605,19 +487,14 @@ def _state_cuda(spec: CircuitSpec, theta, data):
     if warps == 0:
         return _state_dmem_cuda(spec, theta, data)
     dev = theta.device
-    ops_i, ops_f = _on_device(spec, _spec_table(spec), dev)
+    ops_i, ops_f = on_device(spec, _spec_table(spec), dev)
     re = torch.empty((c, 2**n), dtype=torch.float32, device=dev)
     im = torch.empty((c, 2**n), dtype=torch.float32, device=dev)
     if c:
-        lib = _lib("vqc_fused")
-        with torch.cuda.device(dev):
-            rc = lib.vqc_state_launch(
-                _ptr(theta), _ptr(data), c, theta.shape[1], data.shape[1],
-                _ptr(ops_i), _ptr(ops_f), len(spec.ops), n, _ptr(re), _ptr(im),
-                warps, smem, _stream(dev),
-            )
-        _check_launch(lib, rc, "state")
-        _count("state")
+        launch("vqc_fused", "vqc_state_launch", "state", dev,
+               ptr(theta), ptr(data), c, theta.shape[1], data.shape[1],
+               ptr(ops_i), ptr(ops_f), len(spec.ops), n, ptr(re), ptr(im), warps, smem,
+               count="state")
     return re, im
 
 
@@ -773,7 +650,7 @@ def _dmem_plain(spec: CircuitSpec, theta, data, want_state: bool,
                 k: int = DMEM_LOCAL_QUBITS):
     """The device-memory kernels' order in plain PyTorch, for the CPU tests:
     the same tables, passes, chunks and zero masks, each pass's ops applied
-    to a chunk as a k-qubit state with ``_apply_one``'s arithmetic.  Its
+    to a chunk as a k-qubit state with ``apply_one``'s arithmetic.  Its
     state equals ``_fused_plain``'s (each amplitude meets the same gates in
     the same order; a skipped chunk holds zeros); P0 sums in float64."""
     n, c = spec.n_qubits, theta.shape[0]
@@ -796,12 +673,12 @@ def _dmem_plain(spec: CircuitSpec, theta, data, want_state: bool,
                     re[idx], im[idx] = 0.0, 0.0
                 continue
             if p == 0:
-                cre, cim = _zero_tile(offs.size, c, theta.device)
+                cre, cim = zero_tile(offs.size, c, theta.device)
             else:
                 cre = torch.where(keep, re[idx], 0.0)
                 cim = torch.where(keep, im[idx], 0.0)
             for op in ops:
-                cre, cim = _apply_one(op, cre, cim, kk, th, dt)
+                cre, cim = apply_one(op, cre, cim, kk, th, dt)
             if last and not want_state:
                 anc0 = torch.from_numpy(((base | offs) >> (n - 1) & 1) == 0)
                 p0 += (cre[anc0].double() ** 2 + cim[anc0].double() ** 2).sum(0)
@@ -867,23 +744,14 @@ def _dmem_launch(spec: CircuitSpec, theta, data, want_state: bool, re, im, strid
                                   f"qubits or more, got {spec.n_qubits}")
     dev, c, k = theta.device, theta.shape[0], DMEM_LOCAL_QUBITS
     rows, local_ops, consts = _dmem_tables(spec, k)
-    passes, ops_i, ops_f = _on_device(("dmem", spec, k), (rows, local_ops, consts), dev)
-    cs, smem = dmem_geometry(spec, c, _sm_count(dev), k)
-    lib = _lib("vqc_fused")
-    with torch.cuda.device(dev):
-        rc = lib.vqc_dmem_launch(
-            int(want_state), _ptr(theta), _ptr(data), c, theta.shape[1], data.shape[1], _ptr(ops_i), _ptr(ops_f),
-            len(spec.ops), _ptr(passes), len(rows), spec.n_qubits, min(k, spec.n_qubits),
-            _ptr(re), _ptr(im),
-            stride, _ptr(p0), cs, DMEM_THREADS, smem, _stream(dev),
-        )
-    _check_launch(lib, rc, f"device-memory {'state' if want_state else 'fidelity'}")
-    _count("state_dmem" if want_state else "fidelity_dmem")
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    passes, ops_i, ops_f = on_device(("dmem", spec, k), (rows, local_ops, consts), dev)
+    cs, smem = dmem_geometry(spec, c, sm_count(dev), k)
+    launch("vqc_fused", "vqc_dmem_launch",
+           f"device-memory {'state' if want_state else 'fidelity'}", dev,
+           int(want_state), ptr(theta), ptr(data), c, theta.shape[1], data.shape[1],
+           ptr(ops_i), ptr(ops_f), len(spec.ops), ptr(passes), len(rows), spec.n_qubits,
+           min(k, spec.n_qubits), ptr(re), ptr(im), stride, ptr(p0), cs, DMEM_THREADS, smem,
+           count="state_dmem" if want_state else "fidelity_dmem")
 
 
 def _fidelity_dmem_cuda(spec: CircuitSpec, theta, data):
@@ -1080,7 +948,7 @@ def _replay_variant(plan: ShiftPlan, j: int, s: float, state, theta_t, data_t):
     for k in range(first, last + 1):
         op = plan.train_ops[k]
         delta = s if op.param == ("theta", j) else 0.0
-        re, im = _apply_one(op, re, im, plan.m, theta_t, data_t, delta=delta)
+        re, im = apply_one(op, re, im, plan.m, theta_t, data_t, delta=delta)
     return re, im
 
 
@@ -1422,9 +1290,9 @@ def _shiftbank_plain(plan: ShiftPlan, shifts, groups, n_params: int, theta, data
     th, dt = theta.T, data.T
 
     # 1. data register: one theta-independent pass, shared by every variant.
-    d_re, d_im = _zero_tile(dim, b, theta.device)
+    d_re, d_im = zero_tile(dim, b, theta.device)
     for op in plan.data_ops:
-        d_re, d_im = _apply_one(op, d_re, d_im, plan.m, th, dt)
+        d_re, d_im = apply_one(op, d_re, d_im, plan.m, th, dt)
 
     wanted = set(groups)
     variants = _collect_variants(plan, shifts, groups, n_params)
@@ -1434,11 +1302,11 @@ def _shiftbank_plain(plan: ShiftPlan, shifts, groups, n_params: int, theta, data
     # 2. forward pass with base angles, checkpointing before each anchored
     #    parameter's FIRST dependent gate.
     checkpoints = {}
-    t_re, t_im = _zero_tile(dim, b, theta.device)
+    t_re, t_im = zero_tile(dim, b, theta.device)
     for k, op in enumerate(plan.train_ops):
         if k in firsts:
             checkpoints[k] = (t_re, t_im)
-        t_re, t_im = _apply_one(op, t_re, t_im, plan.m, th, dt)
+        t_re, t_im = apply_one(op, t_re, t_im, plan.m, th, dt)
 
     rows = {}
     f0 = _inner_fidelity((d_re, d_im), (t_re, t_im))
@@ -1458,7 +1326,7 @@ def _shiftbank_plain(plan: ShiftPlan, shifts, groups, n_params: int, theta, data
             v = _replay_variant(plan, j, s, checkpoints[first], th, dt)
             rows[g] = _inner_fidelity((c_re, c_im), v)
         if k > lowest:
-            c_re, c_im = _apply_one(op, c_re, c_im, plan.m, th, dt, invert=True)
+            c_re, c_im = apply_one(op, c_re, c_im, plan.m, th, dt, invert=True)
     return torch.stack([rows[g] for g in groups], dim=0)
 
 
@@ -1557,8 +1425,8 @@ def _walk_table(
             tile_rows.append([lo, hi, firsts[-1], t])
     if not spill:
         geometry = shift_geometry(plan, n_ckpt[0], len(var_shifts), smem_budget)
-    d_i, d_f = _ops_table(plan.data_ops)
-    t_i, t_f = _ops_table(plan.train_ops)
+    d_i, d_f = ops_table(plan.data_ops)
+    t_i, t_f = ops_table(plan.train_ops)
     tiles_flat = [x for row in reversed(tile_rows) for x in row]
     ints = np.concatenate(
         [d_i.ravel(), t_i.ravel(),
@@ -1584,19 +1452,14 @@ def _shiftbank_cuda(tab: _WalkTable, theta, data):
     """Launch ``shiftbank_kernel`` for the single sweep's table: -> (G, B)."""
     _require_block(tab, tab.tb, "single-sweep shift kernel")
     b, dev = theta.shape[0], theta.device
-    ints, floats = _on_device(tab, (tab.ints, tab.floats), dev)
+    ints, floats = on_device(tab, (tab.ints, tab.floats), dev)
     out = torch.empty((tab.n_rows, b), dtype=torch.float32, device=dev)
     if b:
-        lib = _lib("vqc_shiftbank")
-        with torch.cuda.device(dev):
-            rc = lib.vqc_shiftbank_launch(
-                _ptr(theta), _ptr(data), b, theta.shape[1], data.shape[1],
-                _ptr(ints), _ptr(floats), tab.m, tab.n_data_ops, tab.n_train_ops,
-                tab.n_variants, tab.n_f0_rows, tab.lowest,
-                _ptr(out), tab.tb, tab.smem_bytes, _stream(dev),
-            )
-        _check_launch(lib, rc, "shift-bank")
-        _count("shiftbank")
+        launch("vqc_shiftbank", "vqc_shiftbank_launch", "shift-bank", dev,
+               ptr(theta), ptr(data), b, theta.shape[1], data.shape[1],
+               ptr(ints), ptr(floats), tab.m, tab.n_data_ops, tab.n_train_ops,
+               tab.n_variants, tab.n_f0_rows, tab.lowest, ptr(out), tab.tb, tab.smem_bytes,
+               count="shiftbank")
     return out
 
 
@@ -1631,16 +1494,16 @@ def _shift_forward_plain(plan: ShiftPlan, tile_los, theta, data):
     B), each state a [re; im] stack."""
     dim, b = 2**plan.m, theta.shape[0]
     th, dt = theta.T, data.T
-    d_re, d_im = _zero_tile(dim, b, theta.device)
+    d_re, d_im = zero_tile(dim, b, theta.device)
     for op in plan.data_ops:
-        d_re, d_im = _apply_one(op, d_re, d_im, plan.m, th, dt)
+        d_re, d_im = apply_one(op, d_re, d_im, plan.m, th, dt)
     los = {lo: t for t, lo in enumerate(tile_los)}
     bnd = [None] * len(tile_los)
-    t_re, t_im = _zero_tile(dim, b, theta.device)
+    t_re, t_im = zero_tile(dim, b, theta.device)
     for k, op in enumerate(plan.train_ops):
         if k in los:
             bnd[los[k]] = (t_re, t_im)
-        t_re, t_im = _apply_one(op, t_re, t_im, plan.m, th, dt)
+        t_re, t_im = apply_one(op, t_re, t_im, plan.m, th, dt)
     f0 = _inner_fidelity((d_re, d_im), (t_re, t_im))
     return f0, torch.cat([d_re, d_im]), torch.cat([x for state in bnd for x in state])
 
@@ -1665,7 +1528,7 @@ def _shift_tile_plain(plan: ShiftPlan, tile_plan, theta, data, chi, boundaries):
             if k in firsts:
                 checkpoints[k] = (re, im)
             if k < last:
-                re, im = _apply_one(plan.train_ops[k], re, im, plan.m, th, dt)
+                re, im = apply_one(plan.train_ops[k], re, im, plan.m, th, dt)
         # chi walk + per-variant suffix replay, the single sweep's order; chi
         # at lo seeds the next (shallower) tile.
         rows = {}
@@ -1675,7 +1538,7 @@ def _shift_tile_plain(plan: ShiftPlan, tile_plan, theta, data, chi, boundaries):
                     v = _replay_variant(plan, j, s, checkpoints[plan.theta_positions[j][0]], th, dt)
                     rows[g] = _inner_fidelity((c_re, c_im), v)
             if k > lo or pos + 1 < len(tile_plan):
-                c_re, c_im = _apply_one(plan.train_ops[k], c_re, c_im, plan.m, th, dt, invert=True)
+                c_re, c_im = apply_one(plan.train_ops[k], c_re, c_im, plan.m, th, dt, invert=True)
         out_rows.extend(rows[g] for g, _, _, _ in rows_t)
     return torch.stack(out_rows, dim=0)
 
@@ -1713,18 +1576,13 @@ def _shift_forward_cuda(tab: _WalkTable, theta, data, out):
     d_state = torch.empty((2 * dim, b), dtype=torch.float32, device=dev)
     boundaries = torch.empty((2 * n_tiles * dim, b), dtype=torch.float32, device=dev)
     if b:
-        ints, floats = _on_device(tab, (tab.ints, tab.floats), dev)
-        lib = _lib("vqc_spill")
-        with torch.cuda.device(dev):
-            rc = lib.vqc_shift_forward_launch(
-                _ptr(theta), _ptr(data), b, theta.shape[1], data.shape[1],
-                _ptr(ints), _ptr(floats), tab.m, tab.n_data_ops, tab.n_train_ops,
-                n_tiles, tab.n_variants, tab.n_f0_rows,
-                _ptr(out), _ptr(d_state), _ptr(boundaries),
-                tab.forward_tb, tab.forward_smem_bytes, _stream(dev),
-            )
-        _check_launch(lib, rc, "spill forward")
-        _count("shift_forward")
+        ints, floats = on_device(tab, (tab.ints, tab.floats), dev)
+        launch("vqc_spill", "vqc_shift_forward_launch", "spill forward", dev,
+               ptr(theta), ptr(data), b, theta.shape[1], data.shape[1],
+               ptr(ints), ptr(floats), tab.m, tab.n_data_ops, tab.n_train_ops,
+               n_tiles, tab.n_variants, tab.n_f0_rows, ptr(out), ptr(d_state),
+               ptr(boundaries), tab.forward_tb, tab.forward_smem_bytes,
+               count="shift_forward")
     return d_state, boundaries
 
 
@@ -1743,17 +1601,12 @@ def _shift_tile_cuda(tab: _WalkTable, theta, data, chi, boundaries, out):
                 f"{t.dtype} {tuple(t.shape)} on {t.device}"
             )
     if b:
-        ints, floats = _on_device(tab, (tab.ints, tab.floats), dev)
-        lib = _lib("vqc_spill")
-        with torch.cuda.device(dev):
-            rc = lib.vqc_shift_tile_launch(
-                _ptr(theta), _ptr(data), b, theta.shape[1], data.shape[1],
-                _ptr(ints), _ptr(floats), tab.m, tab.n_data_ops, tab.n_train_ops,
-                n_tiles, tab.n_variants, _ptr(chi), _ptr(boundaries), _ptr(out),
-                tab.tb, tab.smem_bytes, _stream(dev),
-            )
-        _check_launch(lib, rc, "spill tile")
-        _count("shift_tile")
+        ints, floats = on_device(tab, (tab.ints, tab.floats), dev)
+        launch("vqc_spill", "vqc_shift_tile_launch", "spill tile", dev,
+               ptr(theta), ptr(data), b, theta.shape[1], data.shape[1],
+               ptr(ints), ptr(floats), tab.m, tab.n_data_ops, tab.n_train_ops,
+               n_tiles, tab.n_variants, ptr(chi), ptr(boundaries), ptr(out),
+               tab.tb, tab.smem_bytes, count="shift_tile")
     return out
 
 
@@ -1897,7 +1750,7 @@ def _append_run(prog, ops, refs, m: int, k: int, src: int, dst: int, row: int) -
         lo = len(pass_ops)
         for op, ref in zip(ops[p.lo:p.hi], refs[p.lo:p.hi]):
             local = dataclasses.replace(op, qubits=tuple(rank[q] for q in op.qubits))
-            pass_ops.append(_op_row(local)[0])
+            pass_ops.append(op_row(local)[0])
             pass_refs.append(ref)
             local_ops.append(local)
         mask = sum(1 << (m - 1 - q) for q in p.qubits)
@@ -2045,8 +1898,8 @@ def _shift_dmem_walk(spec: CircuitSpec, four_term: bool, groups: tuple[int, ...]
         _append_run(prog, train[first:last + 1], refs, m, k, slot[first], -1, row)
 
     passes, pass_ops, pass_refs, local_ops = prog
-    d_i, d_f = _ops_table(plan.data_ops)
-    t_i, t_f = _ops_table(plan.train_ops)
+    d_i, d_f = ops_table(plan.data_ops)
+    t_i, t_f = ops_table(plan.train_ops)
     stage = _shift_dmem_stage(passes) if m == k else None
     return _DmemWalk(
         np.array(passes, np.int64).astype(np.uint32).view(np.int32).reshape(-1, 7),
@@ -2079,12 +1932,12 @@ def shift_dmem_traffic_bytes(walk: _DmemWalk) -> int:
 def _shift_dmem_plain(walk: _DmemWalk, theta, data):
     """Plain version of ``shift_dmem_kernel``: the same program of passes,
     chunks and angle table, each pass's gates applied to a chunk as a
-    k-qubit state with ``_apply_one``'s arithmetic, each inner product
+    k-qubit state with ``apply_one``'s arithmetic, each inner product
     summed chunk by chunk in chunk order (a chunk's share in float64 by
     halves, rounded once, for the kernel's block reduction).  -> (G, B)."""
     m, k, b = walk.m, walk.k, theta.shape[0]
     th, dt = theta.T, data.T
-    table = [None if op.param is None else _op_angle(op, th, dt) for op in walk.ops]
+    table = [None if op.param is None else op_angle(op, th, dt) for op in walk.ops]
     table += [th[int(j)] + float(s) for j, s in zip(walk.var_param, walk.var_shift)]
     table = [None if a is None else (torch.cos(a / 2), torch.sin(a / 2)) for a in table]
     slots: dict[int, tuple] = {}
@@ -2100,7 +1953,7 @@ def _shift_dmem_plain(walk: _DmemWalk, theta, data):
         for base in bases.tolist():
             idx = offs | base
             if src < 0:
-                re, im = _zero_tile(2**k, b, theta.device)
+                re, im = zero_tile(2**k, b, theta.device)
                 if base:
                     re[0] = 0.0
             else:
@@ -2111,7 +1964,7 @@ def _shift_dmem_plain(walk: _DmemWalk, theta, data):
                 c, s = cs if cs is not None else (None, None)
                 if ref & 1 and s is not None:
                     s = -s
-                re, im = _apply_cs(walk.local_ops[i], re, im, k, c, s)
+                re, im = apply_cs(walk.local_ops[i], re, im, k, c, s)
             if dst >= 0:
                 slots[dst][0][idx], slots[dst][1][idx] = re, im
             if row != -1:
@@ -2149,26 +2002,21 @@ def _shift_dmem_cuda(walk: _DmemWalk, theta, data):
         return out
     _, smem, sample, per = shift_dmem_geometry(walk, b)
     in_smem = _shift_dmem_smem(walk)[1]
-    tables = _on_device(walk, (walk.passes, walk.stage, walk.pass_ops, walk.pass_refs,
+    tables = on_device(walk, (walk.passes, walk.stage, walk.pass_ops, walk.pass_refs,
                                walk.base_ops, walk.base_consts, walk.var_param, walk.var_shift,
                                walk.f0_rows), dev)
     (passes, stage, pass_ops, pass_refs, base_ops, base_consts, var_param, var_shift,
      f0_rows) = tables
     scratch = torch.empty((per, sample // 4), dtype=torch.float32, device=dev)
-    lib = _lib("vqc_shift_dmem")
     for b0 in range(0, b, per):
         n = min(per, b - b0)
-        with torch.cuda.device(dev):
-            rc = lib.vqc_shift_dmem_launch(
-                _ptr(theta[b0:b0 + n]), _ptr(data[b0:b0 + n]), n, theta.shape[1], data.shape[1],
-                _ptr(base_ops), _ptr(base_consts), len(walk.ops), _ptr(var_param),
-                _ptr(var_shift), len(walk.var_param), _ptr(passes), len(walk.passes),
-                _ptr(stage), _ptr(pass_ops), _ptr(pass_refs), walk.max_pass_ops, _ptr(f0_rows),
-                len(walk.f0_rows), walk.m, walk.k, _ptr(scratch), sample // 4, _ptr(out), b, b0,
-                int(in_smem), smem, _stream(dev),
-            )
-        _check_launch(lib, rc, "device-memory shift")
-        _count("shift_dmem")
+        launch("vqc_shift_dmem", "vqc_shift_dmem_launch", "device-memory shift", dev,
+               ptr(theta[b0:b0 + n]), ptr(data[b0:b0 + n]), n, theta.shape[1], data.shape[1],
+               ptr(base_ops), ptr(base_consts), len(walk.ops), ptr(var_param),
+               ptr(var_shift), len(walk.var_param), ptr(passes), len(walk.passes),
+               ptr(stage), ptr(pass_ops), ptr(pass_refs), walk.max_pass_ops, ptr(f0_rows),
+               len(walk.f0_rows), walk.m, walk.k, ptr(scratch), sample // 4, ptr(out), b, b0,
+               int(in_smem), smem, count="shift_dmem")
     return out
 
 

@@ -42,7 +42,7 @@ from repro_torch.core import fidelity as tfid
 from repro_torch.core import quclassi as tq
 from repro_torch.core import shift_rule as tsr
 from repro_torch.core import trainer as ttrainer
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import vqc_statevector as K
 from repro_torch.obs import TraceRecorder
 
@@ -577,9 +577,9 @@ def test_concurrent_submitters_and_kernel_counters():
 
     def hammer():
         for _ in range(500):
-            K._count("state")
-        tables.append(K._on_device(("counter-test",), (np.arange(4, dtype=np.int32),),
-                                   torch.device("cpu")))
+            _build.count_launch("state")
+        tables.append(_build.on_device(("counter-test",), (np.arange(4, dtype=np.int32),),
+                                       torch.device("cpu")))
 
     threads = [threading.Thread(target=hammer) for _ in range(8)]
     for t in threads:
@@ -591,7 +591,7 @@ def test_concurrent_submitters_and_kernel_counters():
         assert all(t is tables[0] for t in tables)
     finally:
         K.LAUNCHES.update(before)
-        K._DEVICE_TABLES.pop((("counter-test",), torch.device("cpu")), None)
+        _build._DEVICE_TABLES.pop((("counter-test",), torch.device("cpu")), None)
 
 
 @pytest.mark.parametrize("n_banks", [1, 3])
@@ -627,35 +627,42 @@ def test_shift_group_bits_do_not_depend_on_batch_composition(n_banks):
         assert torch.equal(torch.stack([f.result(timeout=1.0) for f in fs]), whole)
 
 
-def test_first_build_from_several_threads_gives_one_library(monkeypatch):
+def test_first_build_from_several_threads_gives_one_library(monkeypatch, tmp_path):
     """Slot threads that hit a library's first use together get one
-    library, declared once (the build is faked: no nvcc here)."""
+    library, built, loaded and declared once (the build and the loaded
+    library are faked: no nvcc and no card here)."""
     class Fn:
         pass
 
     class Lib:
+        def __init__(self, path):
+            loads.append(path)
+
         def __getattr__(self, name):
             fn = Fn()
             setattr(self, name, fn)
             return fn
 
-    loads = []
+    builds, loads = [], []
 
-    def load(name):
-        loads.append(name)
+    def build(names):
+        builds.append(names)
         time.sleep(0.05)  # a build in progress while the other threads ask
-        return Lib()
 
-    monkeypatch.setattr(K._build, "load", load)
-    monkeypatch.setattr(K, "_LIBS", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "build", build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", Lib)
+    monkeypatch.setattr(_build, "_loaded", {})
     got = []
-    threads = [threading.Thread(target=lambda: got.append(K._lib("vqc_fused")))
+    threads = [threading.Thread(target=lambda: got.append(_build.load("vqc_fused")))
                for _ in range(8)]
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
-    assert loads == ["vqc_fused"] and len(got) == 8 and all(g is got[0] for g in got)
+        t.join(timeout=10.0)
+    assert not any(t.is_alive() for t in threads)
+    assert builds == [("vqc_fused",)] and len(loads) == 1
+    assert len(got) == 8 and all(g is got[0] for g in got)
 
 
 def test_drain_surfaces_pump_errors():

@@ -122,13 +122,13 @@ def test_forward_plain_writes_boundaries_in_kernel_layout():
     dim = 2**plan.m
     assert d_state.shape == (2 * dim, 4) and bnd.shape == (2 * len(tiles) * dim, 4)
     th, dt = theta.T, data.T
-    re, im = K._zero_tile(dim, 4, "cpu")
+    re, im = K.zero_tile(dim, 4, "cpu")
     for k, op in enumerate(plan.train_ops):
         for t, (lo, _) in enumerate(tiles):
             if k == lo:
                 assert torch.equal(bnd[2 * t * dim : (2 * t + 1) * dim], re)
                 assert torch.equal(bnd[(2 * t + 1) * dim : (2 * t + 2) * dim], im)
-        re, im = K._apply_one(op, re, im, plan.m, th, dt)
+        re, im = K.apply_one(op, re, im, plan.m, th, dt)
     assert torch.equal(f0, K._shiftbank_plain(plan, K.shift_values(False), (0,), ts.n_theta,
                                               theta, data)[0])
 

@@ -79,17 +79,7 @@ def build_parent(src_dir: Path, names) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n{text}")
         log(f"parent {name}: ptxas spills {ptxas_spills(text)}")
         libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if "flash_attn" in libs:
-        libs["flash_attn"].flash_attn_launch.argtypes = [vp, vp, vp, vp] + [i32] * 6 + [vp]
-    for fn in ("vqc_fidelity_dmem_launch", "vqc_state_dmem_launch"):
-        if "vqc_fused" in libs:
-            getattr(libs["vqc_fused"], fn).argtypes = (
-                [vp, vp, i32, i32, i32, vp, vp, i32, i32, vp, vp, i32, i32, vp])
-    if "vqc_shift_dmem" in libs:
-        libs["vqc_shift_dmem"].vqc_shift_dmem_launch.argtypes = (
-            [vp, vp, i32, i32, i32, vp, vp, i32, vp, vp, i32, vp, i32, vp, vp, i32, vp, i32,
-             i32, i32, vp, i64, vp, i64, i64, i32, i32, vp])
+        _build.declare(libs[name], src_dir / f"{name}.cu")
     return libs
 
 
@@ -200,7 +190,7 @@ def dmem_ab(libs, dev, card: str) -> list:
         n_pass, p0_bytes = K.dmem_traffic_bytes(spec, False)
         _, state_bytes = K.dmem_traffic_bytes(spec, True)
         rec = {"q": qc, "C": c, "passes": n_pass,
-               "cluster": K.dmem_geometry(spec, c, K._sm_count(dev))[0],
+               "cluster": K.dmem_geometry(spec, c, _build.sm_count(dev))[0],
                "p0_bytes": c * p0_bytes, "state_bytes": c * state_bytes,
                "p0_traffic_ms": c * p0_bytes / PEAK_BYTES_PER_S * 1e3,
                "err_p0": err_p0, "err_state": err_state, "state_equal_old": same,
@@ -215,6 +205,7 @@ def dmem_shapes(dev, card: str) -> list:
     """The new route alone at other launch shapes, P(0) at 17q C = 256 and
     C = 8 and 19q C = 64: every result the bits of the default shape."""
     from repro_torch.core import circuits
+    from repro_torch.kernels import _build
     from repro_torch.kernels import vqc_statevector as K
 
     out = []
@@ -235,7 +226,7 @@ def dmem_shapes(dev, card: str) -> list:
                     err = float((got - base).abs().max())
                     ms = time_ms(lambda: K.vqc_p0(spec, th, dt), iters=5, warmup=1)
                     rec = {"q": qc, "C": c, "threads": threads, "cluster_cap": cap, "k": k,
-                           "cluster": K.dmem_geometry(spec, c, K._sm_count(dev), k)[0],
+                           "cluster": K.dmem_geometry(spec, c, _build.sm_count(dev), k)[0],
                            "passes": len(K.dmem_plan(spec, k)), "ms": ms,
                            "max_abs_diff_to_default": err}
                     out.append(rec)
@@ -278,9 +269,10 @@ def shift_dmem_ab(libs, dev, card: str) -> dict:
                               device=dev)
             for gs in sets:
                 walk = K._shift_route(spec, False, gs, K.SMEM_BUDGET_BYTES)
-                tabs = K._on_device(walk, (walk.passes, walk.stage, walk.pass_ops,
-                                           walk.pass_refs, walk.base_ops, walk.base_consts,
-                                           walk.var_param, walk.var_shift, walk.f0_rows), dev)
+                tabs = _build.on_device(walk, (walk.passes, walk.stage, walk.pass_ops,
+                                                walk.pass_refs, walk.base_ops,
+                                                walk.base_consts, walk.var_param,
+                                                walk.var_shift, walk.f0_rows), dev)
                 passes, _, pass_ops, pass_refs, base_ops, base_consts, vp_, vs_, f0 = tabs
                 smem, sample, per = old_shift_geometry(K, walk, b)
                 scratch = torch.empty((per, sample // 4), dtype=torch.float32, device=dev)

@@ -56,7 +56,9 @@ STAMP = ("if (g_trace && threadIdx.x == 0 && blockIdx.x < g_blocks) "
          "g_trace[((long long)blockIdx.x * n_passes + p) * 8 + {i}] = clock64();\n")
 
 
-def build(out: Path) -> ctypes.CDLL:
+def build(out: Path) -> tuple:
+    """The traced copy, loaded and declared as the runtime loads a library:
+    (library, its error string)."""
     from repro_torch.kernels import _build
 
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
@@ -81,8 +83,7 @@ def build(out: Path) -> ctypes.CDLL:
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for the traced copy:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(lib_path))
-    lib.set_trace.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    return lib
+    return lib, _build.declare(lib, out / "vqc_shift_dmem.cu")
 
 
 def kinds(walk) -> list[str]:
@@ -105,6 +106,7 @@ def main() -> int:
     args = ap.parse_args()
     from repro_torch.comanager import dataplane
     from repro_torch.core import circuits
+    from repro_torch.kernels import _build
     from repro_torch.kernels import vqc_statevector as K
 
     dev, card = torch.device("cuda", 0), smi_line()
@@ -120,8 +122,8 @@ def main() -> int:
                       dtype=torch.float32, device=dev)
     dt = torch.tensor(rng.uniform(0.0, np.pi, (args.batch, spec.n_data)), dtype=torch.float32,
                       device=dev)
-    built = K._lib("vqc_shift_dmem")
-    traced = K._declare("vqc_shift_dmem", build(ROOT / "build" / "shift_dmem_trace"))
+    built = _build.load("vqc_shift_dmem")
+    traced = build(ROOT / "build" / "shift_dmem_trace")
     blocks = min(args.batch, torch.cuda.get_device_properties(dev).multi_processor_count)
     result = {"card": card, "shape": f"{args.qc}q-{args.layers}l B={args.batch}", "sets": {}}
     try:
@@ -133,16 +135,16 @@ def main() -> int:
             def run(gs=gs):
                 return K.vqc_shift_fidelity(spec, th, dt, groups=gs)
 
-            K._LIBS["vqc_shift_dmem"] = built
+            _build._loaded["vqc_shift_dmem"] = built
             want = run().clone()
             built_ms = time_ms(run, iters=3, warmup=1)
-            K._LIBS["vqc_shift_dmem"] = traced
+            _build._loaded["vqc_shift_dmem"] = traced
             n = len(walk.passes)
             buf = torch.zeros((blocks, n, 8), dtype=torch.int64, device=dev)
-            traced.set_trace(ctypes.c_void_p(buf.data_ptr()), blocks)
+            traced[0].set_trace(ctypes.c_void_p(buf.data_ptr()), blocks)
             got = run()
             torch.cuda.synchronize()
-            traced.set_trace(ctypes.c_void_p(0), 0)
+            traced[0].set_trace(ctypes.c_void_p(0), 0)
             traced_ms = time_ms(run, iters=3, warmup=1)
             if not torch.equal(got, want):
                 raise AssertionError(f"{label}: the traced copy's rows differ from the kernel's")
@@ -171,7 +173,7 @@ def main() -> int:
                 log(f"  {kind:17s} x{rec['passes']:<4d} " + ", ".join(
                     f"{s} {rec[s]:.0f}" for s in SEGMENTS))
     finally:
-        K._LIBS["vqc_shift_dmem"] = built
+        _build._loaded["vqc_shift_dmem"] = built
     out = ROOT / "chiprun_out" / "shift_dmem_trace.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
