@@ -1237,7 +1237,9 @@ def shift_execution_info(
     ``forward_smem_bytes`` the forward launch's) or "dmem" (the
     device-memory walk, no depth tiles: ``launches`` of at most
     ``samples_per_launch`` samples, one block of ``smem_bytes`` a sample,
-    ``scratch_bytes`` of device memory a launch, ``passes`` passes).
+    ``scratch_bytes`` of device memory a launch, ``passes`` passes, of
+    which ``one_sweep_passes`` sweep the state in shared memory once, and
+    ``sweeps`` sweeps a sample: ``shift_dmem_sweeps``).
     ``tb`` counts circuits (samples) per block, one warp each on the
     shared-memory routes."""
     plan = build_shift_plan(spec)
@@ -1262,10 +1264,11 @@ def shift_execution_info(
                 "smem_bytes": tab.smem_bytes, **base}
     if tab.route == "dmem":
         _, smem, sample, per = shift_dmem_geometry(tab, n_samples)
+        sweeps, one = shift_dmem_sweeps(tab)
         return {"mode": "spill", "route": "dmem", "launches": -(-max(n_samples, 1) // per),
                 "n_tiles": 0, "tiles": (), "tb": 1, "smem_bytes": smem,
                 "scratch_bytes": sample * per, "samples_per_launch": per,
-                "passes": len(tab.passes), **base}
+                "passes": len(tab.passes), "sweeps": sweeps, "one_sweep_passes": one, **base}
     return {
         "mode": "spill",
         "route": "pair",
@@ -1702,14 +1705,19 @@ def _dmem_low_slot(m: int, k: int) -> int:
 def _shift_dmem_smem(walk: _DmemWalk) -> tuple[int, bool]:
     """(shared-memory bytes a block, whether the program's tables are among
     them): three chunks' (re, im), two mbarriers, two partial sums a warp,
-    the deposit tables, the angle table and a pass's cos / sin, then the
-    passes, staging plan (m = k), pass ops and angle references where they
-    fit the SMEM_BUDGET_BYTES a block may use (else the kernel reads them
-    from device memory)."""
-    base = (4 * (6 * 2**walk.k + 64 + 2 * walk.n_angles + 2 * walk.max_pass_ops)
-            + 8 * (2 + 256 + 64))
-    rows = 7 + (_STAGE_FIELDS if walk.stage is not None else 0)
-    tables = 4 * (rows * len(walk.passes) + (6 + 1) * len(walk.pass_refs))
+    then at m = k each pass op's cos / sin (built once a sample), else the
+    deposit tables, the angle table and a pass's cos / sin; then the
+    passes, staging plan and pass ops (and, m > k, the angle references)
+    where they fit the SMEM_BUDGET_BYTES a block may use (else the kernel
+    reads them from device memory)."""
+    n_ops = len(walk.pass_refs)
+    if walk.stage is not None:
+        base = 4 * (6 * 2**walk.k + 64 + 2 * n_ops) + 8 * 2
+        tables = 4 * ((7 + _STAGE_FIELDS) * len(walk.passes) + 6 * n_ops)
+    else:
+        base = (4 * (6 * 2**walk.k + 64 + 2 * walk.n_angles + 2 * walk.max_pass_ops)
+                + 8 * (2 + 256 + 64))
+        tables = 4 * (7 * len(walk.passes) + (6 + 1) * n_ops)
     fits = base + tables <= SMEM_BUDGET_BYTES
     return base + tables * fits, fits
 
@@ -1720,9 +1728,10 @@ def shift_dmem_geometry(walk: _DmemWalk, n_samples: int) -> tuple[int, int, int,
     block of 512 threads a sample; its shared memory three chunks'
     (re, im) (chi and two states at m = k, chi resident and a chunk at
     m = k + 1, else two chunks and chi's), two mbarriers, two partial sums
-    a warp, the two deposit tables (256 + 64 offsets of 8 bytes), the
-    sample's angle table and a pass's cos / sin, and the program's tables
-    where they fit (``_shift_dmem_smem``: 227,252 B at 27q-3l); its
+    a warp, at m = k each pass op's cos / sin, else the two deposit tables
+    (256 + 64 offsets of 8 bytes), the sample's angle table and a pass's
+    cos / sin, and the program's tables where they fit
+    (``_shift_dmem_smem``: 226,160 B at 27q-3l); its
     scratch the slots from ``_dmem_low_slot`` on (the checkpoints alone at
     m = k); as many samples a launch as SHIFT_DMEM_WORKSPACE_BYTES holds, at
     least one.  The only source of the route's geometry: the wrapper,
@@ -1759,28 +1768,68 @@ def _append_run(prog, ops, refs, m: int, k: int, src: int, dst: int, row: int) -
 
 
 #: fields of a staging-plan row (``_shift_dmem_stage``)
-_STAGE_FIELDS = 7
+_STAGE_FIELDS = 9
+#: a one-chunk pass's form (staging-plan field 7): its gates one sweep of
+#: the state each (``chunk_gates``); all of them in registers over orbits of
+#: its qubits, the state read and written once; or its one gate's result on
+#: each amplitude computed where the inner product reads it, nothing written
+_PER_GATE, _ORBIT, _ELEMENT = 0, 1, 2
+#: gates the one-sweep forms apply (every gate of the shift walk but CSWAP)
+_SWEEP_GATES = frozenset(("h", "rx", "ry", "rz", "ryy", "rzz", "cry", "crz"))
 
 
-def _shift_dmem_stage(rows) -> np.ndarray:
+def _coupled_qubits(op) -> tuple[int, ...]:
+    """The qubits across which ``op`` mixes amplitudes: none for the
+    diagonal gates (RZ, RZZ, CRZ), CRY's target, RYY's two, else its one."""
+    if op.gate in ("rz", "rzz", "crz"):
+        return ()
+    return op.qubits[1:] if op.gate == "cry" else op.qubits
+
+
+def _pass_form(src: int, dst: int, row: int, ops, k: int) -> tuple[int, int]:
+    """(form, orbit mask) of a one-chunk pass from its own shape: one gate
+    ending in an inner product on a staged checkpoint takes ``_ELEMENT``;
+    any other pass whose gates mix amplitudes across at most two amplitude
+    bits from 2 up (local qubit q is bit k - 1 - q; RYY on neighbouring
+    qubits) takes ``_ORBIT``: its orbit bits 0 and 1 (a float4's own), those
+    bits and, up to two, the lowest others from bit 5 (below 5 they would
+    meet in the shared-memory banks); the rest (the data run)
+    ``_PER_GATE``.  A two-qubit gate's qubits must ascend, as
+    ``chunk_gates`` has them."""
+    if k < 4 or any(op.gate not in _SWEEP_GATES or list(op.qubits) != sorted(op.qubits)
+                    for op in ops):
+        return _PER_GATE, 0
+    if row != -1 and dst < 0 and src >= 0 and len(ops) == 1:
+        return _ELEMENT, 0
+    high = {k - 1 - q for op in ops for q in _coupled_qubits(op)} - {0, 1}
+    if len(high) > 2 or any(op.gate == "ryy" and op.qubits[1] != op.qubits[0] + 1 for op in ops):
+        return _PER_GATE, 0
+    pad = [b for b in [*range(5, k), *range(2, min(5, k))] if b not in high]
+    return _ORBIT, sum(1 << b for b in sorted(high) + pad[:2 - len(high)]) | 0b11
+
+
+def _shift_dmem_stage(rows, forms) -> np.ndarray:
     """The kernel's staging plan for a one-chunk walk (m = k), a row a pass
-    of ``rows`` = (source, destination, output row): (work region, fetch
-    region, fetch slot, wait region, copy-from region, load region, load
-    slot), -1 for none.  Region 0 holds chi for the whole walk (the data
-    run builds it there, chi's runs apply in place); regions 1 and 2 hold
-    states.  Before its gates a pass fetches its checkpoint (a bulk load
-    issued then, and waited for), waits for one issued ahead, or finds it
-    still staged; makes |0...0> or copies into its work region; then issues
-    the load ahead, if any.  A pass whose checkpoint the next pass that
-    needs a region replays too (a parameter's two shifts; f0 and the
-    deepest parameter's) works on a copy in the other region and leaves
-    the checkpoint staged; so does a pass whose checkpoint the pass before
-    it stored from that region (a forward run after a forward run), so the
-    store drains while it computes.  A checkpoint stored and not staged is
-    loaded into the region no pass needs before it, at the first pass where
-    one is free and no pass in between needs a free region.  Raises
-    ValueError on a pass that reads or writes the variant slot, or chi into
-    another slot: a one-chunk walk has none."""
+    of ``rows`` = (source, destination, output row) with its ``forms`` =
+    (form, orbit mask): (work region, fetch region, fetch slot, wait
+    region, read region, load region, load slot, form, orbit mask), -1 for
+    none.  Region 0 holds chi for the whole walk (the data run builds it
+    there, chi's runs apply in place); regions 1 and 2 hold states.  Before
+    its gates a pass fetches its checkpoint (a bulk load issued then, and
+    waited for), waits for one issued ahead, or finds it still staged, and
+    issues the load ahead, if any; it reads its read region (-1: |0...0>)
+    and writes its work region (in place where the two are one).  An
+    ``_ELEMENT`` pass writes nothing (work region -1) and leaves its
+    checkpoint staged.  Any other pass whose checkpoint the next pass that
+    needs a region replays too (f0 and the deepest parameter's, on the
+    other forms) writes the other region and leaves the checkpoint staged;
+    so does a pass whose checkpoint the pass before it stored from that
+    region (a forward run after a forward run), so the store drains while
+    it computes.  A checkpoint stored and not staged is loaded into the
+    region no pass needs before it, at the first pass where one is free and
+    no pass in between needs a free region.  Raises ValueError on a pass
+    that reads or writes the variant slot, or chi into another slot: a
+    one-chunk walk has none."""
     rows = [tuple(int(x) for x in r[:3]) for r in rows]
     n = len(rows)
 
@@ -1800,15 +1849,19 @@ def _shift_dmem_stage(rows) -> np.ndarray:
         return rows[i][0] >= _DMEM_FIRST_CKPT and nxt[i] is not None \
             and rows[nxt[i]][0] == rows[i][0]
 
+    def needs_free(i):  # the pass writes a region its checkpoint is not staged in
+        return rows[i][0] == -1 or (forms[i][0] != _ELEMENT and keeps(i))
+
     held, loading = {1: None, 2: None}, {1: False, 2: False}
     plan = np.full((n, _STAGE_FIELDS), -1, np.int32)
     for i, (src, dst, row) in enumerate(rows):
+        plan[i, 7:9] = forms[i]
         if _DMEM_VARIANT in (src, dst):
             raise ValueError(f"pass {i} of a one-chunk walk uses the variant slot")
         if not in_buffer(i):
             if dst != _DMEM_CHI or src not in (-1, _DMEM_CHI) or row != -1:
                 raise ValueError(f"pass {i} ({src}, {dst}, {row}) moves chi out of its region")
-            plan[i, 0] = 0
+            plan[i, 0], plan[i, 4] = 0, src
             continue
         if src >= 0:
             b = next((r for r in (1, 2) if held[r] == src), None)
@@ -1819,26 +1872,29 @@ def _shift_dmem_stage(rows) -> np.ndarray:
                 held[b], loading[b] = src, True
             if loading[b]:
                 plan[i, 3], loading[b] = b, False
+            plan[i, 4] = b
             other = 3 - b
             drains = i > 0 and rows[i - 1][1] == src and plan[i - 1, 0] == b
-            if (keeps(i) or drains) and not loading[other]:
-                plan[i, 0], plan[i, 4] = other, b
-                work = other
-            else:
-                plan[i, 0], held[b] = b, None
+            if forms[i][0] == _ELEMENT:
                 work = b
+            elif (keeps(i) or drains) and not loading[other]:
+                plan[i, 0] = work = other
+            else:
+                plan[i, 0] = work = b
+                held[b] = None
         else:
             want = rows[nxt[i]][0] if nxt[i] is not None else None
             work = min((r for r in (1, 2) if not loading[r]),
                        key=lambda r: (held[r] is not None, held[r] == want))
             plan[i, 0] = work
-        held[work] = dst if dst >= 0 else None
+        if plan[i, 0] >= 0:
+            held[work] = dst if dst >= 0 else None
         # the next checkpoint to come, loaded ahead into a free region
         q = next((j for j in range(i + 1, n) if in_buffer(j) and rows[j][0] >= 0
                   and rows[j][0] not in held.values()), None)
         if q is None or stored.get(rows[q][0], n) >= i:
             continue
-        if any(rows[r][0] == -1 or keeps(r) for r in range(i + 1, q) if in_buffer(r)):
+        if any(needs_free(r) for r in range(i + 1, q) if in_buffer(r)):
             continue  # a pass before it needs the free region
         needed = {rows[r][0] for r in range(i + 1, q) if in_buffer(r)}
         free = [r for r in (1, 2) if r != work and not loading[r] and held[r] not in needed
@@ -1847,6 +1903,43 @@ def _shift_dmem_stage(rows) -> np.ndarray:
             plan[i, 5:7] = free[0], rows[q][0]
             held[free[0]], loading[free[0]] = rows[q][0], True
     return plan
+
+
+def _gate_sweeps(ops, k: int) -> int:
+    """Sweeps of a chunk that ``chunk_gates`` makes for ``ops``: one a gate,
+    but one for a run of one-qubit rotations of one qubit, and for a run of
+    one-qubit gates (H too) of local bit 0 or 1."""
+    n = j = 0
+    while j < len(ops):
+        op, j1 = ops[j], j + 1
+        low, q = op.qubits[-1] > k - 3, op.qubits[0]
+        joins = ("rx", "ry", "rz", "h") if low else ("rx", "ry", "rz")
+        if op.gate in joins:
+            while j1 < len(ops) and ops[j1].gate in joins and ops[j1].qubits[0] == q:
+                j1 += 1
+        n, j = n + 1, j1
+    return n
+
+
+def shift_dmem_sweeps(walk) -> tuple[int, int]:
+    """(sweeps, one-sweep passes) of a sample of the device-memory walk,
+    from its host plan: the block's sweeps over a whole state in shared
+    memory (|0...0> made or a state copied in, each gate sweep, each inner
+    product; at m > k, where a pass goes chunk by chunk, a chunk's fill
+    and its drain count too, and no pass is one sweep), and the passes that
+    make exactly one.  At m = k an ``_ORBIT`` pass is one sweep (one more
+    where it ends in an inner product), an ``_ELEMENT`` pass one."""
+    sweeps = one = 0
+    for i, (src, dst, row, lo, hi, *_) in enumerate(walk.passes.tolist()):
+        ops, ip = walk.local_ops[lo:hi], row != -1
+        if walk.stage is None:
+            sweeps += 1 + _gate_sweeps(ops, walk.k) + (dst >= 0) + ip
+            continue
+        work, rd, form = (int(x) for x in walk.stage[i, [0, 4, 7]])
+        n = (1 if form == _ELEMENT else 1 + ip if form == _ORBIT
+             else (rd != work) + _gate_sweeps(ops, walk.k) + ip)
+        sweeps, one = sweeps + n, one + (n == 1)
+    return sweeps, one
 
 
 @functools.lru_cache(maxsize=None)
@@ -1900,7 +1993,11 @@ def _shift_dmem_walk(spec: CircuitSpec, four_term: bool, groups: tuple[int, ...]
     passes, pass_ops, pass_refs, local_ops = prog
     d_i, d_f = ops_table(plan.data_ops)
     t_i, t_f = ops_table(plan.train_ops)
-    stage = _shift_dmem_stage(passes) if m == k else None
+    stage = None
+    if m == k:
+        stage = _shift_dmem_stage(passes, [
+            _pass_form(src, dst, row, local_ops[lo:hi], k)
+            for src, dst, row, lo, hi, *_ in passes])
     return _DmemWalk(
         np.array(passes, np.int64).astype(np.uint32).view(np.int32).reshape(-1, 7),
         np.array(pass_ops, np.int32).reshape(-1, 6), np.array(pass_refs, np.int32), stage,

@@ -333,27 +333,30 @@ def _shared_angle_spec(qc, n_shared):
 
 
 @pytest.mark.parametrize("name,m", [("27q-1l", 13), ("tied-27q-1l", 13), ("29q-1l", 14),
-                                    ("shared-29q-1l", 14), ("33q-1l", 16)])
-@pytest.mark.parametrize("subset", [False, True])
+                                    ("shared-29q-1l", 14), ("33q-1l", 16), ("27q-3l", 13),
+                                    ("four-27q-1l", 13), ("tied-27q-3l", 13)])
+@pytest.mark.parametrize("subset", [False, True, "even"])
 def test_shift_dmem_kernel_matches_plain(cuda, name, m, subset):
     """The shift walk's device-memory kernel (registers of 13-16 qubits,
-    one launch) against its plain version: whole banks and a group subset
-    of the 2-worker round robin."""
-    qc = int(name.split("-")[-2][:-1])
+    one launch) against its plain version: whole banks and each worker's
+    groups of the 2-worker round robin (odd groups: True; even: "even"),
+    the trained shape 27q-3l, a four-term bank and tied angles among them."""
+    qc, nl = (int(x[:-1]) for x in name.split("-")[-2:])
+    four = name.startswith("four")
     if name.startswith("tied"):
-        spec = circuits.build_tied_quclassi_circuit(qc, 1)
+        spec = circuits.build_tied_quclassi_circuit(qc, nl)
     elif name.startswith("shared"):
         spec = _shared_angle_spec(qc, 3)
     else:
-        spec = circuits.build_quclassi_circuit(qc, 1)
-    groups = tuple(range(1 + 2 * spec.n_theta))
+        spec = circuits.build_quclassi_circuit(qc, nl)
+    groups = tuple(range(1 + (4 if four else 2) * spec.n_theta))
     if subset:
-        groups = groups[1::2]
-    walk = K._shift_route(spec, False, groups, K.SMEM_BUDGET_BYTES)
+        groups = groups[0::2] if subset == "even" else groups[1::2]
+    walk = K._shift_route(spec, four, groups, K.SMEM_BUDGET_BYTES)
     assert walk.route == "dmem" and walk.m == m
     th, dt = _angles(spec, 33, cuda, seed=qc)
     before = dict(K.LAUNCHES)
-    got = K.vqc_shift_fidelity(spec, th, dt, groups=groups)
+    got = K.vqc_shift_fidelity(spec, th, dt, four_term=four, groups=groups)
     assert K.LAUNCHES["shift_dmem"] == before["shift_dmem"] + 1
     assert sum(K.LAUNCHES.values()) == sum(before.values()) + 1
     want = K._shift_dmem_plain(walk, th, dt)

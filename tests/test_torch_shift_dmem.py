@@ -111,8 +111,9 @@ WIDE = [(27, 1, 13, 1), (27, 3, 13, 1), (29, 1, 14, 2), (31, 1, 15, 4), (33, 1, 
 def test_route_and_geometry(qc, nl, m, chunks):
     """m = 13-16 take the device-memory walk at 227 KB: one block a sample,
     its shared memory three 64 KB chunks, two mbarriers and the tables
-    (the program's own too, where they fit: the staging plan at m = 13
-    only),
+    (at m = 13 each pass op's cos / sin, and the program's tables with the
+    staging plan; from m = 14 the deposit tables, the angle table, a pass's
+    cos / sin and the program's tables with the angle references),
     every pass of k = 13 local qubits holding the three lowest-order ones;
     its scratch the checkpoints alone at m = 13 (chi and the variant slot
     never leave shared memory), the variant slot too at m = 14 (chi
@@ -124,9 +125,14 @@ def test_route_and_geometry(qc, nl, m, chunks):
     assert (walk.route, walk.m, walk.k) == ("dmem", m, K.DMEM_LOCAL_QUBITS)
     blocks, smem, sample, per = K.shift_dmem_geometry(walk, 1152)
     assert blocks == 1 and 3 * 64 * 1024 < smem <= K.SMEM_BUDGET_BYTES
-    base = 4 * (6 * 2**13 + 64 + 2 * walk.n_angles + 2 * walk.max_pass_ops) + 8 * (2 + 320)
     assert (walk.stage is None) == (m > 13)
-    tables = 4 * ((7 + 7 * (m == 13)) * len(walk.passes) + 7 * len(walk.pass_refs))
+    n_ops = len(walk.pass_refs)
+    if m == 13:
+        base = 4 * (6 * 2**13 + 64 + 2 * n_ops) + 8 * 2
+        tables = 4 * ((7 + 9) * len(walk.passes) + 6 * n_ops)
+    else:
+        base = 4 * (6 * 2**13 + 64 + 2 * walk.n_angles + 2 * walk.max_pass_ops) + 8 * (2 + 320)
+        tables = 4 * (7 * len(walk.passes) + 7 * n_ops)
     assert K._shift_dmem_smem(walk) == (smem, True)
     assert smem == base + tables
     n_ckpt = len({p[0] for p in K.build_shift_plan(spec).theta_positions})
@@ -228,19 +234,21 @@ def test_m14_spans_cross_passes_match_single_sweep(qc, nl, tied):
 def test_traffic_counts_the_program():
     """27q-3l (m = 13): chi never leaves shared memory; the forward runs
     store the 74 checkpoints; each parameter's checkpoint is loaded once
-    for its two shifts, but the deepest, still staged after the forward
-    runs: 147 chunks a sample, where the kernel this one redesigned moved
-    518 (chi's load/store round trips and its reads for the inner
-    products, every variant's own load).  29q-1l (m = 14): chi resident,
-    each pass moves its other slots' chunks."""
+    for its two shifts, but the two deepest, still staged after the
+    forward runs (f0 and the deepest parameter's variants read the deepest
+    where it stands, and leave the one before it staged): 146 chunks a
+    sample, where a walk with every slot in device memory moved 518
+    (chi's load/store round trips and its reads for the inner products,
+    every variant's own load).  29q-1l (m = 14): chi resident, each pass
+    moves its other slots' chunks."""
     spec = tcircuits.build_quclassi_circuit(27, 3)
     walk = K._shift_route(spec, False, _all(spec), K.SMEM_BUDGET_BYTES)
     n_ckpt, stage = walk.n_slots - 2, walk.stage
     loads = np.concatenate([stage[:, 2][stage[:, 1] >= 0], stage[:, 6][stage[:, 5] >= 0]])
-    assert (n_ckpt, len(loads), len(set(loads.tolist()))) == (74, 73, 73)
+    assert (n_ckpt, len(loads), len(set(loads.tolist()))) == (74, 72, 72)
     assert loads.min() >= 2 and set(walk.passes[:, 1][walk.passes[:, 1] >= 2]) == \
         set(range(2, 2 + n_ckpt))
-    assert K.shift_dmem_traffic_bytes(walk) == 147 * K._state_bytes(13, 1)
+    assert K.shift_dmem_traffic_bytes(walk) == 146 * K._state_bytes(13, 1)
     spec = tcircuits.build_quclassi_circuit(29, 1)
     walk = K._shift_route(spec, False, _all(spec), K.SMEM_BUDGET_BYTES)
     per = sum((r[0] >= 1) + (r[1] >= 1) for r in walk.passes.tolist())
@@ -250,9 +258,9 @@ def test_traffic_counts_the_program():
 @pytest.mark.parametrize("worker", [0, 1])
 def test_traffic_of_a_worker_half_bank_m13(worker):
     """A worker's groups of the 2-worker round robin (27q-3l, both shifts
-    of every other parameter): 37 checkpoints stored, 36 loaded (the
-    deepest staged), 73 chunks a sample where the redesigned kernel moved
-    259-260, and none of chi's or the variant slot's."""
+    of every other parameter): 37 checkpoints stored, 35 loaded (the two
+    deepest staged), 72 chunks a sample where a walk with every slot in
+    device memory moved 259-260, and none of chi's or the variant slot's."""
     from repro_torch.comanager import dataplane
 
     spec = tcircuits.build_quclassi_circuit(27, 3)
@@ -260,22 +268,78 @@ def test_traffic_of_a_worker_half_bank_m13(worker):
     gs = tuple(g for g in _all(spec) if assign[g] == worker)
     walk = K._shift_route(spec, False, gs, K.SMEM_BUDGET_BYTES)
     assert walk.m == walk.k == 13 and walk.n_slots - 2 == 37
-    assert K.shift_dmem_traffic_bytes(walk) == 73 * K._state_bytes(13, 1)
+    assert K.shift_dmem_traffic_bytes(walk) == 72 * K._state_bytes(13, 1)
     stage = walk.stage
     assert min(stage[:, 2][stage[:, 1] >= 0].tolist() + stage[:, 6][stage[:, 5] >= 0].tolist()) >= 2
 
 
+@pytest.mark.parametrize("groups,sweeps,one", [(None, 310, 296), (0, 162, 148), (1, 162, 148)],
+                         ids=["whole", "worker0", "worker1"])
+def test_sweeps_a_sample_m13(groups, sweeps, one):
+    """27q-3l's whole bank and each worker's half of the 2-worker round
+    robin: every pass but the data run sweeps the state in shared memory
+    once (its 26 gates take 13 sweeps and |0...0> one), so a half takes
+    162 sweeps a sample where one sweep a gate took 372 (worker 0, with
+    f0) and 368; ``shift_execution_info`` reports the plan's counts."""
+    from repro_torch.comanager import dataplane
+
+    spec = tcircuits.build_quclassi_circuit(27, 3)
+    gs = _all(spec)
+    if groups is not None:
+        assign = dataplane.round_robin_assignment(len(gs), 2)
+        gs = tuple(g for g in gs if assign[g] == groups)
+    walk = K._shift_route(spec, False, gs, K.SMEM_BUDGET_BYTES)
+    assert K.shift_dmem_sweeps(walk) == (sweeps, one) and len(walk.passes) == one + 1
+    info = K.shift_execution_info(spec, 576, groups=gs)
+    assert (info["sweeps"], info["one_sweep_passes"], info["passes"]) == (sweeps, one, one + 1)
+    forms = walk.stage[:, 7].tolist()
+    assert forms[0] == K._PER_GATE and K._PER_GATE not in forms[1:]
+    variants = [st[7] for r, st in zip(walk.passes.tolist(), walk.stage.tolist()) if r[2] != -1]
+    assert set(variants) == {K._ELEMENT}
+
+
+@pytest.mark.parametrize("qc,nl,sweeps", [(29, 1, 353), (31, 1, 378), (33, 1, 403),
+                                          (33, 3, 1123)])
+def test_sweeps_a_sample_chunked(qc, nl, sweeps):
+    """m = 14-16 walk chunk by chunk, each pass a fill, its gates one sweep
+    each (chunk_gates: a run of one qubit's rotations in one), a drain where
+    it stores and an inner product where it ends in one: the count their
+    passes run, none of them one sweep."""
+    spec = tcircuits.build_quclassi_circuit(qc, nl)
+    walk = K._shift_route(spec, False, _all(spec), K.SMEM_BUDGET_BYTES)
+    assert walk.stage is None
+    want = 0
+    for src, dst, row, lo, hi, *_ in walk.passes.tolist():
+        ops, j = walk.local_ops[lo:hi], 0
+        while j < len(ops):  # chunk_gates' sweeps
+            j1, low = j + 1, ops[j].qubits[-1] > walk.k - 3
+            joins = ("rx", "ry", "rz", "h") if low else ("rx", "ry", "rz")
+            while ops[j].gate in joins and j1 < len(ops) and ops[j1].gate in joins \
+                    and ops[j1].qubits[0] == ops[j].qubits[0]:
+                j1 += 1
+            want, j = want + 1, j1
+        want += 1 + (dst >= 0) + (row != -1)
+    assert K.shift_dmem_sweeps(walk) == (want, 0) and want == sweeps
+    info = K.shift_execution_info(spec, 100)
+    assert (info["sweeps"], info["one_sweep_passes"]) == (sweeps, 0)
+
+
 def _run_stage(walk):
     """Run the staging plan symbolically, region by region, and return its
-    (loads, stores): each pass must find its source in its work region (a
-    checkpoint's stored value, |0...0> it makes, or chi in region 0), a
-    load must read a slot already stored into a region no thread touches
-    until it is waited for, and every load is waited for."""
+    (loads, stores): each pass must find its source in its read region (a
+    checkpoint's stored value, or chi in region 0; |0...0> reads none), a
+    load must read a slot already stored into a region no pass touches
+    until it is waited for, and every load is waited for.  An element pass
+    (one gate ending in an inner product) reads its staged checkpoint and
+    writes nothing, so the checkpoint stays staged; any other pass writes
+    its work region (in place where it is the read region), and a forward
+    run's region is the checkpoint it stores.  Each pass's orbit holds
+    every bit across which its gates mix amplitudes."""
     value, region, loading = {}, {0: None, 1: None, 2: None}, {1: None, 2: None}
     loads = stores = 0
     for i, (row, st) in enumerate(zip(walk.passes.tolist(), walk.stage.tolist())):
-        src, dst, out = row[:3]
-        work, fetch, fetch_slot, wait, copy, load, load_slot = st
+        src, dst, out, lo, hi = row[:5]
+        work, fetch, fetch_slot, wait, read, load, load_slot, form, orbit = st
 
         def issue(r, slot):
             assert r in (1, 2) and loading[r] is None and slot in value, (i, r, slot)
@@ -286,21 +350,25 @@ def _run_stage(walk):
         if wait >= 0:
             assert loading[wait] is not None, (i, wait)
             region[wait], loading[wait] = loading[wait], None
-        assert all(loading[r] is None for r in (work, copy) if r > 0), (i, work, copy)
+        assert all(loading[r] is None for r in (work, read) if r > 0), (i, work, read)
         if src < 0:
-            region[work] = ("zero", i)
-        elif copy >= 0:
-            region[work] = region[copy]
-        if src >= 0:
-            assert region[work] == ("slot", src, value[src]), (i, region[work])
-        assert load < 0 or load != work
+            assert read == -1, i
+        else:
+            assert region[read] == ("slot", src, value[src]), (i, read, region[read])
+        assert load < 0 or load not in (work, read), (i, load)
         loads += issue(load, load_slot) if load >= 0 else 0
-        region[work] = ("pass", i)
-        if dst >= 0:
-            assert (work == 0) == (dst == 0), (i, work, dst)
-            stores += dst > 0
-            value[dst] = ("pass", i)
-            region[work] = ("slot", dst, value[dst])
+        bits = {walk.k - 1 - q for op in walk.local_ops[lo:hi] for q in K._coupled_qubits(op)}
+        if form == K._ELEMENT:
+            assert (work, dst, hi - lo) == (-1, -1, 1) and out != -1 and read > 0, i
+        else:
+            assert form == K._PER_GATE or (orbit & 3 == 3 and bin(orbit).count("1") == 4
+                                           and bits == {b for b in bits if orbit >> b & 1}), i
+            region[work] = ("pass", i)
+            if dst >= 0:
+                assert (work == 0) == (dst == 0), (i, work, dst)
+                stores += dst > 0
+                value[dst] = ("pass", i)
+                region[work] = ("slot", dst, value[dst])
         if out != -1:
             assert work != 0 and region[0] == ("slot", 0, value[0]), i
     assert all(v is None for v in loading.values())
@@ -315,8 +383,9 @@ def test_staging_plan_feeds_every_pass(qc, nl, tied, four):
     """The one-chunk walk's staging plan, run symbolically on its whole bank,
     each worker's round-robin groups and 12 random group sets (repeats and
     lone shifts among them): every pass finds its state, no region is
-    touched while a load into it is in flight, and the traffic count is
-    the plan's loads and stores."""
+    touched while a load into it is in flight, the traffic count is the
+    plan's loads and stores, and every variant of one gate on a checkpoint
+    reads it where it stands."""
     build = tcircuits.build_tied_quclassi_circuit if tied else tcircuits.build_quclassi_circuit
     spec = build(qc, nl)
     gs = _all(spec, four)
@@ -329,6 +398,9 @@ def test_staging_plan_feeds_every_pass(qc, nl, tied, four):
         loads, stores = _run_stage(walk)
         assert stores == walk.n_slots - 2
         assert K.shift_dmem_traffic_bytes(walk) == (loads + stores) * K._state_bytes(walk.k, 1)
+        for (src, dst, row, lo, hi, *_), st in zip(walk.passes.tolist(), walk.stage.tolist()):
+            if walk.k >= 4 and src >= 0 and row != -1 and hi - lo == 1:
+                assert st[7] == K._ELEMENT
 
 
 @pytest.mark.parametrize("qc,nl,m,chunks", WIDE)
@@ -380,6 +452,8 @@ def test_launch_observer_reports_the_route():
         tops.set_launch_observer(prev)
     assert len(seen) == 1  # no depth tiles: no tile events
     assert (seen[0]["mode"], seen[0]["route"], seen[0]["launches"]) == ("spill", "dmem", 1)
+    walk = K._shift_route(spec, False, (0, 1, 2), K.SMEM_BUDGET_BYTES)
+    assert (seen[0]["sweeps"], seen[0]["one_sweep_passes"]) == K.shift_dmem_sweeps(walk)
 
 
 @pytest.mark.parametrize("mode", ["sync", "async"])

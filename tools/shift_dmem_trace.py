@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
 """Where a sample's time goes inside ``shift_dmem_kernel`` at m = 13, on one GPU.
 
-    python3 tools/shift_dmem_trace.py [--qc 27] [--layers 3] [--batch 1152]
+    python3 tools/shift_dmem_trace.py [--qc 27] [--layers 3] [--batch 576]
 
 Builds a copy of ``vqc_shift_dmem.cu`` with a ``clock64()`` stamp at seven
 points of the one-chunk pass loop (thread 0 of each block of the first
 wave), into ``build/shift_dmem_trace/``, and runs it through
 ``vqc_shift_fidelity`` in place of the built library on the whole bank and
 on each worker's groups of the 2-worker round robin.  Per kind of pass
-(the data run, forward runs, f0, variants on a copy or in place, chi's
-inverse runs) it reports the mean SM cycles of each segment:
+(the data run, forward runs, f0, variants, chi's inverse runs, each with
+the form the staging plan gives it: per_gate, orbit or element) it reports
+the mean SM cycles of each segment:
 
   top     the last pass's end to the pass's first barrier (the wait for a
           bulk store's read of a region the pass writes),
-  prep    the checkpoint fetch, the pass's cos / sin, the wait on its load,
-  make    |0...0> or the copy into its work region, and a barrier,
-  gates   the load issued ahead, then ``chunk_gates``,
+  prep    the checkpoint fetch, the wait on its load, the load issued ahead,
+  body    the pass's gates: its one sweep (orbit), its gate and inner
+          product with the reduction and the row's write (element), or
+          |0...0> or the copy and ``chunk_gates`` (per_gate),
   store   the bulk store's barrier and issue,
-  inner   the inner product and its block reduction,
-  tail    the row's write, to the next pass's start.
+  inner   the inner product of the other forms, its reduction and the row's
+          write,
+  tail    to the next pass's start.
 
 Prints a log and writes ``chiprun_out/shift_dmem_trace.json``.  The copy
 differs from the kernel by the stamps alone (a global store by thread 0 at
@@ -41,16 +44,20 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 from chip_smoke import log, smi_line, time_ms  # noqa: E402
 
-SEGMENTS = ("top", "prep", "make", "gates", "store", "inner", "tail")
-#: (text of the kernel, stamp placed before it or after it)
+SEGMENTS = ("top", "prep", "body", "store", "inner", "tail")
+#: (text of the kernel, stamps placed before it or after it): stamp 0 at a
+#: pass's start, 6 at its end; an element pass takes stamps 3-6 at once
 ANCHORS = (
-    ("    if (m == k && (recent >= 0 || older)) {", "before"),
-    ("    __syncthreads();  // the last pass is done with pang and the deposit tables\n", "after"),
-    ("        phase ^= 1u << wait;\n      }\n", "after"),
-    ("      __syncthreads();  // pang, and the state made\n", "after"),
-    ("      if (dst > 0) {\n", "before"),
-    ("        stores_open = true;\n      }\n", "after"),
-    ("      continue;\n", "before"),
+    ("      if (recent >= 0 || older) {  // no buffer is written while a store reads it\n",
+     "before", (0,)),
+    ("      __syncthreads();  // the last pass is done with the regions and the partial sums\n",
+     "after", (1,)),
+    ("      const float* r = rd >= 0 ? region(rd) : nullptr;\n", "before", (2,)),
+    ("        continue;\n      }\n      float* w = region(work);\n", "before", (3, 4, 5, 6)),
+    ("      if (dst > 0) {\n        asm volatile(\"fence.proxy.async.shared::cta;", "before", (3,)),
+    ("        stores_open = true;\n      }\n", "after", (4,)),
+    ("    }\n    if (tid == 0) bulk_wait_written();  // no store outlives the block\n", "before",
+     (5, 6)),
 )
 STAMP = ("if (g_trace && threadIdx.x == 0 && blockIdx.x < g_blocks) "
          "g_trace[((long long)blockIdx.x * n_passes + p) * 8 + {i}] = clock64();\n")
@@ -68,10 +75,10 @@ def build(out: Path) -> tuple:
     src = (csrc / "vqc_shift_dmem.cu").read_text()
     src = src.replace("namespace vqc {\n", "namespace vqc {\n__device__ long long* g_trace;\n"
                       "__device__ int g_blocks;\n", 1)
-    for i, (text, where) in enumerate(ANCHORS):
+    for text, where, marks in ANCHORS:
         if src.count(text) != 1:
-            raise RuntimeError(f"anchor {i} not found once in vqc_shift_dmem.cu: {text!r}")
-        stamp = STAMP.replace("{i}", str(i))
+            raise RuntimeError(f"anchor not found once in vqc_shift_dmem.cu: {text!r}")
+        stamp = "".join(STAMP.replace("{i}", str(i)) for i in marks)
         src = src.replace(text, stamp + text if where == "before" else text + stamp)
     src += ('\nextern "C" int set_trace(long long* p, int blocks) {\n'
             '  cudaMemcpyToSymbol(vqc::g_blocks, &blocks, sizeof(blocks));\n'
@@ -89,9 +96,9 @@ def build(out: Path) -> tuple:
 def kinds(walk) -> list[str]:
     out = []
     for (src, dst, row, *_), st in zip(walk.passes.tolist(), walk.stage.tolist()):
-        out.append("data" if src < 0 and dst == 0 else "chi" if src == 0 else
-                   "forward" if dst > 0 else "f0" if row == -2 else
-                   "variant_copy" if st[4] >= 0 else "variant_in_place")
+        kind = ("data" if src < 0 and dst == 0 else "chi" if src == 0 else
+                "forward" if dst > 0 else "f0" if row == -2 else "variant")
+        out.append(f"{kind}:{('per_gate', 'orbit', 'element')[st[7]]}")
     return out
 
 
@@ -102,7 +109,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--qc", type=int, default=27)
     ap.add_argument("--layers", type=int, default=3)
-    ap.add_argument("--batch", type=int, default=1152)
+    ap.add_argument("--batch", type=int, default=576)
     args = ap.parse_args()
     from repro_torch.comanager import dataplane
     from repro_torch.core import circuits
@@ -152,8 +159,7 @@ def main() -> int:
             nxt = np.concatenate([t[:, 1:, 0], t[:, -1:, 6]], axis=1)
             seg = np.stack([t[:, :, 1] - t[:, :, 0], t[:, :, 2] - t[:, :, 1],
                             t[:, :, 3] - t[:, :, 2], t[:, :, 4] - t[:, :, 3],
-                            t[:, :, 5] - t[:, :, 4], t[:, :, 6] - t[:, :, 5],
-                            nxt - t[:, :, 6]], axis=2).mean(axis=0)
+                            t[:, :, 5] - t[:, :, 4], nxt - t[:, :, 5]], axis=2).mean(axis=0)
             by_kind = {}
             for i, kind in enumerate(kinds(walk)):
                 rec = by_kind.setdefault(kind, {"passes": 0, **{s: 0.0 for s in SEGMENTS}})
